@@ -1,0 +1,12 @@
+from repro_torch.configs.base import (  # noqa: F401
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+    SHAPES,
+    SSMConfig,
+    ShapeConfig,
+    get_config,
+    list_configs,
+    register,
+    shape_applicable,
+)

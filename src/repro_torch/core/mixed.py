@@ -1,0 +1,238 @@
+"""The paper's mixed update strategy (mirror of ``repro.core.mixed``): matrix
+parameters -> the RMNP rule, everything else (norms, biases, optionally
+embeddings and the LM head) -> AdamW, with global-norm gradient clipping.
+
+The per-leaf path keeps one state tree shaped like ``params`` (momentum for
+matrix leaves, Adam ``(mu, nu)`` for the rest); the fused path runs the
+matrix partition through the bucketed engine (core/engine.py) and AdamW leaf
+by leaf.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch.core import bucketing
+from repro_torch.core.rmnp import rms_lr_scale
+from repro_torch.core.rules import NOT_PORTED, MatrixUpdateRule, make_rule, rule_names
+from repro_torch.core.types import (Optimizer, PyTree, Schedule, map_unzip, map_with_path,
+                                    tree_paths)
+from repro_torch.kernels import ops as kops
+
+# parameter path fragments always handled by AdamW regardless of rank
+_NON_MATRIX_TOKENS = ("norm", "bias", "scale", "a_log", "dt_", "conv")
+
+
+def is_matrix_param(path: str, leaf, matrix_embed: bool = True) -> bool:
+    """True when the leaf gets the matrix (RMNP) optimizer."""
+    lp = path.lower()
+    if any(tok in lp for tok in _NON_MATRIX_TOKENS):
+        return False
+    if not matrix_embed and ("embed" in lp or "lm_head" in lp):
+        return False
+    if not hasattr(leaf, "ndim") or leaf.ndim < 2:
+        return False
+    return leaf.shape[-1] > 1 and leaf.shape[-2] > 1
+
+
+class ClipStats(NamedTuple):
+    global_norm: torch.Tensor
+    clipped: torch.Tensor  # 1.0 when the step was clipped
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float):
+    """Global-norm clip. The sum of squares runs over the leaves in tree
+    order, as in the JAX package. ``max_norm <= 0`` disables clipping: the
+    grads pass through untouched while ``global_norm`` is still measured and
+    ``clipped`` pins to 0.0."""
+    leaves = [g for _, g in tree_paths(grads)]
+    sq = None
+    for g in leaves:
+        term = torch.sum(torch.square(g.float()))
+        sq = term if sq is None else sq + term
+    gnorm = torch.sqrt(sq)
+    if max_norm <= 0:
+        return grads, ClipStats(global_norm=gnorm, clipped=torch.zeros_like(gnorm))
+    scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+    clipped = map_with_path(lambda _p, g: (g.float() * scale).to(g.dtype), grads)
+    return clipped, ClipStats(global_norm=gnorm, clipped=(gnorm > max_norm).float())
+
+
+class MixedState(NamedTuple):
+    momentum: PyTree  # fp32; matrix-optimizer momentum OR Adam mu per leaf
+    nu: PyTree        # fp32; Adam second moment ((1,)*ndim on matrix leaves)
+
+
+class FusedMixedState(NamedTuple):
+    """State of the shape-bucketed fused path: matrix momentum stacked per
+    bucket; the per-leaf trees keep ``(1,)*ndim`` placeholders on matrix
+    leaves so their structure mirrors ``params``."""
+    momentum: PyTree                     # AdamW first moment
+    nu: PyTree                           # AdamW second moment
+    buckets: Dict[str, torch.Tensor]     # stacked matrix momentum per bucket
+    slots: Dict[str, Dict[str, torch.Tensor]] = {}
+
+
+def _adam_scalars(step, b1, b2):
+    t = torch.as_tensor(step, dtype=torch.float32) + 1.0
+    return 1.0 - b1 ** t, 1.0 - b2 ** t
+
+
+def mixed_optimizer(
+    matrix_kind: str,                      # "rmnp" | "adamw"
+    lr_matrix: Schedule,
+    lr_adamw: Schedule,
+    beta: float = 0.95,
+    weight_decay: float = 0.1,
+    adam_betas=(0.9, 0.95),
+    adam_eps: float = 1e-8,
+    rn_eps: float = 1e-8,
+    matrix_embed: bool = True,
+    use_kernel: bool = False,
+    fused: bool = False,
+    momentum_dtype: str = "float32",
+    fused_apply: bool = False,
+) -> Optimizer:
+    """Build the paper's mixed optimizer: ``'rmnp'`` on matrix parameters
+    and AdamW on the rest, or ``'adamw'`` on everything. ``fused=True``
+    routes the matrix partition through the bucketed engine (one kernel
+    launch per ``(d_in, d_out)`` bucket on the card);
+    ``fused_apply=True`` (implies ``fused``) exposes ``update_apply``, the
+    single-pass path. ``momentum_dtype`` sets the fused matrix-momentum
+    storage type (math is fp32).
+
+    ``use_kernel`` is accepted for the JAX package's signature and selects
+    nothing: the port has one path per device, and every RMNP update goes
+    through ``kernels/ops.py``, which launches the Hopper kernels on CUDA
+    tensors and runs their plain versions on CPU tensors."""
+    del use_kernel
+    if matrix_kind in NOT_PORTED:
+        make_rule(matrix_kind)  # raises, naming the ROADMAP item
+    if matrix_kind not in rule_names() + ("adamw",):
+        raise ValueError(
+            f"unknown matrix optimizer {matrix_kind!r}; expected one of "
+            f"{', '.join(rule_names() + ('adamw',))}")
+    if fused_apply:
+        fused = True
+    b1, b2 = adam_betas
+
+    def _is_mat(path, leaf):
+        return matrix_kind != "adamw" and is_matrix_param(path, leaf, matrix_embed)
+
+    if fused:
+        rule = make_rule("rmnp", beta=beta, weight_decay=weight_decay, eps=rn_eps)
+        return _fused_mixed(
+            rule, lr_matrix, lr_adamw, is_mat=_is_mat,
+            weight_decay=weight_decay, b1=b1, b2=b2, adam_eps=adam_eps,
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply)
+
+    def init(params):
+        momentum = map_with_path(
+            lambda _p, p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+            params)
+        nu = map_with_path(
+            lambda path, p: torch.zeros(
+                p.shape if not _is_mat(path, p) else (1,) * p.ndim,
+                dtype=torch.float32, device=p.device), params)
+        return MixedState(momentum=momentum, nu=nu)
+
+    def update(grads, state, params, step):
+        eta_m = lr_matrix(step)
+        eta_a = lr_adamw(step)
+        bc1, bc2 = _adam_scalars(step, b1, b2)
+
+        def upd(path, g, v, nu, p):
+            g32 = g.float()
+            p32 = p.float()
+            if _is_mat(path, p):
+                v_new, d = kops.rmnp_momentum_rownorm(g32, v, beta=beta, eps=rn_eps)
+                scale = eta_m * rms_lr_scale(p.shape)
+                return -scale * (d + weight_decay * p32), v_new, nu
+            mu_new = b1 * v + (1 - b1) * g32
+            nu_new = b2 * nu + (1 - b2) * torch.square(g32)
+            d = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + adam_eps)
+            return -eta_a * (d + weight_decay * p32), mu_new, nu_new
+
+        updates, momentum, nu = map_unzip(upd, 3, grads, state.momentum,
+                                          state.nu, params)
+        return updates, MixedState(momentum=momentum, nu=nu)
+
+    return Optimizer(init=init, update=update)
+
+
+def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
+                 lr_adamw: Schedule, *, is_mat,
+                 weight_decay: float, b1: float, b2: float,
+                 adam_eps: float, momentum_dtype: str,
+                 fused_apply: bool = False) -> Optimizer:
+    """Mixed optimizer with the matrix partition on the bucketed engine under
+    ``rule``; AdamW leaves stay per-leaf."""
+    from repro_torch.core.engine import BucketedEngine, _device_of
+
+    eng = BucketedEngine(rule, lr_matrix, momentum_dtype=momentum_dtype,
+                         predicate=is_mat)
+
+    def init(params):
+        bucketed = eng.init_state(eng.plan(params), device=_device_of(params))
+
+        def placeholder(path, p):
+            return torch.zeros((1,) * p.ndim if is_mat(path, p) else p.shape,
+                               dtype=torch.float32, device=p.device)
+        return FusedMixedState(momentum=map_with_path(placeholder, params),
+                               nu=map_with_path(placeholder, params),
+                               buckets=bucketed.buckets, slots=bucketed.slots)
+
+    def adam_sweep(grads, state, params, step, emit):
+        """Shared per-leaf AdamW pass. ``emit(u, p)`` turns the fp32 update
+        (``u=None`` on matrix leaves, which the bucket scatter overwrites)
+        into the output leaf — the only place the two-pass and single-pass
+        paths differ. Returns (emitted tree, momentum, nu)."""
+        eta_a = lr_adamw(step)
+        bc1, bc2 = _adam_scalars(step, b1, b2)
+
+        def upd_adam(path, g, mu, nu, p):
+            if is_mat(path, p):
+                return emit(None, p), mu, nu
+            g32 = g.float()
+            mu_new = b1 * mu + (1 - b1) * g32
+            nu_new = b2 * nu + (1 - b2) * torch.square(g32)
+            d = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + adam_eps)
+            u = -eta_a * (d + weight_decay * p.float())
+            return emit(u, p), mu_new, nu_new
+
+        return map_unzip(upd_adam, 3, grads, state.momentum, state.nu, params)
+
+    def update(grads, state, params, step):
+        plan = eng.plan(params)
+        updates, momentum, nu = adam_sweep(
+            grads, state, params, step,
+            emit=lambda u, p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device) if u is None else u)
+        g_b = bucketing.gather(plan, grads, dtype=torch.float32)
+        p_b = bucketing.gather(plan, params, dtype=torch.float32)
+        upd_b, v_b, s_b = eng.update_buckets(plan, g_b, p_b, state.buckets,
+                                             state.slots, step)
+        updates = bucketing.scatter(plan, upd_b, updates)
+        return updates, FusedMixedState(momentum=momentum, nu=nu,
+                                        buckets=v_b, slots=s_b)
+
+    def update_apply(grads, state, params, step):
+        """Single-pass fused apply -> (new_params, state): AdamW leaves
+        compute their new params directly; matrix buckets run the apply
+        kernel (gather g, v, w; one pass; scatter the new weights)."""
+        plan = eng.plan(params)
+        new_params, momentum, nu = adam_sweep(
+            grads, state, params, step,
+            emit=lambda u, p: p if u is None else p + u.to(p.dtype))
+        g_b = bucketing.gather(plan, grads, dtype=torch.float32)
+        p_b = bucketing.gather(plan, params)
+        w_b, v_b, s_b = eng.apply_buckets(plan, g_b, p_b, state.buckets,
+                                          state.slots, step)
+        new_params = bucketing.scatter(plan, w_b, new_params, cast=True)
+        return new_params, FusedMixedState(momentum=momentum, nu=nu,
+                                           buckets=v_b, slots=s_b)
+
+    return Optimizer(init=init, update=update,
+                     update_apply=update_apply if fused_apply else None,
+                     bucket_plan=eng.plan)

@@ -1,0 +1,86 @@
+"""Build the port's kernels from the sources in the checkout, at first use.
+
+CUDA C++ sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into shared libraries with a plain C interface, loaded with
+``ctypes``. Each library is named by a hash of its source and flags, so an
+edited source rebuilds and concurrent builds never see a half-written
+file. Triton keeps its compiled kernels in a cache directory beside them.
+Everything goes under ``build/kernels`` at the repository root, which
+``.gitignore`` lists. A build failure raises with the compiler's output;
+nothing falls back to a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each library built by
+# this process, by library name
+PTXAS_REPORTS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "port's CUDA kernels are built on the machine "
+                           "with the card")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless this exact source was built before."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name} ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    PTXAS_REPORTS[name] = proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_library(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def triton_cache_dir() -> None:
+    """Point Triton's cache into the build directory (unless the caller set
+    one), so that compiled Triton kernels stay inside the checkout. Call
+    before Triton compiles anything."""
+    if "TRITON_CACHE_DIR" not in os.environ:
+        path = BUILD_DIR / "triton"
+        path.mkdir(parents=True, exist_ok=True)
+        os.environ["TRITON_CACHE_DIR"] = str(path)

@@ -1,0 +1,205 @@
+"""Model assembly of the port, dense families (mirror of ``repro.models.model``).
+
+A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units;
+the unit's parameters are stacked ``(n_units, ...)`` exactly as in the JAX
+package, so tree paths, leaf shapes and optimizer buckets match. The forward
+walks the stack with a Python loop over ``torch.unbind`` slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import map_with_path, tree_paths
+from repro_torch.models import layers as L
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Stack planning
+# ---------------------------------------------------------------------------
+
+def plan_stack(pattern) -> Tuple[int, int, int]:
+    """Return (prefix_len, unit_len, n_units) with pattern == prefix + unit*n."""
+    n = len(pattern)
+    best = (n, 1, 0)  # fully-unrolled fallback: all layers in the prefix
+    best_p = n + 1
+    for q in range(0, min(3, n)):
+        rest = pattern[q:]
+        for p in range(1, len(rest) + 1):
+            if len(rest) % p == 0 and rest == tuple(rest[:p]) * (len(rest) // p):
+                if p < best_p:
+                    best, best_p = (q, p, len(rest) // p), p
+                break
+    return best
+
+
+def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict[str, Any]:
+    if mixer != "gqa" or ffn not in ("dense", "none"):
+        raise NotImplementedError(
+            f"layer ({mixer}, {ffn}) is not ported yet (ROADMAP Queue 1, "
+            f"item 9: non-dense model families)")
+    specs = {"mixer": L.gqa_specs(cfg)}
+    if ffn == "dense":
+        specs["ffn"] = L.ffn_specs(cfg)
+    return specs
+
+
+def _stack_specs(specs, n_units: int):
+    if isinstance(specs, dict):
+        return {k: _stack_specs(v, n_units) for k, v in specs.items()}
+    return L.ParamSpec((n_units,) + specs.shape, ("layers",) + tuple(specs.axes),
+                       specs.init, specs.scale, specs.dtype)
+
+
+def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, V = cfg.d_model, cfg.padded_vocab
+    q, p, n = plan_stack(cfg.pattern)
+    specs: Dict[str, Any] = {
+        "embed": {"tokens": L.ParamSpec((V, d), ("vocab", "embed"), "normal", 0.02)},
+        "final_norm": L.ParamSpec((d,), ("embed",), "ones"),
+    }
+    for i in range(q):
+        mixer, ffn = cfg.pattern[i]
+        specs[f"prefix_{i}"] = _layer_specs(cfg, mixer, ffn)
+    if n:
+        unit = {}
+        for j in range(p):
+            mixer, ffn = cfg.pattern[q + j]
+            unit[f"layer_{j}"] = _layer_specs(cfg, mixer, ffn)
+        specs["stack"] = _stack_specs(unit, n)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = L.ParamSpec((d, V), ("d_in", "vocab"), "fan_in")
+    return specs
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """Random parameters from ``seed``, drawn leaf by leaf in tree order from
+    one ``torch.Generator`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dtype = torch_dtype(cfg.dtype)
+    specs = build_param_specs(cfg)
+    flat = {path: L.materialize(spec, gen, dtype, device)
+            for path, spec in _spec_paths(specs)}
+    return map_with_path(lambda path, _spec: flat[path], specs)
+
+
+def _spec_paths(specs, prefix=()):
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            yield from _spec_paths(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg, ffn, p, x, positions, mode):
+    x = x + L.gqa_apply(cfg, p["mixer"], x, positions, mode)
+    if ffn == "dense":
+        x = x + L.ffn_apply(cfg, p["ffn"], x)
+    return x
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            mode: str = "train", remat: str = "full", return_hidden: bool = False):
+    """mode: train. Returns (logits, None, aux); with ``return_hidden`` the
+    first element is the final-norm hidden state. ``remat="full"`` keeps
+    only each unit's input and recomputes the unit in the backward
+    (``torch.utils.checkpoint``), which changes no number."""
+    if mode != "train":
+        raise NotImplementedError(
+            f"forward mode {mode!r} is not ported yet (ROADMAP Queue 1, item 8: "
+            f"serving)")
+    q, p, n = plan_stack(cfg.pattern)
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    x = params["embed"]["tokens"][tokens]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for i in range(q):
+        _, ffn = cfg.pattern[i]
+        x = _apply_layer(cfg, ffn, params[f"prefix_{i}"], x, positions, mode)
+
+    if n:
+        unit_kinds = [cfg.pattern[q + j] for j in range(p)]
+        stacked = tree_paths(params["stack"])
+        slices = {path: torch.unbind(t, 0) for path, t in stacked}
+
+        def apply_unit(x_in, u):
+            unit = map_with_path(lambda path, _t: slices[path][u], params["stack"])
+            for j, (_, ffn) in enumerate(unit_kinds):
+                x_in = _apply_layer(cfg, ffn, unit[f"layer_{j}"], x_in,
+                                    positions, mode)
+            return x_in
+
+        for u in range(n):
+            if remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(apply_unit, x, u, use_reentrant=False)
+            else:
+                x = apply_unit(x, u)
+
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x, None, aux
+    head = params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head, None, aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+_LOSS_CHUNK = 1024
+
+
+def _ce_terms(logits, labels, mask):
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat: str = "full"):
+    """Cross-entropy with the LM head applied in sequence chunks when S is a
+    multiple of the chunk above one chunk (each chunk recomputed in the
+    backward), so the full (B, S, V) fp32 logits never exist there."""
+    hidden, _, aux = forward(cfg, params, batch, "train", remat=remat,
+                             return_hidden=True)
+    head = params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    labels_c = torch.clamp(labels, min=0)
+    B, S, _ = hidden.shape
+
+    if S % _LOSS_CHUNK == 0 and S > _LOSS_CHUNK:
+        nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(S // _LOSS_CHUNK):
+            sl = slice(c * _LOSS_CHUNK, (c + 1) * _LOSS_CHUNK)
+            nll_sum = nll_sum + checkpoint(
+                lambda h, lab, m: _ce_terms(h @ head, lab, m),
+                hidden[:, sl], labels_c[:, sl], mask[:, sl], use_reentrant=False)
+    else:
+        nll_sum = _ce_terms(hidden @ head, labels_c, mask)
+
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    nll = nll_sum / denom
+    loss = nll + aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux, "ntokens": denom}

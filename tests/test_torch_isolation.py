@@ -1,0 +1,52 @@
+"""The port stands alone: no module under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports JAX or the JAX package.
+
+The machine with the card has PyTorch and no JAX, so one such import would
+stop the port there. The scan reads every import statement (top level or
+nested in a function) with ``ast``; nothing is imported to check it.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_the_scan_covers_the_port():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for expected in ("chip_smoke.py", "src/repro_torch/kernels/rmnp_update.py",
+                     "src/repro_torch/kernels/flash_attention.py",
+                     "src/repro_torch/launch/train.py"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_import(path):
+    bad = [f"{path.name}:{line} imports {mod}"
+           for line, mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_the_scan_catches_a_reference_import(tmp_path):
+    """The check itself: nested and dotted imports of the reference are found,
+    while ``repro_torch`` (which only starts with the same letters) is not."""
+    probe = tmp_path / "probe.py"
+    probe.write_text("import repro_torch.core\n"
+                     "def f():\n    from repro.core import rmnp\n"
+                     "    import jax.numpy as jnp\n")
+    mods = [m.split(".")[0] for _, m in _imported_modules(probe)]
+    assert [m for m in mods if m in FORBIDDEN] == ["repro", "jax"]

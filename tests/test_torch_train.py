@@ -1,0 +1,136 @@
+"""The port's train step and driver against the JAX package's.
+
+Three steps of ``make_train_step`` on reduced gpt2 from the same parameters
+(exported from ``repro.models.init_params``) and the same ``make_stream``
+batches, port against JAX, with the single-pass engine and ``use_kernel``
+(Pallas in interpret mode on the JAX side; the kernels' plain versions on
+the port's CPU tensors). Then the port's ``train()`` driver on the CPU.
+
+Tolerances. The losses agree to 1e-6 relative and the parameters to 1e-5 of
+each leaf's largest entry: the forward and backward agree to an ulp or two
+(tests/test_torch_model.py), and the optimizer divides each gradient column
+by its norm, which keeps a gradient's relative error in the update, so
+three steps move the parameters by lr-sized steps that agree to about that
+relative error (measured 2e-7 of the largest entry).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core import cosine_with_warmup as jax_cosine
+from repro.core import make_optimizer as jax_make_optimizer
+from repro.data.pipeline import make_stream as jax_make_stream
+from repro.models import init_params as jax_init_params
+from repro.train.step import make_train_step as jax_make_train_step
+from repro_torch.configs import get_config
+from repro_torch.core import cosine_with_warmup, make_optimizer
+from repro_torch.core.types import tree_paths
+from repro_torch.data.pipeline import make_stream
+from repro_torch.interop import to_numpy, tree_from_numpy
+from repro_torch.kernels import LAUNCHES
+from repro_torch.launch import train as train_mod
+from repro_torch.train.step import make_train_step
+
+STEPS, BATCH, SEQ = 3, 2, 16
+
+
+def _opt_config(cosine, engine):
+    return dict(lr_matrix=cosine(2e-2, STEPS), lr_adamw=cosine(1e-2, STEPS),
+                use_kernel=True, fused=engine != "per-leaf",
+                fused_apply=engine == "single-pass")
+
+
+@pytest.mark.parametrize("engine,accum,clip", [("single-pass", 1, 1.0),
+                                               ("single-pass", 2, 0.0),
+                                               ("bucketed", 1, 0.5)],
+                         ids=["single_pass", "accum2_noclip", "bucketed_clip"])
+def test_three_steps_match_jax(engine, accum, clip):
+    jcfg = jax_get_config("gpt2-small").reduced(attn_impl="pallas", attn_chunk_q=8,
+                                                attn_chunk_k=8)
+    cfg = get_config("gpt2-small").reduced(attn_impl="pallas", attn_chunk_q=8,
+                                           attn_chunk_k=8)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = tree_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+
+    jopt = jax_make_optimizer("rmnp", _opt_config(jax_cosine, engine))
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt, clip_norm=clip, remat="full",
+                                        num_microbatches=accum))
+    opt = make_optimizer("rmnp", _opt_config(cosine_with_warmup, engine))
+    step_fn = make_train_step(cfg, opt, clip_norm=clip, remat="full",
+                              num_microbatches=accum)
+    jstate, state = jopt.init(jparams), opt.init(params)
+    jstream, stream = jax_make_stream(jcfg, SEQ, BATCH, seed=0), make_stream(cfg, SEQ, BATCH)
+    want, got = [], []
+    for step in range(STEPS):
+        np_batch = next(stream)
+        assert all(np.array_equal(np_batch[k], v) for k, v in next(jstream).items())
+        jparams, jstate, jm = jstep(jparams, jstate,
+                                    {k: jnp.asarray(v) for k, v in np_batch.items()}, step)
+        params, state, m = step_fn(params, state,
+                                   {k: torch.from_numpy(v) for k, v in np_batch.items()},
+                                   step)
+        want.append([float(jm[k]) for k in ("loss", "grad_norm", "clip_rate")])
+        got.append([float(m[k]) for k in ("loss", "grad_norm", "clip_rate")])
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-6, atol=0)
+    assert len({round(w[0], 6) for w in want}) == STEPS  # the loss moved
+    jflat = dict(tree_paths(jax.tree_util.tree_map(np.asarray, jparams)))
+    for path, t in tree_paths(params):
+        w = jflat[path].astype(np.float32)
+        np.testing.assert_allclose(to_numpy(t), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()), err_msg=path)
+
+
+def test_train_driver_on_the_cpu(tmp_path):
+    log = tmp_path / "log.json"
+    params, state, hist = train_mod.train(
+        "llama-60m", steps=4, batch=2, seq=16, log_every=1, use_kernel=True,
+        fused=True, fused_apply=True, momentum_dtype="bfloat16", device="cpu",
+        log_file=str(log), dump_params=str(tmp_path / "p.npz"))
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert all(n == 0 for h in hist for n in h["launches"].values())
+    assert all(b.dtype == torch.bfloat16 and b.device.type == "cpu"
+               for b in state.buckets.values())
+    assert log.exists() and (tmp_path / "p.npz").exists()
+    dumped = np.load(tmp_path / "p.npz")
+    assert sorted(dumped.files) == sorted(p for p, _ in tree_paths(params))
+    assert sum(LAUNCHES.values()) == 0
+
+
+def test_cli_runs_the_engines_on_the_cpu(capsys):
+    for engine in ("per-leaf", "bucketed", "single-pass"):
+        train_mod.main(["--arch", "gpt2-small", "--steps", "2", "--batch", "2",
+                        "--seq", "16", "--log-every", "1", "--engine", engine,
+                        "--use-kernel", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("[train] step=1") == 3
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("--zero2", "Queue 1, item 6"), ("--ckpt-dir=x", "Queue 1, item 7"),
+    ("--guard", "Queue 1, item 7"), ("--inject-fault=nan:wq:1", "Queue 1, item 7"),
+    ("--kill-at=1", "Queue 1, item 7"), ("--watchdog-deadline=5", "Queue 1, item 7"),
+    ("--dominance-every=1", "Queue 1, item 5")])
+def test_unported_flags_raise_and_name_their_item(flag, item):
+    with pytest.raises(NotImplementedError, match=item):
+        train_mod.main(["--arch", "gpt2-small", "--steps", "1", "--device", "cpu", flag])
+
+
+def test_guard_and_fault_in_the_step_raise():
+    cfg = get_config("gpt2-small").reduced()
+    opt = make_optimizer("rmnp", dict(lr_matrix=1e-3))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        make_train_step(cfg, opt, guard=True)
+
+
+def test_entry_points_default_to_the_card():
+    """Nothing picks the CPU for the caller: without a card, the default
+    device fails instead of carrying on."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        train_mod.train("gpt2-small", steps=1, batch=2, seq=16)
