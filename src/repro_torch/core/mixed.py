@@ -1,5 +1,6 @@
 """The paper's mixed update strategy (mirror of ``repro.core.mixed``): matrix
-parameters -> the RMNP rule, everything else (norms, biases, optionally
+parameters -> any registered matrix update rule (RMNP, Muon, NorMuon, Muown,
+Nora; ``core/rules.py``), everything else (norms, biases, optionally
 embeddings and the LM head) -> AdamW, with global-norm gradient clipping.
 
 The per-leaf path keeps one state tree shaped like ``params`` (momentum for
@@ -15,17 +16,16 @@ import torch
 
 from repro_torch.core import bucketing
 from repro_torch.core.rmnp import rms_lr_scale
-from repro_torch.core.rules import NOT_PORTED, MatrixUpdateRule, make_rule, rule_names
+from repro_torch.core.rules import MatrixUpdateRule, make_rule, rule_names
 from repro_torch.core.types import (Optimizer, PyTree, Schedule, map_unzip, map_with_path,
                                     tree_paths)
-from repro_torch.kernels import ops as kops
 
 # parameter path fragments always handled by AdamW regardless of rank
 _NON_MATRIX_TOKENS = ("norm", "bias", "scale", "a_log", "dt_", "conv")
 
 
 def is_matrix_param(path: str, leaf, matrix_embed: bool = True) -> bool:
-    """True when the leaf gets the matrix (RMNP) optimizer."""
+    """True when the leaf gets the matrix (RMNP/Muon) optimizer."""
     lp = path.lower()
     if any(tok in lp for tok in _NON_MATRIX_TOKENS):
         return False
@@ -80,7 +80,7 @@ def _adam_scalars(step, b1, b2):
 
 
 def mixed_optimizer(
-    matrix_kind: str,                      # "rmnp" | "adamw"
+    matrix_kind: str,                      # any rules.rule_names() | "adamw"
     lr_matrix: Schedule,
     lr_adamw: Schedule,
     beta: float = 0.95,
@@ -89,39 +89,47 @@ def mixed_optimizer(
     adam_eps: float = 1e-8,
     rn_eps: float = 1e-8,
     matrix_embed: bool = True,
+    ns_steps: int = 5,
     use_kernel: bool = False,
     fused: bool = False,
     momentum_dtype: str = "float32",
     fused_apply: bool = False,
 ) -> Optimizer:
-    """Build the paper's mixed optimizer: ``'rmnp'`` on matrix parameters
-    and AdamW on the rest, or ``'adamw'`` on everything. ``fused=True``
-    routes the matrix partition through the bucketed engine (one kernel
-    launch per ``(d_in, d_out)`` bucket on the card);
+    """Build the paper's mixed optimizer: any registered matrix update rule
+    (``rules.rule_names()``: rmnp, muon, normuon, muown, nora) on matrix
+    parameters and AdamW on the rest, or ``'adamw'`` on everything.
+    ``fused=True`` routes the matrix partition through the bucketed engine
+    (one rule pass per ``(d_in, d_out)`` bucket: one RMNP kernel launch, or
+    one Newton-Schulz launch sequence per iteration, on the card).
+    NorMuon, Muown and Nora keep slot stripes or a non-additive apply that
+    exist only in the bucketed layout, so they imply ``fused=True``.
     ``fused_apply=True`` (implies ``fused``) exposes ``update_apply``, the
     single-pass path. ``momentum_dtype`` sets the fused matrix-momentum
     storage type (math is fp32).
 
     ``use_kernel`` is accepted for the JAX package's signature and selects
-    nothing: the port has one path per device, and every RMNP update goes
-    through ``kernels/ops.py``, which launches the Hopper kernels on CUDA
-    tensors and runs their plain versions on CPU tensors."""
+    nothing: the port has one path per device, and every RMNP update and
+    Newton-Schulz iteration goes through ``kernels/ops.py``, which launches
+    the Hopper kernels on CUDA tensors and runs their plain versions on CPU
+    tensors."""
     del use_kernel
-    if matrix_kind in NOT_PORTED:
-        make_rule(matrix_kind)  # raises, naming the ROADMAP item
     if matrix_kind not in rule_names() + ("adamw",):
         raise ValueError(
             f"unknown matrix optimizer {matrix_kind!r}; expected one of "
             f"{', '.join(rule_names() + ('adamw',))}")
     if fused_apply:
         fused = True
+    if matrix_kind not in ("rmnp", "muon", "adamw"):
+        fused = True  # slot stripes / non-additive apply are bucketed-only
     b1, b2 = adam_betas
 
     def _is_mat(path, leaf):
         return matrix_kind != "adamw" and is_matrix_param(path, leaf, matrix_embed)
 
+    # adamw has no matrix partition, so any rule serves as a placeholder
+    rule = make_rule("rmnp" if matrix_kind == "adamw" else matrix_kind,
+                     beta=beta, weight_decay=weight_decay, eps=rn_eps, ns_steps=ns_steps)
     if fused:
-        rule = make_rule("rmnp", beta=beta, weight_decay=weight_decay, eps=rn_eps)
         return _fused_mixed(
             rule, lr_matrix, lr_adamw, is_mat=_is_mat,
             weight_decay=weight_decay, b1=b1, b2=b2, adam_eps=adam_eps,
@@ -146,7 +154,9 @@ def mixed_optimizer(
             g32 = g.float()
             p32 = p.float()
             if _is_mat(path, p):
-                v_new, d = kops.rmnp_momentum_rownorm(g32, v, beta=beta, eps=rn_eps)
+                # rmnp or muon (the others imply fused): the rule's direction
+                # on one leaf, through the same kernel entries as a bucket
+                d, v_new, _ = rule.precondition(g32, v, {}, step=step)
                 scale = eta_m * rms_lr_scale(p.shape)
                 return -scale * (d + weight_decay * p32), v_new, nu
             mu_new = b1 * v + (1 - b1) * g32
@@ -159,6 +169,18 @@ def mixed_optimizer(
         return updates, MixedState(momentum=momentum, nu=nu)
 
     return Optimizer(init=init, update=update)
+
+
+def momentum_for_diagnostics(opt_state, params, matrix_embed: bool = True) -> PyTree:
+    """Per-leaf momentum tree for dominance logging (the paper's Eq. 14-16
+    average per parameter). The fused state keeps matrix momentum stacked
+    per bucket, so the buckets are scattered back onto the parameter tree
+    first; a per-leaf state passes through unchanged."""
+    if not hasattr(opt_state, "buckets"):
+        return opt_state.momentum
+    plan = bucketing.build_plan(
+        params, predicate=lambda path, leaf: is_matrix_param(path, leaf, matrix_embed))
+    return bucketing.scatter(plan, opt_state.buckets, opt_state.momentum)
 
 
 def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,

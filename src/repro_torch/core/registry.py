@@ -1,17 +1,16 @@
 """Constructor registry (mirror of ``repro.core.registry``).
 
-``make_optimizer(name, config)``: the name is a ported matrix update rule or
-``adamw``; the config is a dict of ``mixed_optimizer`` keyword arguments plus
-``lr_matrix`` and ``lr_adamw`` (floats become constant schedules). Names the
-JAX package registers that are not ported yet raise and name the ROADMAP
-item.
+``make_optimizer(name, config)``: the name is any registered matrix update
+rule (rmnp, muon, normuon, muown, nora) or ``adamw``; the config is a dict of
+``mixed_optimizer`` keyword arguments plus ``lr_matrix`` and ``lr_adamw``
+(floats become constant schedules).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.mixed import mixed_optimizer
-from repro_torch.core.rules import NOT_PORTED, make_rule, rule_names
+from repro_torch.core.rules import rule_names
 from repro_torch.core.schedule import constant
 from repro_torch.core.types import Optimizer
 
@@ -30,8 +29,6 @@ def make_optimizer(name: str, config: Optional[Dict[str, Any]] = None,
     """Build a mixed optimizer by registry name. ``config`` (updated by
     ``overrides``) holds ``lr_matrix`` (required), ``lr_adamw`` (defaults to
     ``lr_matrix``) and further ``mixed_optimizer`` keyword arguments."""
-    if name in NOT_PORTED:
-        make_rule(name)  # raises NotImplementedError naming the ROADMAP item
     if name not in optimizer_names():
         raise ValueError(
             f"unknown optimizer {name!r}; registered: "

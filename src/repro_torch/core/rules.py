@@ -7,10 +7,13 @@ the update is then ``-scale * (d + wd * w)``) and ``apply`` (the fused
 single-pass form, by default derived from ``precondition`` in the RMNP
 kernel's op order, ``w32 + (-scale) * (d + wd * w32)``). Every rule works on
 stacked ``(L, d_in, d_out)`` operands whose ``L`` slices are independent
-matrices, reducing over dim -2.
+matrices, reducing over dim -2, and the Newton-Schulz family batches its
+products over ``L`` (one kernel sequence per bucket on the card).
 
-The port has the RMNP rule so far; Muon, NorMuon, Muown and Nora come with
-ROADMAP Queue 1, item 5.
+The rules are the JAX package's proxy reproductions of their sources: RMNP
+(the paper), Muon (Jordan et al.), NorMuon (arXiv 2510.05491, neuron-wise
+second moment), Muown (arXiv 2605.10797, weight-norm control) and Nora
+(row-norm EMA variant of the RMNP family).
 """
 from __future__ import annotations
 
@@ -24,8 +27,6 @@ from repro_torch.core.types import (Optimizer, PyTree, Schedule, map_unzip,
 from repro_torch.kernels import ops as kops
 
 RULES: Dict[str, type] = {}
-# rules the JAX package registers that the port does not have yet
-NOT_PORTED = ("muon", "muown", "nora", "normuon")
 
 
 def _register(cls):
@@ -41,10 +42,6 @@ def make_rule(name: str, **hyper) -> "MatrixUpdateRule":
     """Construct a registered rule, keeping only the hyperparameters the
     rule declares (callers pass the shared pool: beta, weight_decay, eps,
     ns_steps, ...)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"matrix update rule {name!r} is not ported to PyTorch yet "
-            f"(ROADMAP Queue 1, item 5: Muon baseline and the rule family)")
     if name not in RULES:
         raise ValueError(
             f"unknown matrix update rule {name!r}; registered: "
@@ -52,6 +49,21 @@ def make_rule(name: str, **hyper) -> "MatrixUpdateRule":
     cls = RULES[name]
     fields = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in hyper.items() if k in fields})
+
+
+def _ema32(g, v, beta: float):
+    """Momentum EMA in fp32, the shared first stage of every rule."""
+    return beta * v.float() + (1.0 - beta) * g.float()
+
+
+def _frobenius(x):
+    """Per-slice Frobenius norm over the last two dims, kept as (..., 1, 1)."""
+    return torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+
+
+def _bias_correction(beta2: float, step):
+    t = torch.as_tensor(step, dtype=torch.float32) + 1.0
+    return 1.0 - beta2 ** t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +117,96 @@ class RmnpRule(MatrixUpdateRule):
         v_new, w_new = _apply_one(g, v, w, scale, self.weight_decay,
                                   self.beta, self.eps)
         return w_new, v_new, {}
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class MuonRule(MatrixUpdateRule):
+    """Muon: momentum EMA + quintic Newton-Schulz orthogonalization, batched
+    over the bucket's leading ``L`` axis: one three-launch sequence per
+    bucket per iteration on the card (``kernels/ops.ns_step``)."""
+    ns_steps: int = 5
+
+    name = "muon"
+
+    def precondition(self, g, v, slots, *, step):
+        del step
+        from repro_torch.core.muon import newton_schulz
+        v32 = _ema32(g, v, self.beta)
+        d = newton_schulz(v32, steps=self.ns_steps)
+        return d, v32.to(v.dtype), {}
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class NorMuonRule(MuonRule):
+    """NorMuon (proxy): Muon plus a neuron-wise second moment of the
+    orthogonalized update, one ``(L, 1, d_out)`` stripe per bucket (EMA of
+    each output neuron's mean square of ``O = NS(V)``, bias-corrected). The
+    normalized update is rescaled to keep each matrix's update norm."""
+    beta2: float = 0.999
+
+    name = "normuon"
+
+    def slot_shapes(self, rows, d_in, d_out):
+        del d_in
+        return {"nu": ((rows, 1, d_out), torch.float32)}
+
+    def precondition(self, g, v, slots, *, step):
+        o, v_new, _ = super().precondition(g, v, slots, step=step)
+        nu = self.beta2 * slots["nu"] + (1.0 - self.beta2) * torch.mean(
+            torch.square(o), dim=-2, keepdim=True)
+        nu_hat = nu / _bias_correction(self.beta2, step)
+        o_norm = o / (torch.sqrt(nu_hat) + self.eps)
+        # keep each matrix's update norm (per L slice); the tiny floor keeps
+        # zero pad slices at exactly 0 / (0 + floor) == 0
+        d = o_norm * (_frobenius(o) / (_frobenius(o_norm) + 1e-12))
+        return d, v_new, {"nu": nu}
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class MuownRule(MuonRule):
+    """Muown (proxy): Muon with multiplicative weight-norm control. After the
+    orthogonalized step each output neuron's fan-in vector is rescaled to
+    its pre-step norm decayed by ``1 - scale * wd``, in place of additive
+    weight decay; so the rule is not additive in w."""
+    name = "muown"
+    additive = False
+
+    def apply(self, g, v, w, slots, *, scale, step):
+        d, v_new, _ = self.precondition(g, v, slots, step=step)
+        w32 = w.float()
+        n_old = torch.sqrt(torch.sum(torch.square(w32), dim=-2, keepdim=True))
+        w_tmp = w32 + (-scale) * d
+        n_new = torch.sqrt(torch.sum(torch.square(w_tmp), dim=-2, keepdim=True))
+        decay = 1.0 - scale * self.weight_decay
+        w_out = w_tmp * (decay * n_old / (n_new + self.eps))
+        return w_out.to(w.dtype), v_new, {}
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class NoraRule(MatrixUpdateRule):
+    """Nora: the RMNP row-norm family with a temporal EMA of the row norms,
+    one ``(L, 1, d_out)`` stripe per bucket tracking each output neuron's
+    momentum norm over time (bias-corrected), so a transient norm spike does
+    not at once rescale the direction. It runs no kernel."""
+    beta2: float = 0.999
+
+    name = "nora"
+
+    def slot_shapes(self, rows, d_in, d_out):
+        del d_in
+        return {"r": ((rows, 1, d_out), torch.float32)}
+
+    def precondition(self, g, v, slots, *, step):
+        v32 = _ema32(g, v, self.beta)
+        rn = torch.sqrt(torch.sum(torch.square(v32), dim=-2, keepdim=True))
+        r = self.beta2 * slots["r"] + (1.0 - self.beta2) * rn
+        r_hat = r / _bias_correction(self.beta2, step)
+        d = v32 / (r_hat + self.eps)
+        return d, v32.to(v.dtype), {"r": r}
 
 
 # ---------------------------------------------------------------------------

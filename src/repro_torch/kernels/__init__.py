@@ -14,6 +14,13 @@ LAUNCHES: Dict[str, int] = {
     "rmnp_precondition": 0,   # kernels/rmnp_update.py, APPLY=False
     "rmnp_apply": 0,          # kernels/rmnp_update.py, APPLY=True
     "flash_attention_fwd": 0,  # kernels/flash_attention.py
+    # kernels/matmul.py (csrc/matmul.cu): the products of Newton-Schulz
+    # (Gram and apply) and the polynomial fused into the G@G epilogue, 2-D
+    # and stacked
+    "matmul": 0,
+    "matmul3": 0,
+    "ns_poly": 0,
+    "ns_poly3": 0,
 }
 
 

@@ -1,0 +1,139 @@
+"""Batched fp32 GEMM on Hopper: the CUDA kernel's binding and its plain
+version.
+
+The kernel (``repro_torch/csrc/matmul.cu``) computes ``D[l] = alpha * (A[l]
+@ B[l]) + beta * C[l]`` over a stack of ``L`` slices, every operand read
+through its strides. It replaces the TPU kernels
+``repro/kernels/matmul.py::_kernel`` (2-D, launched here with ``L = 1``)
+and ``::_kernel3`` (stacked), and with its epilogue the Newton-Schulz
+polynomial (``kernels/newton_schulz.py``); its source says what bounds it
+and how it is laid out. It is built with ``nvcc`` at first use and called
+through ``ctypes`` on PyTorch's current stream.
+
+Launches are counted under the key the caller names: ``matmul`` and
+``matmul3`` for the products, ``ns_poly`` and ``ns_poly3`` for the
+polynomial (``repro_torch.kernels.LAUNCHES``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.ref import matmul_ref
+
+_FN = None
+_INT32_MAX = 2 ** 31 - 1
+_MAX_L = 65535  # gridDim.z
+# K is cut into chunks of at most K_CHUNK, one block each, added in chunk
+# order: no output sums more than 2048 products in one serial chain, and the
+# embedding's Gram (K = 50432, 36 output tiles) runs 25 blocks per tile. On
+# the H100 an unsplit Gram with K = 3072 landed 7.7x further from the exact
+# sum than cuBLAS (PERF.md); shorter chains keep the kernel near cuBLAS. A
+# function of K alone, so a stacked launch and a one-slice launch round
+# alike.
+K_CHUNK = 2048
+_TILE = 128  # the kernel's output tile, for the split counters
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        from repro_torch.kernels.build import load_library
+        lib = load_library("matmul")
+        fn = lib.gemm_f32
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.gemm_error_string.argtypes = [ctypes.c_int]
+        lib.gemm_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.gemm_error_string)
+    return _FN
+
+
+def _check(a, b, c):
+    operands = [("a", a), ("b", b)] + ([("c", c)] if c is not None else [])
+    for name, t in operands:
+        if not t.is_cuda:
+            raise ValueError(f"the GEMM kernel takes CUDA tensors; {name} is on {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the GEMM kernel takes float32; {name} is {t.dtype}")
+        if t.ndim != 3:
+            raise ValueError(f"{name} must be (L, rows, cols); got {tuple(t.shape)}")
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        if max(t.shape) > _INT32_MAX:
+            raise ValueError(f"{name} has a dimension above 2^31 - 1: {tuple(t.shape)}")
+    L, M, K = a.shape
+    if b.shape[0] != L or b.shape[1] != K:
+        raise ValueError(f"b must be (L, K, N) = ({L}, {K}, N); got {tuple(b.shape)}")
+    if c is not None and tuple(c.shape) != (L, M, b.shape[2]):
+        raise ValueError(f"c must be ({L}, {M}, {b.shape[2]}); got {tuple(c.shape)}")
+    if L > _MAX_L:
+        raise ValueError(f"at most {_MAX_L} slices per launch; got {L}")
+
+
+def gemm(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0,
+         count: str = "matmul3"):
+    """The kernel: ``alpha * (a @ b) + beta * c`` over ``L`` slices.
+
+    a (L, M, K), b (L, K, N), c (L, M, N) or None: float32 CUDA tensors of
+    any strides (``b`` may be a transposed view). ``c`` is read only when
+    given; without it ``beta`` must be 0. Returns a new contiguous (L, M, N)
+    float32 tensor and adds one launch to ``LAUNCHES[count]``. Raises on
+    anything the kernel does not take."""
+    _check(a, b, c)
+    if c is None and beta != 0.0:
+        raise ValueError("beta is not 0 but no c was given")
+    L, M, K = a.shape
+    N = b.shape[2]
+    out = torch.empty((L, M, N), dtype=torch.float32, device=a.device)
+    splits = -(-K // K_CHUNK) if K > K_CHUNK else 1
+    work = arrivals = None
+    if splits > 1:  # scratch of the split-K partials and the tiles' arrival counters
+        work = torch.empty(L * splits * M * N, dtype=torch.float32, device=a.device)
+        arrivals = torch.zeros(L * -(-M // _TILE) * -(-N // _TILE), dtype=torch.int32,
+                               device=a.device)
+    fn, err_str = _kernel()
+    cs = c.stride() if c is not None else (0, 0, 0)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr() if c is not None else None,
+                 out.data_ptr(), None if work is None else work.data_ptr(),
+                 None if arrivals is None else arrivals.data_ptr(), L, M, N, K, K_CHUNK,
+                 *a.stride(), *b.stride(), *cs, float(alpha), float(beta), stream)
+    if err != 0:
+        raise RuntimeError(f"GEMM kernel launch failed: {err_str(err).decode()} ({err})")
+    LAUNCHES[count] += 1
+    return out
+
+
+def gemm_plain(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+    """The plain version: ``beta * c + alpha * (a @ b)``, each product and
+    sum rounded as the kernel's epilogue rounds it (``alpha * p`` is ``p``
+    for alpha 1)."""
+    prod = matmul_ref(a, b)
+    if alpha != 1.0:
+        prod = alpha * prod
+    return prod if c is None else beta * c + prod
+
+
+def matmul(a, b):
+    """The 2-D kernel (counterpart of ``_kernel``): a (m, k) @ b (k, n) ->
+    fp32 (m, n), launched with L = 1 and counted under ``matmul``."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"matmul takes 2-D operands; got {tuple(a.shape)} @ {tuple(b.shape)}")
+    return gemm(a[None], b[None], count="matmul")[0]
+
+
+def matmul3(a, b):
+    """The stacked kernel (counterpart of ``_kernel3``): a (L, m, k) @
+    b (L, k, n) -> fp32 (L, m, n), counted under ``matmul3``."""
+    return gemm(a, b, count="matmul3")
+
+
+# The plain versions beside the kernels.
+matmul_plain = matmul_ref
+matmul3_plain = matmul_ref

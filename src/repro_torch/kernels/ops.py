@@ -1,8 +1,10 @@
-"""Public entry points of the RMNP kernels (mirror of ``repro.kernels.ops``).
+"""Public entry points of the kernels (mirror of ``repro.kernels.ops``).
 
-Each dispatches on where its tensors lie: CUDA tensors go to the Triton
-kernel (``kernels/rmnp_update.py``), which raises on anything it does not
-take; CPU tensors go to the plain version. There is no fan-in fallback: the
+Each dispatches on where its tensors lie: CUDA tensors go to the kernel (the
+RMNP update in Triton, ``kernels/rmnp_update.py``; the GEMM that carries
+Newton-Schulz in CUDA C++, ``kernels/matmul.py`` and
+``kernels/newton_schulz.py``), which raises on anything it does not take;
+CPU tensors go to the plain version. There is no fan-in fallback: the
 JAX package sends fan-in above 32768 to its jnp reference, while the Hopper
 kernel loops over ``d_in`` and takes every bucket, the ``50432 x 768``
 embedding included. Launches are counted at the launch site
@@ -12,7 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import newton_schulz as _ns
 from repro_torch.kernels import rmnp_update as _rm
+from repro_torch.kernels.ref import matmul_ref, ns_step_ref
 
 
 def rmnp_momentum_rownorm(g, v, *, beta: float, eps: float = 1e-8):
@@ -48,8 +53,30 @@ def rmnp_bucket_update_apply(g, v, w, scale, wd, *, beta: float,
     return _rm.rmnp_rownorm_apply_plain(g, v, w, scalars, beta=beta, eps=eps)
 
 
+def ns_step(x, a: float, b: float, c: float):
+    """One Newton-Schulz iteration on (..., m, n) fp32, m <= n. A 2-D X goes
+    to ``ns_step``; leading dims are flattened into one stacked bucket for
+    ``ns_step3``, so a whole ``(L, m, n)`` bucket costs one three-launch
+    sequence (Gram, polynomial, apply) instead of one per matrix."""
+    if x.is_cuda:
+        if x.ndim == 2:
+            return _ns.ns_step(x, a, b, c)
+        flat = x.reshape(-1, *x.shape[-2:])
+        return _ns.ns_step3(flat, a, b, c).reshape(x.shape)
+    _require_cpu(x)
+    return ns_step_ref(x, a, b, c)
+
+
+def matmul(a, b):
+    """fp32 product of 2-D operands: the GEMM kernel on CUDA tensors."""
+    if a.is_cuda:
+        return _mm.matmul(a, b)
+    _require_cpu(a)
+    return matmul_ref(a, b)
+
+
 def _require_cpu(t):
     """The plain versions serve CPU tensors only; any other device raises."""
     if t.device.type != "cpu":
-        raise ValueError(f"the RMNP kernels take CUDA tensors and their plain "
+        raise ValueError(f"the kernels take CUDA tensors and their plain "
                          f"versions CPU tensors; got a tensor on {t.device}")

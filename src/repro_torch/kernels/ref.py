@@ -39,6 +39,41 @@ def rmnp_rownorm_apply_ref(g, v, w, scale, wd, *, beta: float,
     return v_new.to(v.dtype), w_new.to(w.dtype)
 
 
+def matmul_ref(a, b):
+    """fp32 product ``a @ b`` over the last two dims, batched over leading
+    dims one slice at a time: a slice's product is the 2-D product of that
+    slice, whatever the stack around it (a batched CPU GEMM may split a
+    product across threads by how many slices it holds, and so round it
+    differently)."""
+    a, b = a.float(), b.float()
+    if a.ndim == 2:
+        return torch.mm(a, b)
+    lead = a.shape[:-2]
+    shape = (*lead, a.shape[-2], b.shape[-1])
+    af = a.reshape(-1, *a.shape[-2:])
+    bf = b.reshape(-1, *b.shape[-2:])
+    if af.shape[0] == 0:
+        return a.new_zeros(shape)
+    return torch.stack([torch.mm(x, y) for x, y in zip(af, bf, strict=True)]).reshape(shape)
+
+
+def ns_step_ref(x, a: float, b: float, c: float):
+    """One quintic Newton-Schulz iteration on (..., m, n) fp32:
+    ``a*X + (b*G + c*G@G) @ X`` with ``G = X X^T``."""
+    g = matmul_ref(x, x.transpose(-1, -2))
+    return a * x + matmul_ref(b * g + c * matmul_ref(g, g), x)
+
+
+def dominance_ref(v, eps: float = 1e-12):
+    """(r_avg, r_min, r_max) of the Gram V^T V for stored (d_in, d_out) V."""
+    gram = v.T @ v
+    m = gram.shape[-1]
+    diag = torch.diagonal(gram)
+    off = torch.sum(torch.abs(gram), dim=-1) - torch.abs(diag)
+    r = diag / (off / max(1, m - 1) + eps)
+    return torch.mean(r), torch.min(r), torch.max(r)
+
+
 def chunked_attention_ref(q, k, v, *, causal: bool = True,
                           chunk_q: int = 512, chunk_k: int = 512):
     """Memory-efficient (online-softmax) attention oracle.

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import cosine_with_warmup, make_optimizer, optimizer_names
+from repro_torch.core import (cosine_with_warmup, global_dominance, make_optimizer,
+                              momentum_for_diagnostics, optimizer_names)
 from repro_torch.core.types import tree_paths
 from repro_torch.data.pipeline import make_stream
 from repro_torch.kernels import LAUNCHES
@@ -38,7 +39,6 @@ _NOT_PORTED = {
     "inject_fault": "Queue 1, item 7 (checkpointing and resilience)",
     "kill_at": "Queue 1, item 7 (checkpointing and resilience)",
     "watchdog_deadline": "Queue 1, item 7 (checkpointing and resilience)",
-    "dominance_every": "Queue 1, item 5 (core/dominance.py)",
 }
 
 
@@ -67,7 +67,10 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     engine, ``fused_apply`` folds the weight update into the per-bucket
     kernel (the single-pass engine). ``use_kernel`` is accepted for the JAX
     driver's signature and selects nothing: on ``cuda`` every RMNP update
-    runs the Hopper kernels, on ``cpu`` their plain versions.
+    and Newton-Schulz iteration runs the Hopper kernels, on ``cpu`` their
+    plain versions. ``dominance_every`` adds the momentum's diagonal
+    dominance (``r_avg``, ``r_min``, ``r_max``) to the logged steps it
+    divides.
     ``stop_at`` trains to that step with the schedules still spanning
     ``steps``. Each history entry also holds the kernel launches of its step
     (``launches``). ``compress``, ``overlap`` and the ``anomaly_*`` settings
@@ -78,8 +81,7 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     del anomaly_skip_batch
     asked = {"zero2": zero2, "ckpt_dir": ckpt_dir, "guard": guard,
              "inject_fault": inject_fault, "kill_at": kill_at,
-             "watchdog_deadline": watchdog_deadline,
-             "dominance_every": dominance_every}
+             "watchdog_deadline": watchdog_deadline}
     for flag, value in asked.items():
         if value:
             raise NotImplementedError(
@@ -112,10 +114,15 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
             m["step"] = step
             m["wall_s"] = round(time.time() - t0, 2)
             m["launches"] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if dominance_every and step % dominance_every == 0 and optimizer != "adamw":
+                dom = global_dominance(momentum_for_diagnostics(
+                    opt_state, params, matrix_embed=matrix_embed))
+                m.update({k: float(v) for k, v in dom.items()})
             history.append(m)
             print(f"[train] step={step} loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.3f} clip={m['clip_rate']:.0f} "
-                  f"launches={m['launches']}", flush=True)
+                  f"gnorm={m['grad_norm']:.3f} clip={m['clip_rate']:.0f}"
+                  + (f" r_avg={m['r_avg']:.2f}" if "r_avg" in m else "")
+                  + f" launches={m['launches']}", flush=True)
     if log_file:
         Path(log_file).parent.mkdir(parents=True, exist_ok=True)
         Path(log_file).write_text(json.dumps(history, indent=1))

@@ -11,12 +11,18 @@ the softmax terms (attention) in another order than the plain versions,
 and may fuse multiply-adds, so they agree to a few fp32 ulps (rtol 1e-5).
 bf16 outputs round those fp32 values once: where a value straddles a
 rounding boundary the two differ by one bf16 step, at most 2^-7 relative.
+The fp32 GEMM sums K products in another order than cuBLAS: both are held
+against a float64 product at the classic bound of a K-term fp32 sum,
+K * 2^-24 * (|alpha| |A| |B| + |beta| |C|) per element, plus one rounding of
+each epilogue operation and of each split-K chunk added.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import newton_schulz as nsk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmnp_update as rm
 
@@ -150,3 +156,103 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q128, k128, v128 = _qkv(1, 64, 2, 2, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd_kernel(q128, k128, v128)
+
+
+# (L, M, N, K, B transposed, C given, alpha, beta): the Newton-Schulz launch
+# kinds (Gram: B = X^T; polynomial: C = G, alpha = c, beta = b; apply:
+# alpha = 1, beta = a) at tile-sized and ragged shapes, and the plain product
+GEMMS = [(1, 128, 128, 128, False, False, 1.0, 0.0),
+         (3, 100, 300, 77, True, False, 1.0, 0.0),
+         (2, 129, 129, 129, False, True, 2.0315, -4.7750),
+         (4, 100, 300, 100, False, True, 1.0, 3.4445),
+         (2, 7, 5, 3, True, True, -0.5, 2.0),
+         (1, 64, 1000, 33, False, False, 0.25, 0.0),
+         (1, 40, 40, 9000, True, False, 1.0, 0.0),
+         (2, 130, 40, 5000, False, True, 2.0315, -4.7750)]
+
+
+def _gemm_operands(L, M, N, K, trans_b, with_c, seed=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(L, M, K, generator=gen, device="cuda")
+    b = (torch.randn(L, N, K, generator=gen, device="cuda").transpose(1, 2) if trans_b
+         else torch.randn(L, K, N, generator=gen, device="cuda"))
+    c = None
+    if with_c:  # with a transposed B, C is a transposed view too
+        c = (torch.randn(L, N, M, generator=gen, device="cuda").transpose(1, 2) if trans_b
+             else torch.randn(L, M, N, generator=gen, device="cuda"))
+    return a, b, c
+
+
+def _gemm_bound(a, b, c, alpha, beta):
+    """Per-element bound of an fp32 result against the float64 product; K
+    above ``mm.K_CHUNK`` adds one rounding per chunk."""
+    K = a.shape[-1]
+    mag = abs(alpha) * (a.double().abs() @ b.double().abs())
+    if c is not None:
+        mag = mag + abs(beta) * c.double().abs()
+    return (K + 2 + -(-K // mm.K_CHUNK)) * 2.0 ** -24 * mag + 1e-30
+
+
+@pytest.mark.parametrize("case", GEMMS, ids=lambda c: "x".join(map(str, c[:4]))
+                         + ("_bt" if c[4] else "") + ("_c" if c[5] else ""))
+def test_gemm_matches_plain(cuda, case):
+    L, M, N, K, trans_b, with_c, alpha, beta = case
+    a, b, c = _gemm_operands(L, M, N, K, trans_b, with_c)
+    got = mm.gemm(a, b, c, alpha=alpha, beta=beta)
+    plain = mm.gemm_plain(a, b, c, alpha=alpha, beta=beta)
+    want = alpha * (a.double() @ b.double())
+    if c is not None:
+        want = want + beta * c.double()
+    torch.cuda.synchronize()
+    assert got.shape == (L, M, N) and got.is_contiguous()
+    bound = _gemm_bound(a, b, c, alpha, beta)
+    for out in (got, plain):
+        assert torch.isfinite(out).all()
+        assert ((out.double() - want).abs() <= bound).all()
+
+
+def test_gemm_2d_and_3d_wrappers(cuda):
+    a, b, _ = _gemm_operands(3, 100, 60, 40, False, False)
+    reset_launches()
+    got3 = mm.matmul3(a, b)
+    got2 = mm.matmul(a[1], b[1])
+    assert LAUNCHES["matmul3"] == 1 and LAUNCHES["matmul"] == 1
+    assert torch.equal(got2, got3[1])
+    assert torch.equal(ops.matmul(a[1], b[1]), got2)
+
+
+@pytest.mark.parametrize("shape", [(48, 768, 768), (3, 100, 300), (2, 64, 1000), (2, 64, 9000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ns_step3_slices_equal_ns_step(cuda, shape):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    coeffs = (3.4445, -4.7750, 2.0315)
+    reset_launches()
+    stacked = nsk.ns_step3(x, *coeffs)
+    assert (LAUNCHES["matmul3"], LAUNCHES["ns_poly3"]) == (2, 1)
+    for i in range(shape[0]):
+        assert torch.equal(stacked[i], nsk.ns_step(x[i], *coeffs)), i
+    assert (LAUNCHES["matmul"], LAUNCHES["ns_poly"]) == (2 * shape[0], shape[0])
+    plain = nsk.ns_step3_plain(x, *coeffs)
+    rel = torch.linalg.vector_norm(stacked - plain) / torch.linalg.vector_norm(plain)
+    assert rel < 1e-5, rel
+    assert torch.equal(ops.ns_step(x.reshape(1, *shape), *coeffs)[0], stacked)
+
+
+def test_gemm_rejects_what_it_does_not_take(cuda):
+    a, b, c = _gemm_operands(2, 16, 8, 4, False, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        mm.gemm(a.cpu(), b.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        mm.gemm(a.half(), b)
+    with pytest.raises(ValueError, match="b must be"):
+        mm.gemm(a, b[:, :3])
+    with pytest.raises(ValueError, match="c must be"):
+        mm.gemm(a, b, c[:, :3], beta=1.0)
+    with pytest.raises(ValueError, match="no c"):
+        mm.gemm(a, b, beta=1.0)
+    with pytest.raises(ValueError, match="2-D"):
+        mm.matmul(a, b)
+    with pytest.raises(TypeError, match="float32"):
+        nsk.ns_step(a[0].double(), 1.0, 1.0, 1.0)

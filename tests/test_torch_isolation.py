@@ -29,6 +29,9 @@ def test_the_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for expected in ("chip_smoke.py", "src/repro_torch/kernels/rmnp_update.py",
                      "src/repro_torch/kernels/flash_attention.py",
+                     "src/repro_torch/kernels/matmul.py",
+                     "src/repro_torch/kernels/newton_schulz.py",
+                     "src/repro_torch/core/muon.py", "src/repro_torch/core/dominance.py",
                      "src/repro_torch/launch/train.py"):
         assert expected in names
 

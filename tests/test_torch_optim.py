@@ -303,10 +303,7 @@ def test_schedule_matches_jax_in_fp32():
 
 
 def test_registry_names_and_refusals():
-    assert optimizer_names() == ("rmnp", "adamw")
-    for name in ("muon", "normuon", "muown", "nora"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
-            make_optimizer(name, dict(lr_matrix=1e-3))
+    assert optimizer_names() == ("muon", "muown", "nora", "normuon", "rmnp", "adamw")
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("sgd", dict(lr_matrix=1e-3))
     with pytest.raises(ValueError, match="lr_matrix"):

@@ -113,8 +113,7 @@ def test_cli_runs_the_engines_on_the_cpu(capsys):
 @pytest.mark.parametrize("flag,item", [
     ("--zero2", "Queue 1, item 6"), ("--ckpt-dir=x", "Queue 1, item 7"),
     ("--guard", "Queue 1, item 7"), ("--inject-fault=nan:wq:1", "Queue 1, item 7"),
-    ("--kill-at=1", "Queue 1, item 7"), ("--watchdog-deadline=5", "Queue 1, item 7"),
-    ("--dominance-every=1", "Queue 1, item 5")])
+    ("--kill-at=1", "Queue 1, item 7"), ("--watchdog-deadline=5", "Queue 1, item 7")])
 def test_unported_flags_raise_and_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "gpt2-small", "--steps", "1", "--device", "cpu", flag])
