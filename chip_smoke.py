@@ -4,17 +4,23 @@
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = all phases passed
 
 Phases:
-  build  compile the CUDA source with nvcc while Triton compiles the RMNP
-         kernel, both from the sources in this checkout;
+  build  compile the CUDA sources with nvcc while Triton compiles the RMNP
+         kernel, all from the sources in this checkout;
   A      the RMNP kernels (apply and precondition, one line each) against
          their plain versions at the four gpt2-small bucket shapes, fp32
          and bf16 momentum, bf16 weights (the main path's), and for the
          apply kernel also fp32 weights, whose update w_new - w is held
          against the plain version's at its own magnitude;
   B      the flash-attention forward kernel against its plain version at
-         B=8 S=1024 H=K=12 hd=64 (bf16), and a GQA shape (H=8, K=2) with a
-         ragged S in bf16 and fp32; F.scaled_dot_product_attention is timed
-         beside it as a yardstick only;
+         B=8 S=1024 H=K=12 hd=64 (bf16, tensor cores), causal and not, a
+         GQA shape (H=8, K=2) with a ragged S in bf16 (causal and not) and
+         fp32 (CUDA cores), hd 32 and 16 with G=4, and S in {1, 63, 65,
+         129}; two launches must give the same bits; 40 seeds of a
+         non-causal S=1000 GQA head must all hold the limit; the ptxas
+         report of the bf16 kernel is printed, and cuobjdump must find
+         HGMMA in each of its instantiations;
+         F.scaled_dot_product_attention is timed beside it as a yardstick
+         only;
   C      the main path at full width: 3 steps of
          repro_torch.launch.train.train("gpt2-small", reduced=False,
          optimizer="rmnp", single-pass engine, use_kernel=True, batch=8,
@@ -150,8 +156,7 @@ def phase_build():
         built = [f.result() for f in nvcc]
     emit("build", {"seconds": round(time.time() - t0, 2),
                    "libraries": [lib.name for lib in built],
-                   "ptxas": {name: build.PTXAS_REPORTS.get(name, "")[-1500:]
-                             for name in libs}})
+                   "ptxas": {"matmul": build.PTXAS_REPORTS.get("matmul", "")[-1500:]}})
 
 
 def rmnp_bytes(shape, v_bytes, w_bytes, apply):
@@ -249,54 +254,150 @@ def phase_rmnp():
     return summary
 
 
-def attention_flops(B, S, H, hd):
-    return 4 * B * H * hd * (S * (S + 1) // 2)  # causal: the lower triangle
+def attention_flops(B, S, H, hd, causal=True):
+    pairs = S * (S + 1) // 2 if causal else S * S  # causal: the lower triangle
+    return 4 * B * H * hd * pairs
+
+
+def ptxas_lines(report, marker):
+    """Registers, stack and spills of each function whose name holds
+    ``marker``, from an ``nvcc -Xptxas -v`` report, keyed by the template
+    argument in its mangled name (``ILi64E``: hd 64)."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if marker in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        key = "hd{}".format(re.findall(r"Li(\d+)E", name)[0])
+        if "spill" in line or "Used" in line:
+            out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def hgmma_counts(library):
+    """HGMMA instructions in the SASS of each kernel of a built library,
+    read with cuobjdump (the CUDA toolkit's, else the copy in Triton's
+    package)."""
+    import re
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        import triton
+        tool = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kind = re.search(r"fa_fwd_tc|fa_fwd_fp32", m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            name = (kind.group(0) + "".join(f"_{a}" for a in args)) if kind else m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def phase_attention():
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [("main", 8, 1024, 12, 12, 64, torch.bfloat16),
-             ("gqa_ragged", 2, 1000, 8, 2, 64, torch.bfloat16),
-             ("gqa_ragged_fp32", 2, 1000, 8, 2, 64, torch.float32)]
-    rows, main = [], None
-    for name, B, S, H, K, hd, dt in cases:
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (name, B, S, H, K, hd, dtype, causal, timed): the main path's shape
+    # causal and not; GQA with a ragged S in both types; hd 32 and 16 with
+    # G = 4; and ragged S around the 64-key tile and the 128-row query tile
+    cases = [("main", 8, 1024, 12, 12, 64, bf16, True, True),
+             ("main_noncausal", 8, 1024, 12, 12, 64, bf16, False, True),
+             ("gqa_ragged", 2, 1000, 8, 2, 64, bf16, True, True),
+             ("gqa_ragged_fp32", 2, 1000, 8, 2, 64, fp32, True, True),
+             ("gqa_ragged_noncausal", 2, 1000, 8, 2, 64, bf16, False, False),
+             ("hd32_g4", 2, 1024, 8, 2, 32, bf16, True, False),
+             ("hd16_g4", 2, 1024, 8, 2, 16, bf16, True, False)]
+    cases += [(f"s{S}", 2, S, 8, 2, 64, bf16, True, False) for S in (1, 63, 65, 129)]
+    rows, inputs = [], {}
+    for name, B, S, H, K, hd, dt, causal, timed in cases:
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
         v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
-        out = fa.flash_attention_fwd_kernel(q, k, v, causal=True)
-        ref = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+        inputs[name] = (q, k, v, causal)
+        out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
+        ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                            block_q=min(512, S), block_k=min(512, S))
         torch.cuda.synchronize()
         # both sides compute in fp32 with different tilings (sums agree to
         # ~1e-6 relative): an fp32 output is held at rtol 1e-5 per element; a
         # bf16 output rounds those values once and may differ by one bf16
         # step, at most 2^-7 of the element (see elementwise_err)
-        e, ratio = elementwise_err(out, ref, 2.0 ** -7 if dt == torch.bfloat16 else 1e-5)
+        e, ratio = elementwise_err(out, ref, 2.0 ** -7 if dt == bf16 else 1e-5)
         check(out.shape == q.shape and torch.isfinite(out.float()).all().item(),
               f"attention {name}: bad output")
         check(ratio <= 1.0, f"attention {name}: max_abs_err {e}, worst ratio {ratio} > 1")
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         rec = {"case": name, "B": B, "S": S, "H": H, "K": K, "hd": hd,
-               "dtype": str(dt).split(".")[1], "max_abs_err": e, "worst_ratio": ratio,
-               "kernel_ms": time_ms(lambda: fa.flash_attention_fwd_kernel(q, k, v)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
-                   q, k, v, block_q=min(512, S), block_k=min(512, S)), iters=3),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=K != H))}
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-        peak = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = attention_flops(B, S, H, hd) / peak * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+               "dtype": str(dt).split(".")[1], "causal": causal, "max_abs_err": e,
+               "worst_ratio": ratio}
+        del out, ref
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            rec.update(
+                kernel_ms=time_ms(lambda: fa.flash_attention_fwd_kernel(q, k, v, causal=causal)),
+                plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+                    q, k, v, causal=causal, block_q=min(512, S), block_k=min(512, S)), iters=3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=K != H)))
+            del qt, kt, vt
+            nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+            peak = BF16_FLOPS if dt == bf16 else FP32_FLOPS
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = attention_flops(B, S, H, hd, causal) / peak * 1e3
+            rec["bound_ms"] = max(t_bytes, t_ops)
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["tflops"] = attention_flops(B, S, H, hd, causal) / rec["kernel_ms"] / 1e9
         rows.append(rec)
-        if name == "main":
-            main = rec
-    emit("B_attention", {"cases": rows})
-    return main
+
+    # two launches on the same input give the same bits (no atomics)
+    q, k, v, causal = inputs["main"]
+    a = fa.flash_attention_fwd_kernel(q, k, v)
+    b = fa.flash_attention_fwd_kernel(q, k, v)
+    check(torch.equal(a, b), "attention: two launches on the main input differ")
+    del a, b
+
+    # Near-zero elements of non-causal rows over ~1000 keys are where P's
+    # precision shows: one head config, many seeds, every element of every
+    # seed held at the limit
+    def seeds_over_limit(n=40):
+        over, worst = 0, 0.0
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for _ in range(n):
+            q, k, v = (torch.randn(1, 1000, h, 64, generator=g, device="cuda").to(bf16)
+                       for h in (4, 1, 1))
+            r = elementwise_err(fa.flash_attention_fwd_kernel(q, k, v, causal=False),
+                                fa.flash_attention_fwd_plain(q, k, v, causal=False),
+                                2.0 ** -7)[1]
+            over, worst = over + (r > 1.0), max(worst, r)
+        return {"seeds": n, "over_limit": over, "worst_ratio": worst}
+
+    stress = seeds_over_limit()
+    check(stress["over_limit"] == 0,
+          f"attention: the non-causal seed sweep missed the limit {stress}")
+    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("flash_attention_fwd", ""), "fa_fwd_tc")
+    hgmma = hgmma_counts(build.library_path("flash_attention_fwd"))
+    tc = {n: c for n, c in hgmma.items() if n.startswith("fa_fwd_tc")}
+    check(len(tc) == len(fa.HEAD_DIMS) and all(c > 0 for c in tc.values()),
+          f"attention: HGMMA missing from the bf16 kernel's SASS: {hgmma}")
+    for key, line in ptxas.items():
+        print(f"ptxas fa_fwd_tc {key}: {line}", flush=True)
+    emit("B_attention", {"cases": rows, "noncausal_seeds": stress, "ptxas": ptxas,
+                         "hgmma": hgmma})
+    del inputs
+    torch.cuda.empty_cache()
+    return {r["case"]: r for r in rows}
 
 
 def gemm_bound(L, M, N, K, reads):
@@ -719,7 +820,8 @@ def main():
     t0 = time.time()
     phase_build()
     rmnp = phase_rmnp()
-    attn = phase_attention()
+    attn_cases = phase_attention()
+    attn, fp32 = attn_cases["main"], attn_cases["gqa_ragged_fp32"]
     ns = phase_ns()
     launches = phase_train()
     launches.update(phase_muon())
@@ -745,7 +847,8 @@ def main():
          "launches": launches["flash_attention_fwd"], "max_abs_err": attn["max_abs_err"],
          "worst_ratio": attn["worst_ratio"], "ms": attn["kernel_ms"], "plain_ms": attn["plain_ms"],
          "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
-         "library_ms": attn["library_ms"]},
+         "library_ms": attn["library_ms"], "fp32_ragged_ms": fp32["kernel_ms"],
+         "fp32_ragged_bound_ms": fp32["bound_ms"]},
     ]
     replaces = {"matmul": "src/repro/kernels/matmul.py:19",
                 "matmul3": "src/repro/kernels/matmul.py:69",

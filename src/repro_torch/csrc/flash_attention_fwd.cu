@@ -2,56 +2,89 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fwd_kernel
 // (entry flash_attention_fwd). Same function: q (B,S,H,hd), k/v (B,S,K,hd)
-// with H % K == 0; fp32 online softmax; masked scores are -1e30 after the
-// 1/sqrt(hd) scale; out = acc / (l + 1e-30) in q's type.
+// with H % K == 0, kv head h / (H/K) read in place; fp32 online softmax;
+// masked scores are -1e30 after the 1/sqrt(hd) scale; l is summed from the
+// unrounded fp32 p; out = acc / (l + 1e-30) in q's type. Any S: the ragged
+// edge is masked, not padded. hd is 16, 32 or 64.
 //
-// What bounds it on this card: operations. Causal attention at the main
-// path's shape (B=8, S=1024, H=12, hd=64) does about 4*B*H*S*S/2*hd = 12.9
-// GFLOP against 3*8*1024*12*64*2 B = 37.7 MB of q/k/v reads and 12.6 MB of
-// output, so the tensor cores would bound it. This first kernel does its
-// products on the CUDA cores in fp32 (67 TFLOP/s peak), which is what bounds
-// it now; wgmma and TMA are later work.
+// What bounds it on this card. At the main path's shape (B=8, S=1024,
+// H=12, hd=64, causal) the function reads 37.7 MB of q/k/v and writes 12.6
+// MB of output (0.015 ms at 3.35 TB/s) and does 4*B*H*hd*S(S+1)/2 = 12.9
+// GFLOP (0.013 ms at the 989 TFLOP/s bf16 peak): bytes and operations are
+// about even, so the tensor cores are what a kernel has to reach.
 //
-// Design. One block of BQ threads per (q tile, h, b); each thread owns one
-// query row and keeps that row of q and its fp32 accumulator in registers.
-// K and V tiles of BK rows are staged in shared memory as fp32, read
-// straight from the (B,S,K,hd) layout at kv head h / G: no repeat of k and
-// v per query head and no transpose copy. Scores of a tile go to shared
-// memory transposed ([key][row]), so a warp's stores and loads hit
-// consecutive banks. Key tiles after the q tile are never visited (causal
-// skip), keys past S are masked, rows past S are computed but not stored, so
-// any S works. The first tile always holds key 0, which every row sees, so
-// no row meets a fully masked tile before its running max is finite.
+// bf16: the tensor-core kernel (fa_fwd_tc). One block per (128-row query
+// tile, query head, batch): two consumer warpgroups of 64 rows each and one
+// producer warp. The producer issues TMA loads: Q once, and K/V tiles of 64
+// keys into a ring of 2 stages guarded by full/empty mbarriers. The
+// tensor maps are 4-D over (hd, heads, S, B), so the query head and the kv
+// head are coordinates (no repeat or transpose is materialised) and the
+// hardware's zero fill past S serves the ragged edge. Tiles are swizzled in
+// shared memory (128 B for hd 64, 64 B for hd 32, 32 B for hd 16); the
+// wgmma descriptors name the same swizzle. Each consumer computes
+// S = Q.K^T with wgmma (Q and K K-major from shared memory, fp32
+// accumulators; bf16 x bf16 products are exact in fp32), applies the scale
+// and the masks (the causal mask only on tiles that cross the diagonal, the
+// key mask only past S), and runs the online softmax in registers, with
+// row maxima and sums over the 4 lanes of a quad; l is summed from the
+// fp32 p. The exponentials are exp2 of scores scaled by log2(e) along with
+// 1/sqrt(hd).
+//
+// P.V keeps p to fp32 accuracy, as the TPU kernel's fp32 P.V does: P is
+// split into three bf16 parts, hi = bf16(p), mid = bf16(p - hi) and
+// lo = bf16(p - hi - mid), and P.V runs as three bf16 wgmma. Each output
+// element is held to 2^-7 of itself plus 1e-6 of the largest element:
+// rounded once to bf16, P misses that by two orders of magnitude at
+// S = 1024, and two parts (16 bits of p) still miss it on near-zero
+// elements of non-causal rows over ~1000 keys; three parts do not. A
+// tile's three products go into a fresh accumulator, smallest part first,
+// and the running sum is kept on the CUDA cores (acc = acc * corr + pv in
+// fp32): the tensor cores' own rounding of each k-step scales with the
+// accumulator's size, and adding every tile's products into the running
+// sum put the error of near-zero elements over that limit. The fp32
+// accumulator layout of the first wgmma is the A-register layout of the
+// second, so P never goes to shared memory; V is the MN-major B operand
+// (the transpose bit). The split makes the kernel's own operation floor
+// 2 x 12.9 = 25.8 GFLOP, 0.026 ms at the bf16 peak.
+//
+// The two consumer warpgroups take turns at issuing their products
+// (named barriers), so one's softmax overlaps the other's products.
+// Causal blocks are ordered heaviest query tile first, so the last wave is
+// short; key tiles after the query tile are never loaded, and a warpgroup
+// skips the tiles past its last row. The first visited tile always holds
+// key 0, which every row sees, so no row meets a fully masked tile before
+// its running max is finite.
+//
+// fp32: the CUDA-core kernel (fa_fwd_fp32), one thread per query row, the
+// products as fp32 FMA. Tensor cores take fp32 only as TF32 (2^-11
+// relative), and fp32 callers are held at 1e-5, so fp32 stays there.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block, one thread each
-constexpr int BK = 64;  // keys per shared-memory tile
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------- fp32 ---
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int F_BQ = 64;  // query rows per block, one thread each
+constexpr int F_BK = 64;  // keys per shared-memory tile
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(BQ)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, int S, int H, int K, int causal, float scale) {
+template <int HD>
+__global__ void __launch_bounds__(F_BQ)
+fa_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o, int S, int H, int K,
+            int causal, float scale) {
   extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][HD]
-  float* Vs = Ks + BK * HD;      // [BK][HD]
-  float* Ps = Vs + BK * HD;      // [BK][BQ], scores then probabilities
+  float* Ks = smem;              // [F_BK][HD]
+  float* Vs = Ks + F_BK * HD;    // [F_BK][HD]
+  float* Ps = Vs + F_BK * HD;    // [F_BK][F_BQ], scores then probabilities
 
   const int t = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * F_BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / K);
@@ -60,26 +93,26 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   float qr[HD];
   float acc[HD];
-  const T* qrow = q + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
+  const float* qrow = q + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
-    qr[d] = row_ok ? to_f(qrow[d]) : 0.f;
+    qr[d] = row_ok ? qrow[d] : 0.f;
     acc[d] = 0.f;
   }
   float m = NEG;
   float l = 0.f;
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+  const int kv_end = causal ? min(S, q0 + F_BQ) : S;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += F_BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int e = t; e < BK * HD; e += BQ) {
+    for (int e = t; e < F_BK * HD; e += F_BQ) {
       const int r = e / HD, c = e % HD;
       const int kpos = kv0 + r;
       float kx = 0.f, vx = 0.f;
       if (kpos < S) {
         const int64_t off = ((static_cast<int64_t>(b) * S + kpos) * K + kh) * HD + c;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       Ks[e] = kx;
       Vs[e] = vx;
@@ -87,7 +120,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
 
     float mt = NEG;
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < F_BK; ++j) {
       const float4* k4 = reinterpret_cast<const float4*>(Ks + j * HD);
       float s = 0.f;
 #pragma unroll
@@ -101,22 +134,22 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       s *= scale;
       const int kpos = kv0 + j;
       if (kpos >= S || (causal && kpos > qpos)) s = NEG;
-      Ps[j * BQ + t] = s;
+      Ps[j * F_BQ + t] = s;
       mt = fmaxf(mt, s);
     }
     const float m_new = fmaxf(m, mt);
     const float corr = expf(m - m_new);
     float lsum = 0.f;
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(Ps[j * BQ + t] - m_new);
-      Ps[j * BQ + t] = p;
+    for (int j = 0; j < F_BK; ++j) {
+      const float p = expf(Ps[j * F_BQ + t] - m_new);
+      Ps[j * F_BQ + t] = p;
       lsum += p;
     }
     l = l * corr + lsum;
 #pragma unroll
     for (int d = 0; d < HD; ++d) acc[d] *= corr;
-    for (int j = 0; j < BK; ++j) {
-      const float p = Ps[j * BQ + t];
+    for (int j = 0; j < F_BK; ++j) {
+      const float p = Ps[j * F_BQ + t];
       const float4* v4 = reinterpret_cast<const float4*>(Vs + j * HD);
 #pragma unroll
       for (int d4 = 0; d4 < HD / 4; ++d4) {
@@ -131,54 +164,591 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 
   if (row_ok) {
-    T* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
+    float* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
     const float den = l + 1e-30f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) orow[d] = from_f<T>(acc[d] / den);
+    for (int d = 0; d < HD; ++d) orow[d] = acc[d] / den;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int H, int K, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = (2 * BK * HD + BK * BQ) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<T, HD>,
+template <int HD>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                        int H, int K, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = (2 * F_BK * HD + F_BK * F_BQ) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_fp32<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  fa_fwd_kernel<T, HD><<<grid, BQ, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, K, causal, scale);
+  const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
+  fa_fwd_fp32<HD><<<grid, F_BQ, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, K, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int K, int hd, int causal, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, K, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, K, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, K, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------- bf16 ---
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;     // query rows per block
+constexpr int BK = 64;      // keys per K/V tile (128 measured slower, PERF.md)
+constexpr int NSTAGE = 2;   // K/V stages in the ring
+constexpr int PARTS = 3;    // bf16 parts of P (fewer miss the accuracy limit)
+constexpr int CONSUMERS = 256;         // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// spin until the phase of the given parity has completed; a wait of more
+// than about 5 s (1e10 clocks) can only be a broken ring, and traps, so the
+// launch fails with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - start > 10000000000LL) __trap();
   }
+}
+
+// one TMA load of a box at coordinates (hd, head, s, b), completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Turns of the two consumer warpgroups at the tensor cores (named barriers
+// 1 and 2, 256 threads each): warpgroup wg waits for its turn before it
+// issues a product and passes the turn on after, so the products are
+// issued S0 S1 PV0 PV1 ... and one warpgroup's softmax runs while the
+// other's products do. Both wait on the same K/V tiles, and without the
+// turns they run in step: both in softmax while the tensor cores idle.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// pin registers that wgmma reads or writes asynchronously in place in the
+// instruction stream, so the compiler moves no use of them across the
+// fence, the issue or the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// N bf16x2 pairs that sum to two fp32 values: part 0 = bf16(x), part i
+// = bf16(x - parts 0..i-1) (each difference is exact in fp32), so three
+// parts hold 24 bits; the first value goes to the low half, as the A
+// fragment wants it
+template <int N>
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&part)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    part[i] = *reinterpret_cast<const uint32_t*>(&h);
+    if (i + 1 < N) {
+      const float2 hf = __bfloat1622float2(h);
+      x0 -= hf.x;
+      x1 -= hf.y;
+    }
+  }
+}
+
+// Shared-memory matrix descriptor of a wgmma operand: start address, leading
+// and stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64
+// B, 3: 32 B). A row of hd bf16 values is exactly one swizzle span, so the
+// layout repeats every 8 rows: K-major operands (Q, K) step 8 rows by SBO
+// and ignore LBO; the MN-major V steps 8 keys by SBO, and its N (= hd) is
+// one swizzle atom, so LBO is never followed either.
+template <int HD>
+struct Swizzle;
+template <>
+struct Swizzle<64> {
+  static constexpr uint64_t desc = 1;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+template <>
+struct Swizzle<32> {
+  static constexpr uint64_t desc = 2;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+template <>
+struct Swizzle<16> {
+  static constexpr uint64_t desc = 3;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+template <int HD>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (Swizzle<HD>::desc << 62);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 16] . B[16 x 16], A in registers, B MN-major in shared
+// memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared
+// memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared
+// memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  if constexpr (HD == 16) wgmma_rs_n16(d, a, db, scale_d);
+  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db, scale_d);
+  else wgmma_rs_n64(d, a, db, scale_d);
+}
+
+template <int HD>
+struct Layout {
+  static constexpr int q_bytes = BQ * HD * 2;
+  static constexpr int tile_bytes = BK * HD * 2;
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + NSTAGE * tile_bytes;
+  static constexpr int bar_off = v_off + NSTAGE * tile_bytes;
+  // q_full, k_full[NSTAGE], v_full[NSTAGE], empty[NSTAGE]
+  static constexpr int bytes = bar_off + (1 + 3 * NSTAGE) * 8;
+  static constexpr int alloc = bytes + 1024;  // room to align the base to 1024
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int S, int H, int KH,
+          int B, int nq, int causal, float scale_log2) {
+  using L = Layout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on a 1024-byte boundary, where the swizzle pattern
+  // of TMA and of the wgmma descriptors lines up
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base, k_s = base + L::k_off, v_s = base + L::v_off;
+  const uint32_t bars = base + L::bar_off;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + NSTAGE + st); };
+  auto empty_bar = [&](int st) { return bars + 8 * (1 + 2 * NSTAGE + st); };
+
+  // heaviest causal query tiles first: the tile index is the slow one
+  const int hb_count = H * B;
+  int qt = blockIdx.x / hb_count;
+  const int hb = blockIdx.x % hb_count;
+  if (causal) qt = nq - 1 - qt;
+  const int h = hb % H, b = hb / H;
+  const int kh = h / (H / KH);
+  const int q0 = qt * BQ;
+  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty_bar(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMERS / 32) {
+    // producer warp: one lane keeps the ring full
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, L::q_bytes);
+      tma_load(q_s, &qmap, q_full, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % NSTAGE;
+        if (t >= NSTAGE) mbar_wait(empty_bar(st), ((t / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), L::tile_bytes);
+        tma_load(k_s + st * L::tile_bytes, &kmap, k_full(st), kh, t * BK, b);
+        mbar_expect_tx(v_full(st), L::tile_bytes);
+        tma_load(v_s + st * L::tile_bytes, &vmap, v_full(st), kh, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg .. + 63. Thread layout of
+  // the m64nN fragments: warp w of the group holds rows 16 w + g and
+  // 16 w + g + 8 (g = lane / 4), and in each block j of 8 columns the
+  // columns 8 j + 2 (lane % 4) + {0, 1}: registers 4 j + {0, 1} for the
+  // first row, 4 j + {2, 3} for the second.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int row_a = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int row_b = row_a + 8;
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+
+  constexpr uint32_t ROW = HD * 2;  // bytes per row of every tile
+  const uint64_t q_desc = make_desc<HD>(q_s + 64 * wg * ROW, 16, 8 * ROW);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this thread's share
+
+  mbar_wait(q_full, 0);
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % NSTAGE;
+    const uint32_t ph = (t / NSTAGE) & 1;
+    const int kv0 = t * BK;
+    mbar_wait(k_full(st), ph);
+    if (causal && kv0 > wg_last) {  // every key of the tile is after every row
+      mbar_wait(v_full(st), ph);
+      mbar_arrive(empty_bar(st));
+      turn_wait(wg);  // its two turns, so the other warpgroup's go on
+      turn_pass(wg);
+      turn_wait(wg);
+      turn_pass(wg);
+      continue;
+    }
+
+    // S = Q . K^T over hd in steps of 16 (32 bytes along the swizzled row)
+    float s[BK / 2];
+    const uint64_t k_desc = make_desc<HD>(k_s + st * L::tile_bytes, 16, 8 * ROW);
+    turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n64(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale (with log2 e, for exp2), masks, running max over the quad
+    const bool masked = (causal && kv0 + BK - 1 > wg_first) || kv0 + BK > S;
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float xa = s[4 * j + c] * scale_log2;
+        float xb = s[4 * j + 2 + c] * scale_log2;
+        if (masked) {
+          const int key = kv0 + 8 * j + 2 * t4 + c;
+          if (key >= S || (causal && key > row_a)) xa = NEG;
+          if (key >= S || (causal && key > row_b)) xb = NEG;
+        }
+        s[4 * j + c] = xa;
+        s[4 * j + 2 + c] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = ex2(m_a - mn_a), corr_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+
+    // p in fp32, l summed from it, then P as (hi, lo) A fragments: k-step
+    // kk covers keys 16 kk .. 16 kk + 15, column blocks 2 kk and 2 kk + 1
+    float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[4 * j + c] = ex2(s[4 * j + c] - mn_a);
+        s[4 * j + 2 + c] = ex2(s[4 * j + 2 + c] - mn_b);
+        ls_a += s[4 * j + c];
+        ls_b += s[4 * j + 2 + c];
+      }
+    }
+    l_a = l_a * corr_a + ls_a;
+    l_b = l_b * corr_b + ls_b;
+    uint32_t p[PARTS][BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int off = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        uint32_t part[PARTS];
+        split_bf16x2<PARTS>(s[off], s[off + 1], part);
+#pragma unroll
+        for (int i = 0; i < PARTS; ++i) p[i][kk][r] = part[i];
+      }
+    }
+    // pv = P_lo . V + P_mid . V + P_hi . V in a fresh accumulator, smallest
+    // part first: the tensor cores add each k-step to the accumulator with
+    // their own alignment and rounding, whose error scales with the
+    // accumulator's size, so no product is added into the running sum of
+    // earlier tiles and the small parts meet a small accumulator. V is the
+    // MN-major B operand; a k-step of 16 keys is 16 of its rows.
+    mbar_wait(v_full(st), ph);
+    const uint64_t v_desc = make_desc<HD>(v_s + st * L::tile_bytes, BK * ROW, 8 * ROW);
+    float pv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i) fence_regs(p[i]);
+    turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int i = PARTS - 1; i >= 0; --i) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<HD>(pv, p[i][kk], v_desc + ((16 * kk * ROW) >> 4), i < PARTS - 1 || kk > 0);
+    }
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(pv);
+    mbar_arrive(empty_bar(st));
+
+    // the running sum in fp32 on the CUDA cores: acc = acc * corr + pv
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[4 * j + 0] = fmaf(acc[4 * j + 0], corr_a, pv[4 * j + 0]);
+      acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
+      acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
+      acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+    }
+  }
+
+  if (wg == 0) turn_wait(wg);  // the turn warpgroup 1 passed at the start
+
+  // epilogue: l over the quad, out = acc / (l + 1e-30), rows < S only
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+  }
+  const float den_a = l_a + 1e-30f, den_b = l_b + 1e-30f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= S) continue;
+    const float den = half ? den_b : den_a;
+    bf16* orow = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime, so the library needs
+// no link against the driver
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int TENSOR_MAP_ERROR = 100000;  // + the CUresult of a failed encode
+
+cudaError_t encode_fn(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// a 4-D map over (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16
+// tensor; the box is (hd, 1, rows, 1), past S the hardware fills zeros
+template <int HD>
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int S, int B,
+                int rows) {
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)heads * HD * 2,
+                                 (cuuint64_t)S * heads * HD * 2};
+  const cuuint32_t box[4] = {HD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<HD>::tma,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
+              int causal, float scale, cudaStream_t stream) {
+  EncodeTiled fn;
+  cudaError_t err = encode_fn(&fn);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm;
+  CUresult rc = encode<HD>(fn, &qm, q, H, S, B, BQ);
+  if (rc == CUDA_SUCCESS) rc = encode<HD>(fn, &km, k, KH, S, B, BK);
+  if (rc == CUDA_SUCCESS) rc = encode<HD>(fn, &vm, v, KH, S, B, BK);
+  if (rc != CUDA_SUCCESS) return TENSOR_MAP_ERROR + rc;
+  using L = Layout<HD>;
+  err = cudaFuncSetAttribute(fa_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::alloc);
+  if (err != cudaSuccess) return err;
+  const int nq = (S + BQ - 1) / BQ;
+  const int64_t blocks = static_cast<int64_t>(nq) * H * B;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  fa_fwd_tc<HD><<<static_cast<unsigned>(blocks), THREADS, L::alloc, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), S, H, KH, B, nq, causal, scale * LOG2E);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the
-// launch (0 on success); the caller raises on anything else.
+// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (tensor-core kernel).
+// Returns the cudaError_t of
+// the launch, or TENSOR_MAP_ERROR + a CUresult (0 on success); the caller
+// raises on anything else.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int H, int K, int hd, int dtype, int causal, float scale,
-                      void* stream) {
+                      int H, int K, int hd, int dtype, int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_hd<float>(q, k, v, o, B, S, H, K, hd, causal, scale, st);
-    case 1: return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, K, hd, causal, scale, st);
-    default: return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (hd) {
+      case 16: return launch_fp32<16>(q, k, v, o, B, S, H, K, causal, scale, st);
+      case 32: return launch_fp32<32>(q, k, v, o, B, S, H, K, causal, scale, st);
+      case 64: return launch_fp32<64>(q, k, v, o, B, S, H, K, causal, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (hd) {
+      case 16: return launch_tc<16>(q, k, v, o, B, S, H, K, causal, scale, st);
+      case 32: return launch_tc<32>(q, k, v, o, B, S, H, K, causal, scale, st);
+      case 64: return launch_tc<64>(q, k, v, o, B, S, H, K, causal, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_error_string(int err) {
+  if (err >= TENSOR_MAP_ERROR) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - TENSOR_MAP_ERROR);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -3,8 +3,9 @@ version, and the differentiable wrapper.
 
 The kernel (``repro_torch/csrc/flash_attention_fwd.cu``) replaces the TPU
 kernel ``repro/kernels/flash_attention.py::_fwd_kernel``; its source says
-what bounds it and how it is laid out. It is built with ``nvcc`` at first
-use and called through ``ctypes`` on PyTorch's current stream.
+what bounds it and how it is laid out. bf16 runs on the tensor cores
+(``wgmma`` fed by TMA), fp32 on the CUDA cores. It is built with ``nvcc``
+at first use and called through ``ctypes`` on PyTorch's current stream.
 
 The backward recomputes, as the JAX package's ``_fa_bwd`` does: autograd
 over the chunked online-softmax oracle (``kernels/ref.py``), with the
@@ -63,11 +64,19 @@ def _check(q, k, v):
         raise ValueError(f"query heads {H} not a multiple of kv heads {k.shape[2]}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not built; the kernel takes {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        # TMA reads each tensor from its base address, which must be 16-byte
+        # aligned; a contiguous view into a larger tensor need not be
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start at a 16-byte aligned address for "
+                                 f"the bf16 kernel's TMA loads; got {t.data_ptr():#x}")
 
 
 def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
     """The CUDA kernel. q (B,S,H,hd); k, v (B,S,K,hd) -> (B,S,H,hd) in q's
-    type. Raises on anything the kernel does not take."""
+    type: bf16 on the tensor cores, fp32 on the CUDA cores. Raises on
+    anything the kernel does not take."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)

@@ -11,6 +11,8 @@ the softmax terms (attention) in another order than the plain versions,
 and may fuse multiply-adds, so they agree to a few fp32 ulps (rtol 1e-5).
 bf16 outputs round those fp32 values once: where a value straddles a
 rounding boundary the two differ by one bf16 step, at most 2^-7 relative.
+(The bf16 attention kernel keeps p to fp32 accuracy on the tensor cores
+by splitting it into three bf16 parts; see its source.)
 The fp32 GEMM sums K products in another order than cuBLAS: both are held
 against a float64 product at the classic bound of a K-term fp32 sum,
 K * 2^-24 * (|alpha| |A| |B| + |beta| |C|) per element, plus one rounding of
@@ -105,11 +107,19 @@ def test_rmnp_kernel_rejects_what_it_does_not_take(cuda):
         rm.rmnp_rownorm_apply(g, v, w, scalars.cpu(), beta=0.9)
 
 
-ATTN = [("gpt2_small", 8, 1024, 12, 12, 64, torch.bfloat16),
-        ("gqa_ragged", 2, 1000, 8, 2, 64, torch.bfloat16),
-        ("gqa_ragged_fp32", 2, 1000, 8, 2, 64, torch.float32),
-        ("hd32", 1, 130, 4, 4, 32, torch.float32),
-        ("hd16_g4", 1, 77, 8, 2, 16, torch.bfloat16)]
+# (name, B, S, H, K, hd, dtype, causal): bf16 runs on the tensor cores,
+# fp32 on the CUDA cores; the main path's shape causal and not, GQA with a
+# ragged S, hd 32 and 16 with G = 4, and ragged S around the key tiles
+ATTN = [("gpt2_small", 8, 1024, 12, 12, 64, torch.bfloat16, True),
+        ("gpt2_small_noncausal", 8, 1024, 12, 12, 64, torch.bfloat16, False),
+        ("gqa_ragged", 2, 1000, 8, 2, 64, torch.bfloat16, True),
+        ("gqa_ragged_noncausal", 2, 1000, 8, 2, 64, torch.bfloat16, False),
+        ("gqa_ragged_fp32", 2, 1000, 8, 2, 64, torch.float32, True),
+        ("hd32", 1, 130, 4, 4, 32, torch.float32, True),
+        ("hd32_g4", 2, 1024, 8, 2, 32, torch.bfloat16, True),
+        ("hd16_g4", 1, 77, 8, 2, 16, torch.bfloat16, True),
+        ("hd16_g4_s1000", 2, 1000, 8, 2, 16, torch.bfloat16, True)]
+ATTN += [(f"s{S}", 2, S, 8, 2, 64, torch.bfloat16, True) for S in (1, 63, 65, 129)]
 
 
 def _qkv(B, S, H, K, hd, dt, requires_grad=False, seed=1):
@@ -123,12 +133,34 @@ def _qkv(B, S, H, K, hd, dt, requires_grad=False, seed=1):
 
 @pytest.mark.parametrize("case", ATTN, ids=[c[0] for c in ATTN])
 def test_flash_forward_matches_plain(cuda, case):
-    _, B, S, H, K, hd, dt = case
+    _, B, S, H, K, hd, dt, causal = case
     q, k, v = _qkv(B, S, H, K, hd, dt)
-    out = fa.flash_attention_fwd_kernel(q, k, v, causal=True)
-    ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     _close(out, ref)
+
+
+def test_flash_two_launches_give_identical_bits(cuda):
+    """The kernel uses no atomics: the same input gives the same bits."""
+    q, k, v = _qkv(8, 1024, 12, 12, 64, torch.bfloat16)
+    first = fa.flash_attention_fwd_kernel(q, k, v)
+    second = fa.flash_attention_fwd_kernel(q, k, v)
+    assert torch.equal(first, second)
+
+
+def test_flash_bf16_rejects_a_misaligned_view(cuda):
+    """TMA needs 16-byte aligned bases; a contiguous view 2 bytes into a
+    buffer is refused, not sent to another path."""
+    q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd_kernel(shifted, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(shifted, k, v)
 
 
 def test_flash_autograd_runs_the_kernel_forward(cuda):
