@@ -34,8 +34,11 @@ Phases:
          buckets, each against a float64 product on the card, with a
          mutation control that must fail; five iterations kernel against
          plain; ns_step3 on a stack against ns_step on its slices; a ragged
-         stack and a 2-D matrix taken on its transposed side;
-         torch.bmm/baddbmm are timed beside it as yardsticks only;
+         stack and a 2-D matrix taken on its transposed side; the ptxas
+         report of each instantiation is printed, and cuobjdump must find
+         HGMMA in all four; each launch's bound is given for FFMA and for
+         3xTF32 on the tensor cores; torch.bmm/baddbmm are timed beside it
+         as yardsticks only;
   C4     Muon on the main path at full width: 3 single-pass steps with 40
          matmul3 and 20 ns_poly3 launches each, one per-leaf step (the 2-D
          kernels for the embedding), one bucketed step each of NorMuon,
@@ -65,6 +68,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
+TF32_FLOPS = 495e12         # H100 SXM, dense TF32 tensor cores
 BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768)]
 # Phase C3, flash against dense attention in bf16 at full width: the loss,
 # and the final hidden state by relative Frobenius distance. The dense path
@@ -77,11 +81,11 @@ C3_HIDDEN_TOL = 5e-2
 # Newton-Schulz at gpt2-small's buckets, smaller side first: (L, m, n)
 NS_BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 768, 3072), (1, 768, 50432)]
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
-# Phase E, one launch against a float64 product: the kernel and the plain
-# version (cuBLAS, TF32 off) both sum K fp32 products in serial FMA chains,
-# whose error grows with the chain's length; they cut and order the chains
-# otherwise (the kernel's run at most 2048 products, see K_CHUNK in
-# kernels/matmul.py). The kernel's worst error may be at most 8x the plain
+# Phase E, one launch against a float64 product: the plain version (cuBLAS,
+# TF32 off) sums K fp32 products in FMA chains; the kernel sums 3xTF32
+# products in slabs of 32 and adds the slabs and the chunks of K in fp32
+# (kernels/matmul.py, csrc/matmul.cu). Their errors grow with the chains and
+# differ in order. The kernel's worst error may be at most 8x the plain
 # version's: room for the chains and for the spread of a maximum over up to
 # 3e7 elements, while a skipped k-tile or a transposed operand moves the
 # result by O(1) of its size, thousands of times more (the mutation control
@@ -259,10 +263,18 @@ def attention_flops(B, S, H, hd, causal=True):
     return 4 * B * H * hd * pairs
 
 
-def ptxas_lines(report, marker):
+def template_args(mangled):
+    """The integer and bool template arguments in a mangled kernel name
+    (``ILi64E``: 64; ``ILb1ELb0E``: 1, 0)."""
+    import re
+    return re.findall(r"L[ib](\d+)E", mangled)
+
+
+def ptxas_lines(report, marker, prefix):
     """Registers, stack and spills of each function whose name holds
-    ``marker``, from an ``nvcc -Xptxas -v`` report, keyed by the template
-    argument in its mangled name (``ILi64E``: hd 64)."""
+    ``marker``, from an ``nvcc -Xptxas -v`` report, keyed by ``prefix`` and
+    the template arguments in its mangled name (``hd`` and ``ILi64E``:
+    hd64)."""
     import re
     out, name = {}, None
     for line in report.splitlines():
@@ -272,7 +284,7 @@ def ptxas_lines(report, marker):
             continue
         if name is None:
             continue
-        key = "hd{}".format(re.findall(r"Li(\d+)E", name)[0])
+        key = prefix + "_".join(template_args(name))
         if "spill" in line or "Used" in line:
             out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
@@ -294,8 +306,8 @@ def hgmma_counts(library):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            kind = re.search(r"fa_fwd_tc|fa_fwd_fp32", m.group(1))
-            args = re.findall(r"Li(\d+)E", m.group(1))
+            kind = re.search(r"fa_fwd_tc|fa_fwd_fp32|gemm_kernel", m.group(1))
+            args = template_args(m.group(1))
             name = (kind.group(0) + "".join(f"_{a}" for a in args)) if kind else m.group(1)
             counts[name] = 0
         elif name and "HGMMA" in line:
@@ -386,7 +398,7 @@ def phase_attention():
     stress = seeds_over_limit()
     check(stress["over_limit"] == 0,
           f"attention: the non-causal seed sweep missed the limit {stress}")
-    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("flash_attention_fwd", ""), "fa_fwd_tc")
+    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("flash_attention_fwd", ""), "fa_fwd_tc", "hd")
     hgmma = hgmma_counts(build.library_path("flash_attention_fwd"))
     tc = {n: c for n, c in hgmma.items() if n.startswith("fa_fwd_tc")}
     check(len(tc) == len(fa.HEAD_DIMS) and all(c > 0 for c in tc.values()),
@@ -401,13 +413,16 @@ def phase_attention():
 
 
 def gemm_bound(L, M, N, K, reads):
-    """(bound_ms, bound_by) of one GEMM launch: 2MNK FLOP plus the epilogue
-    at the fp32 CUDA-core rate, against ``reads`` input elements read once
-    and the (L, M, N) output written once."""
+    """(bound_ms, bound_by, bound_3xtf32_ms) of one GEMM launch: 2MNK FLOP
+    plus the epilogue at the fp32 CUDA-core rate, against ``reads`` input
+    elements read once and the (L, M, N) output written once; and the same
+    with the products as 3xTF32, three TF32 products per fp32 product at
+    the TF32 tensor-core rate (the kernel's own floor)."""
     flops = L * (2 * M * N * K + 3 * M * N)
     t_ops = flops / FP32_FLOPS * 1e3
     t_bytes = 4 * (reads + L * M * N) / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    t_3xtf32 = max(3 * L * 2 * M * N * K / TF32_FLOPS * 1e3, t_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_3xtf32
 
 
 def phase_ns():
@@ -473,9 +488,10 @@ def phase_ns():
             if shape == (3, 100, 300):
                 rows.append(rec)
                 continue
-            bound, by = gemm_bound(Lb, M, N, K, reads)
+            bound, by, bound3 = gemm_bound(Lb, M, N, K, reads)
             rec.update(ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
-                       library_ms=time_ms(library), bound_ms=bound, bound_by=by)
+                       library_ms=time_ms(library), bound_ms=bound, bound_by=by,
+                       bound_3xtf32_ms=bound3)
             rows.append(rec)
             per_kind.setdefault(name, []).append(rec)
             del want
@@ -518,14 +534,26 @@ def phase_ns():
     check(got.shape == v.shape and rel <= NS_REL_TOL,
           f"2-D transposed newton_schulz: relative distance {rel}")
 
+    # the kernel's build: registers, spills and shared memory of each
+    # instantiation, and wgmma (HGMMA) in the SASS of every one
+    from repro_torch.kernels import build
+    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("matmul", ""), "gemm_kernel", "ab")
+    hgmma = hgmma_counts(build.library_path("matmul"))
+    gemms = {n: c for n, c in hgmma.items() if n.startswith("gemm_kernel")}
+    check(len(gemms) == 4 and all(c > 0 for c in gemms.values()),
+          f"GEMM: HGMMA missing from a kernel instantiation's SASS: {hgmma}")
+    for key, line in ptxas.items():
+        print(f"ptxas gemm_kernel {key}: {line}", flush=True)
+
     # The per-leaf engine runs the embedding leaf (50432, 768) through the 2-D
     # wrappers: the same launches as the L = 1 bucket (checked bit for bit
     # above, ns_step against ns_step3), so their rows take that bucket's times.
     emit("E_newton_schulz", {"launches": rows, "mutation_control": control,
-                             "err_factor": E_ERR_FACTOR})
+                             "err_factor": E_ERR_FACTOR, "ptxas": ptxas, "hgmma": hgmma})
 
     def total(recs):
-        out = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out = {k: sum(r[k] for r in recs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}
         out["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in recs)
                            else "bytes")

@@ -64,7 +64,11 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr float NEG = -1e30f;
 
@@ -197,94 +201,14 @@ constexpr int CONSUMERS = 256;         // two warpgroups of 64 rows
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// spin until the phase of the given parity has completed; a wait of more
-// than about 5 s (1e10 clocks) can only be a broken ring, and traps, so the
-// launch fails with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - start > 10000000000LL) __trap();
-  }
-}
-
-// one TMA load of a box at coordinates (hd, head, s, b), completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // Turns of the two consumer warpgroups at the tensor cores (named barriers
 // 1 and 2, 256 threads each): warpgroup wg waits for its turn before it
 // issues a product and passes the turn on after, so the products are
 // issued S0 S1 PV0 PV1 ... and one warpgroup's softmax runs while the
 // other's products do. Both wait on the same K/V tiles, and without the
 // turns they run in step: both in softmax while the tensor cores idle.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
-
-// pin registers that wgmma reads or writes asynchronously in place in the
-// instruction stream, so the compiler moves no use of them across the
-// fence, the issue or the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
+__device__ __forceinline__ void turn_wait(int wg) { bar_sync(1 + wg, CONSUMERS); }
+__device__ __forceinline__ void turn_pass(int wg) { bar_arrive(2 - wg, CONSUMERS); }
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -336,9 +260,7 @@ struct Swizzle<16> {
 
 template <int HD>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (Swizzle<HD>::desc << 62);
+  return sm90::make_desc(addr, lbo, sbo, Swizzle<HD>::desc);
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
@@ -461,7 +383,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
       mbar_init(v_full(st), 1);
       mbar_init(empty_bar(st), CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -470,14 +392,14 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     // producer warp: one lane keeps the ring full
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, L::q_bytes);
-      tma_load(q_s, &qmap, q_full, h, q0, b);
+      tma_load_4d(q_s, &qmap, q_full, h, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % NSTAGE;
         if (t >= NSTAGE) mbar_wait(empty_bar(st), ((t / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(k_full(st), L::tile_bytes);
-        tma_load(k_s + st * L::tile_bytes, &kmap, k_full(st), kh, t * BK, b);
+        tma_load_4d(k_s + st * L::tile_bytes, &kmap, k_full(st), kh, t * BK, b);
         mbar_expect_tx(v_full(st), L::tile_bytes);
-        tma_load(v_s + st * L::tile_bytes, &vmap, v_full(st), kh, t * BK, b);
+        tma_load_4d(v_s + st * L::tile_bytes, &vmap, v_full(st), kh, t * BK, b);
       }
     }
     return;
@@ -647,35 +569,6 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime, so the library needs
-// no link against the driver
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-constexpr int TENSOR_MAP_ERROR = 100000;  // + the CUresult of a failed encode
-
-cudaError_t encode_fn(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
 // a 4-D map over (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16
 // tensor; the box is (hd, 1, rows, 1), past S the hardware fills zeros
 template <int HD>
@@ -744,10 +637,10 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int 
 }
 
 extern "C" const char* fa_error_string(int err) {
-  if (err >= TENSOR_MAP_ERROR) {
+  if (err >= sm90::TENSOR_MAP_ERROR) {
     static thread_local char msg[96];
     snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
-             err - TENSOR_MAP_ERROR);
+             err - sm90::TENSOR_MAP_ERROR);
     return msg;
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -2,9 +2,10 @@
 
 CUDA C++ sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface, loaded with
-``ctypes``. Each library is named by a hash of its source and flags, so an
-edited source rebuilds and concurrent builds never see a half-written
-file. Triton keeps its compiled kernels in a cache directory beside them.
+``ctypes``. Each library is named by a hash of its source, the headers of
+``csrc/`` it includes and the flags, so an edited source or header rebuilds
+and concurrent builds never see a half-written file. Triton keeps its
+compiled kernels in a cache directory beside them.
 Everything goes under ``build/kernels`` at the repository root, which
 ``.gitignore`` lists. A build failure raises with the compiler's output;
 nothing falls back to a plain version.
@@ -14,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
@@ -44,14 +46,31 @@ def _nvcc() -> str:
     return str(path)
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the headers it includes with ``#include "..."``,
+    theirs too, in the order found."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc for inc in
+                 re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M)]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source was built before."""
+    """Compile ``csrc/<name>.cu`` unless this exact source (headers
+    included) was built before."""
     out = library_path(name)
     if out.exists():
         return out

@@ -6,9 +6,16 @@ The kernel (``repro_torch/csrc/matmul.cu``) computes ``D[l] = alpha * (A[l]
 through its strides. It replaces the TPU kernels
 ``repro/kernels/matmul.py::_kernel`` (2-D, launched here with ``L = 1``)
 and ``::_kernel3`` (stacked), and with its epilogue the Newton-Schulz
-polynomial (``kernels/newton_schulz.py``); its source says what bounds it
-and how it is laid out. It is built with ``nvcc`` at first use and called
-through ``ctypes`` on PyTorch's current stream.
+polynomial (``kernels/newton_schulz.py``). Its products run on the tensor
+cores as 3xTF32 (``wgmma``), summed in fp32 slab by slab; its source says
+what bounds it and how it is laid out. It is built with ``nvcc`` at first
+use and called through ``ctypes`` on PyTorch's current stream.
+
+This module chooses what the kernel cannot see: the chunks of K that it
+sums apart (``k_chunk``, a function of the slice's shape alone, so that
+every slice of a stack rounds as it would alone) and whether a launch
+spreads a tile's chunks over blocks (``split_blocks``, which changes no
+bit of the result).
 
 Launches are counted under the key the caller names: ``matmul`` and
 ``matmul3`` for the products, ``ns_poly`` and ``ns_poly3`` for the
@@ -26,15 +33,39 @@ from repro_torch.kernels.ref import matmul_ref
 _FN = None
 _INT32_MAX = 2 ** 31 - 1
 _MAX_L = 65535  # gridDim.z
-# K is cut into chunks of at most K_CHUNK, one block each, added in chunk
-# order: no output sums more than 2048 products in one serial chain, and the
-# embedding's Gram (K = 50432, 36 output tiles) runs 25 blocks per tile. On
-# the H100 an unsplit Gram with K = 3072 landed 7.7x further from the exact
-# sum than cuBLAS (PERF.md); shorter chains keep the kernel near cuBLAS. A
-# function of K alone, so a stacked launch and a one-slice launch round
-# alike.
+_TILE = 128  # the kernel's output tile (rows and columns)
+_SLAB = 32  # the kernel's k-slab
+# K is cut into chunks, each summed apart and the chunks added in order. No
+# chunk is longer than K_CHUNK: on the H100 a serial fp32 chain over a Gram's
+# K = 3072 landed 7.7x further from the exact sum than cuBLAS (PERF.md), and
+# the embedding's Gram (K = 50432, 36 output tiles) runs 25 blocks per tile.
+# Where the output tiles of one slice would leave most of the card's SMs
+# idle, chunks down to MIN_CHUNK give it more blocks (a 768 x 768 x 768
+# product: 36 tiles, 3 chunks of 256). The chunking is a function of
+# (M, N, K) alone, never of L or of the card, so a stacked launch and a
+# one-slice launch round alike.
 K_CHUNK = 2048
-_TILE = 128  # the kernel's output tile, for the split counters
+MIN_CHUNK = 256
+SMS = 132  # an H100's streaming multiprocessors
+
+
+def _tiles(M: int, N: int) -> int:
+    return -(-M // _TILE) * -(-N // _TILE)
+
+
+def k_chunk(M: int, N: int, K: int) -> int:
+    """The chunk of K the kernel sums apart, for an (M, K) @ (K, N) slice."""
+    chunks = max(-(-K // K_CHUNK), min(SMS // _tiles(M, N), K // MIN_CHUNK), 1)
+    per_chunk = -(-K // chunks)
+    return max(_SLAB, -(-per_chunk // _SLAB) * _SLAB)  # whole slabs
+
+
+def split_blocks(L: int, M: int, N: int, K: int, chunk: int) -> bool:
+    """Whether a launch runs one block per (output tile, chunk), its chunk
+    sums added through a workspace, rather than one block per tile. Only
+    when the tiles of the whole stack leave SMs idle: the workspace costs a
+    round trip through device memory. Both give the same bits."""
+    return K > chunk and L * _tiles(M, N) < SMS
 
 
 def _kernel():
@@ -43,7 +74,7 @@ def _kernel():
         from repro_torch.kernels.build import load_library
         lib = load_library("matmul")
         fn = lib.gemm_f32
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -90,20 +121,20 @@ def gemm(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0,
     L, M, K = a.shape
     N = b.shape[2]
     out = torch.empty((L, M, N), dtype=torch.float32, device=a.device)
-    splits = -(-K // K_CHUNK) if K > K_CHUNK else 1
+    chunk = k_chunk(M, N, K)
+    split = split_blocks(L, M, N, K, chunk)
     work = arrivals = None
-    if splits > 1:  # scratch of the split-K partials and the tiles' arrival counters
-        work = torch.empty(L * splits * M * N, dtype=torch.float32, device=a.device)
-        arrivals = torch.zeros(L * -(-M // _TILE) * -(-N // _TILE), dtype=torch.int32,
-                               device=a.device)
+    if split:  # scratch of the chunk sums and the tiles' arrival counters
+        work = torch.empty(L * -(-K // chunk) * M * N, dtype=torch.float32, device=a.device)
+        arrivals = torch.zeros(L * _tiles(M, N), dtype=torch.int32, device=a.device)
     fn, err_str = _kernel()
     cs = c.stride() if c is not None else (0, 0, 0)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr() if c is not None else None,
                  out.data_ptr(), None if work is None else work.data_ptr(),
-                 None if arrivals is None else arrivals.data_ptr(), L, M, N, K, K_CHUNK,
-                 *a.stride(), *b.stride(), *cs, float(alpha), float(beta), stream)
+                 None if arrivals is None else arrivals.data_ptr(), L, M, N, K, chunk,
+                 int(split), *a.stride(), *b.stride(), *cs, float(alpha), float(beta), stream)
     if err != 0:
         raise RuntimeError(f"GEMM kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES[count] += 1

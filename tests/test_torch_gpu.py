@@ -13,7 +13,9 @@ bf16 outputs round those fp32 values once: where a value straddles a
 rounding boundary the two differ by one bf16 step, at most 2^-7 relative.
 (The bf16 attention kernel keeps p to fp32 accuracy on the tensor cores
 by splitting it into three bf16 parts; see its source.)
-The fp32 GEMM sums K products in another order than cuBLAS: both are held
+The fp32 GEMM sums 3xTF32 products (each operand split into two TF32
+parts, three tensor-core products per fp32 product) in slabs of 32, adding
+slabs and chunks of K in fp32, an order other than cuBLAS's: both are held
 against a float64 product at the classic bound of a K-term fp32 sum,
 K * 2^-24 * (|alpha| |A| |B| + |beta| |C|) per element, plus one rounding of
 each epilogue operation and of each split-K chunk added.
@@ -241,6 +243,73 @@ def test_gemm_matches_plain(cuda, case):
     for out in (got, plain):
         assert torch.isfinite(out).all()
         assert ((out.double() - want).abs() <= bound).all()
+
+
+def _within_bound(got, a, b, c, alpha, beta):
+    want = alpha * (a.double() @ b.double())
+    if c is not None:
+        want = want + beta * c.double()
+    return bool(((got.double() - want).abs() <= _gemm_bound(a, b, c, alpha, beta)).all())
+
+
+def test_gemm_two_launches_give_identical_bits(cuda):
+    """No atomics decide the order of a sum: a split-K tile (the chunks
+    added by whichever block arrives last) and a stack give the same bits
+    twice."""
+    for L, M, N, K in ((1, 768, 768, 768), (1, 130, 40, 9000), (4, 300, 200, 1000)):
+        a, b, c = _gemm_operands(L, M, N, K, False, True)
+        first = mm.gemm(a, b, c, alpha=2.0315, beta=-4.7750)
+        second = mm.gemm(a, b, c, alpha=2.0315, beta=-4.7750)
+        assert torch.equal(first, second), (L, M, N, K)
+
+
+def test_gemm_small_polynomial_schedule(cuda):
+    """The 2-D 768 x 768 polynomial (36 output tiles) runs a block per
+    (tile, chunk), 3 chunks of 256: held against float64 at the bound."""
+    assert mm.k_chunk(768, 768, 768) == 256
+    assert mm.split_blocks(1, 768, 768, 768, 256)
+    assert not mm.split_blocks(48, 768, 768, 768, 256)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1, 768, 768, generator=gen, device="cuda")
+    g = x @ x.transpose(1, 2) / 768
+    got = mm.gemm(g, g, g, alpha=2.0315, beta=-4.7750, count="ns_poly")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _within_bound(got, g, g, g, 2.0315, -4.7750)
+
+
+def _strided(kind, gen):
+    """Operands of one launch kind, each a view whose rows are not packed:
+    a column window of a wider buffer, so no stride is the packed one."""
+    def window(L, rows, cols):
+        return torch.randn(L, rows, cols + 24, generator=gen, device="cuda")[:, :, 5:5 + cols]
+    if kind == "gram_b_transposed":  # B = X^T: k runs along X's unit stride
+        x = window(2, 200, 300)
+        return x, x.transpose(1, 2), None, 1.0, 0.0
+    if kind == "poly_b_n_contiguous":  # A = B = C = G, B read along n
+        g = window(2, 200, 200)
+        return g, g, g, 2.0315, -4.7750
+    if kind == "apply_c_transposed":  # C (and B) read through a transposed view
+        p = window(2, 150, 150)
+        x = window(2, 300, 150).transpose(1, 2)
+        return p, x, x, 1.0, 3.4445
+    # a base 4 bytes past a 16-byte boundary, contiguous otherwise
+    flat = torch.randn(2 * 100 * 70 + 1, generator=gen, device="cuda")
+    a = flat[1:].view(2, 100, 70)
+    assert a.data_ptr() % 16
+    return a, window(2, 70, 90), None, 0.25, 0.0
+
+
+@pytest.mark.parametrize("kind", ["gram_b_transposed", "poly_b_n_contiguous",
+                                  "apply_c_transposed", "misaligned_base"])
+def test_gemm_strided_views(cuda, kind):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a, b, c, alpha, beta = _strided(kind, gen)
+    assert not (a.is_contiguous() and b.is_contiguous())
+    got = mm.gemm(a, b, c, alpha=alpha, beta=beta)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _within_bound(got, a, b, c, alpha, beta)
 
 
 def test_gemm_2d_and_3d_wrappers(cuda):
