@@ -4,13 +4,18 @@
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = all phases passed
 
 Phases:
-  build  compile the CUDA sources with nvcc while Triton compiles the RMNP
-         kernel, all from the sources in this checkout;
-  A      the RMNP kernels (apply and precondition, one line each) against
-         their plain versions at the four gpt2-small bucket shapes, fp32
-         and bf16 momentum, bf16 weights (the main path's), and for the
-         apply kernel also fp32 weights, whose update w_new - w is held
-         against the plain version's at its own magnitude;
+  build  compile the three CUDA sources with nvcc, one process each, all
+         started together, from the sources in this checkout;
+  A      the RMNP kernel (csrc/rmnp_update.cu; apply and precondition, one
+         line each) against its plain versions at the four gpt2-small
+         bucket shapes, fp32 and bf16 momentum, bf16 weights (the main
+         path's), and for the apply kernel also fp32 weights, whose update
+         w_new - w is held against the plain version's at its own
+         magnitude; per bucket its time, bound, rate, split (K, R, C) and
+         path, failing if a bucket takes the two-sweep path; bit for bit,
+         a stacked launch against its slices launched alone (both forms)
+         and, in fp32, apply against precondition followed by the two-pass
+         engine's eager ops; the ptxas report of each instantiation;
   B      the flash-attention forward kernel against its plain version at
          B=8 S=1024 H=K=12 hd=64 (bf16, tensor cores), causal and not, a
          GQA shape (H=8, K=2) with a ragged S in bf16 (causal and not) and
@@ -43,7 +48,9 @@ Phases:
          matmul3 and 20 ns_poly3 launches each, one per-leaf step (the 2-D
          kernels for the embedding), one bucketed step each of NorMuon,
          Muown and Nora, and the preconditioning time per step of RMNP
-         against Muon (update_apply, CUDA events);
+         against Muon (update_apply, CUDA events around each of 10 calls:
+         median, min and max, back to back and with the card held busy
+         while each call is enqueued, which reads the card's time alone);
   D      a small input: reduced gpt2 with attn_impl="pallas", 3 single-pass
          steps under RMNP and under Muon with the kernels on the card against
          the same steps with the plain versions on the CPU.
@@ -59,6 +66,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -121,6 +129,30 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def per_call_ms(fn, iters=10, warmup=2, hold_cycles=0):
+    """The time of each of ``iters`` calls, CUDA events around each. With
+    ``hold_cycles`` the card spins that many cycles before each call
+    (torch.cuda._sleep), so the host has enqueued the call before the card
+    reaches it and the events read the card's time alone, not the host's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        if hold_cycles:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(hold_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -143,21 +175,13 @@ def check(cond, msg):
 
 
 def phase_build():
-    import torch
-    from repro_torch.kernels import build, rmnp_update
+    from repro_torch.kernels import build
     t0 = time.time()
-    libs = ("flash_attention_fwd", "matmul")
-    # one nvcc per CUDA source, all started together, while Triton compiles
-    # the RMNP kernel
+    libs = ("flash_attention_fwd", "matmul", "rmnp_update")
+    # one nvcc per CUDA source, all started together; built even where a
+    # library of the same source exists, for its ptxas report
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        nvcc = [pool.submit(build.build_library, name) for name in libs]
-        g = torch.randn(2, 8, 8, device="cuda")
-        # compiles both Triton specializations (APPLY False and True)
-        rmnp_update.rmnp_rownorm(g, g.clone(), beta=0.9)
-        rmnp_update.rmnp_rownorm_apply(g, g.clone(), g.clone(), torch.zeros(2, device="cuda"),
-                                       beta=0.9)
-        torch.cuda.synchronize()
-        built = [f.result() for f in nvcc]
+        built = list(pool.map(lambda name: build.build_library(name, force=True), libs))
     emit("build", {"seconds": round(time.time() - t0, 2),
                    "libraries": [lib.name for lib in built],
                    "ptxas": {"matmul": build.PTXAS_REPORTS.get("matmul", "")[-1500:]}})
@@ -169,14 +193,30 @@ def rmnp_bytes(shape, v_bytes, w_bytes, apply):
     return n * (4 + 2 * v_bytes + out)
 
 
+def rmnp_instantiation(mangled):
+    """``C32_apply_one_read_v32_w16`` for the mangled name of
+    ``rmnp_kernel<C, APPLY, ONE_READ, TV, TW>``."""
+    import re
+    # a repeated type is mangled as a substitution (S1_ for the second bf16)
+    m = re.search(r"rmnp_kernelILi(\d+)ELb(\d)ELb(\d)E((?:f|13__nv_bfloat16|S\d*_)+)E", mangled)
+    if m is None:
+        return mangled
+    tv, tw = ("32" if t == "f" else "16"
+              for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(4)))
+    form = "apply" if m.group(2) == "1" else "precondition"
+    path = "one_read" if m.group(3) == "1" else "two_sweep"
+    return f"C{m.group(1)}_{form}_{path}_v{tv}" + (f"_w{tw}" if form == "apply" else "")
+
+
 def phase_rmnp():
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import rmnp_update as rm
     gen = torch.Generator(device="cuda").manual_seed(0)
     beta, eps = 0.95, 1e-8
     # Each output element is held at atol_frac * max|want| + rtol * |want|.
-    # fp32: the kernel sums squares in another order and may fuse
-    # multiply-adds, a few fp32 ulps, so rtol 1e-5. bf16: both sides round
+    # fp32: the kernel sums squares in another order (its own fixed order,
+    # csrc/rmnp_update.cu), a few fp32 ulps, so rtol 1e-5. bf16: both sides round
     # nearly equal fp32 values once; where a value straddles a rounding
     # boundary they differ by one bf16 step, at most 2^-7 of the element.
     # atol_frac 1e-6 covers values that cancel to near 0 (the EMA's terms
@@ -201,10 +241,13 @@ def phase_rmnp():
     # weights for the update check (the precondition kernel reads no weights)
     combos = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.float32)]
-    rows = {name: [] for name in kernels}
+    rows, bitwise = {name: [] for name in kernels}, []
     summary = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0,
                       "plain_ms": 0.0, "bound_ms": 0.0} for name in kernels}
     for shape in BUCKETS:
+        layout = rm.split(*shape[1:])
+        path = "one-read" if layout.one_read else "two-sweep"
+        check(layout.one_read, f"rmnp {shape}: split {layout} takes the two-sweep path")
         for vdt, wdt in combos:
             g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
             v = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(vdt)
@@ -238,12 +281,22 @@ def phase_rmnp():
                     check(e <= lim, f"{name} update {shape}: max_abs_err {e} > {lim}")
                     del u_got, u_want
                 del got, want
+                nbytes = rmnp_bytes(shape, vb, wb, apply)
+                clusters = rm.max_active_clusters(shape, vdt, wdt, apply=apply)
+                check(clusters > 0, f"{name} {shape}: no cluster of {layout} fits the card")
                 rec.update(max_abs_err=err, worst_ratio=ratio,
                            kernel_ms=time_ms(lambda: kernel(g, v, w, scalars)),
                            plain_ms=time_ms(lambda: plain(g, v, w, scalars)),
-                           bound_ms=rmnp_bytes(shape, vb, wb, apply) / HBM_BYTES_PER_S * 1e3,
-                           bound_by="bytes")
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                           split=layout._asdict(), path=path, clusters_at_once=clusters)
+                rec["gb_s"] = nbytes / rec["kernel_ms"] / 1e6
                 rows[name].append(rec)
+                print(f"{name} {'x'.join(map(str, shape))} v {rec['momentum']} w "
+                      f"{rec['weights']}: {rec['kernel_ms']:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms, {rec['gb_s']:.0f} GB/s, plain "
+                      f"{rec['plain_ms']:.4f} ms; K={layout.K} R={layout.R} C={layout.C} "
+                      f"threads={layout.threads}, {path}, {clusters} clusters at once",
+                      flush=True)
                 if (vdt, wdt) == combos[0]:  # the main path's types
                     s = summary[name]
                     s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -253,9 +306,53 @@ def phase_rmnp():
                     s["bound_ms"] += rec["bound_ms"]
             del g, v, w
             torch.cuda.empty_cache()
+        bitwise.append(rmnp_bitwise(shape, gen, beta, eps))
     for name, recs in rows.items():
         emit(f"A_{name}", {"buckets": recs})
+    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_kernel", "",
+                        key=rmnp_instantiation)
+    check(len(ptxas) == 30, f"rmnp: {len(ptxas)} instantiations in the ptxas report, want 30")
+    for key, line in sorted(ptxas.items()):
+        print(f"ptxas rmnp_kernel {key}: {line}", flush=True)
+    emit("A_rmnp_bitwise", {"buckets": bitwise, "ptxas": ptxas})
     return summary
+
+
+def rmnp_bitwise(shape, gen, beta, eps):
+    """Bit for bit at one bucket: a stacked launch against each slice
+    launched alone (both forms; fp32 momentum, bf16 weights), and in fp32
+    apply against precondition followed by the two-pass engine's eager ops
+    (``-scale * (d + wd * w)``, then ``w + update``)."""
+    import torch
+    from repro_torch.kernels import rmnp_update as rm
+    g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+    v = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    scalars = torch.tensor([2e-3, 0.1], device="cuda")
+    w16 = w.to(torch.bfloat16)
+    stacked = {"precondition": rm.rmnp_rownorm(g, v, beta=beta, eps=eps),
+               "apply": rm.rmnp_rownorm_apply(g, v, w16, scalars, beta=beta, eps=eps)}
+    slices = {"precondition": 0, "apply": 0}
+    for i in range(shape[0]):
+        one = {"precondition": rm.rmnp_rownorm(g[i:i + 1], v[i:i + 1], beta=beta, eps=eps),
+               "apply": rm.rmnp_rownorm_apply(g[i:i + 1], v[i:i + 1], w16[i:i + 1], scalars,
+                                              beta=beta, eps=eps)}
+        for form, outs in one.items():
+            slices[form] += all(torch.equal(a[i], b[0])
+                                for a, b in zip(stacked[form], outs, strict=True))
+    del stacked, w16
+    v_apply, w_apply = rm.rmnp_rownorm_apply(g, v, w, scalars, beta=beta, eps=eps)
+    v_pre, d = rm.rmnp_rownorm(g, v, beta=beta, eps=eps)
+    two_pass = w + -scalars[0] * (d + 0.1 * w)
+    rec = {"shape": list(shape), "slices_equal": slices, "slices": shape[0],
+           "apply_v_equals_precondition_v": bool(torch.equal(v_apply, v_pre)),
+           "apply_w_equals_two_pass_w": bool(torch.equal(w_apply, two_pass)),
+           "apply_w_two_pass_max_abs_diff": max_err(w_apply, two_pass)}
+    check(slices == {"precondition": shape[0], "apply": shape[0]},
+          f"rmnp {shape}: a stacked launch differs from its slices {slices}")
+    check(rec["apply_v_equals_precondition_v"] and rec["apply_w_equals_two_pass_w"],
+          f"rmnp {shape}: apply differs from precondition + eager ops {rec}")
+    return rec
 
 
 def attention_flops(B, S, H, hd, causal=True):
@@ -270,11 +367,11 @@ def template_args(mangled):
     return re.findall(r"L[ib](\d+)E", mangled)
 
 
-def ptxas_lines(report, marker, prefix):
+def ptxas_lines(report, marker, prefix, key=None):
     """Registers, stack and spills of each function whose name holds
     ``marker``, from an ``nvcc -Xptxas -v`` report, keyed by ``prefix`` and
     the template arguments in its mangled name (``hd`` and ``ILi64E``:
-    hd64)."""
+    hd64), or by ``key(mangled name)``."""
     import re
     out, name = {}, None
     for line in report.splitlines():
@@ -284,9 +381,9 @@ def ptxas_lines(report, marker, prefix):
             continue
         if name is None:
             continue
-        key = prefix + "_".join(template_args(name))
+        k = key(name) if key else prefix + "_".join(template_args(name))
         if "spill" in line or "Used" in line:
-            out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
+            out[k] = (out.get(k, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
 
 
@@ -759,24 +856,35 @@ def phase_muon():
 
     # the preconditioning time per step: update_apply of each optimizer on
     # the same params and gradients (AdamW leaves, gathers and scatters
-    # included), 10 timed calls after 2 of warm-up
+    # included), 10 timed calls after 2 of warm-up, back to back (what a
+    # step pays, the host's enqueueing included) and with the card held
+    # busy while each call is enqueued (the card's time alone)
     cfg = get_config("gpt2-small")
     params = init_params(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     grads = map_with_path(lambda _p, t: (torch.randn(t.shape, generator=gen, device="cuda")
                                          * 1e-3).to(t.dtype), params)
-    precond = {}
+    precond, spread = {}, {}
     for name in ("rmnp", "muon"):
         opt = make_optimizer(name, dict(lr_matrix=cosine_with_warmup(2e-3, 10),
                                         lr_adamw=cosine_with_warmup(1e-3, 10),
                                         fused=True, fused_apply=True))
         state = opt.init(params)
-        precond[name] = time_ms(lambda o=opt, st=state: o.update_apply(grads, st, params, 5))
+        run = (lambda o=opt, st=state: o.update_apply(grads, st, params, 5))
+        calls, device = per_call_ms(run), per_call_ms(run, hold_cycles=200_000_000)
+        precond[name] = statistics.median(calls)
+        spread[name] = {kind: {"median": statistics.median(x), "min": min(x), "max": max(x),
+                               "calls": x} for kind, x in (("calls", calls), ("device", device))}
         del state
-    print(f"preconditioning per step (update_apply, gpt2-small): rmnp {precond['rmnp']:.3f} ms, "
-          f"muon {precond['muon']:.3f} ms, muon/rmnp {precond['muon'] / precond['rmnp']:.2f}",
-          flush=True)
-    emit("C4_precondition_ms", {**precond, "muon_over_rmnp": precond["muon"] / precond["rmnp"]})
+    for kind in ("calls", "device"):
+        r, m = spread["rmnp"][kind], spread["muon"][kind]
+        print(f"preconditioning per step ({kind}; update_apply, gpt2-small, median (min-max) "
+              f"of 10): rmnp {r['median']:.3f} ms ({r['min']:.3f}-{r['max']:.3f}), muon "
+              f"{m['median']:.3f} ms ({m['min']:.3f}-{m['max']:.3f}), muon/rmnp "
+              f"{m['median'] / r['median']:.2f}", flush=True)
+    emit("C4_precondition_ms", {**precond, "muon_over_rmnp": precond["muon"] / precond["rmnp"],
+                                "device_muon_over_rmnp": spread["muon"]["device"]["median"]
+                                / spread["rmnp"]["device"]["median"], "spread": spread})
     del params, grads
     torch.cuda.empty_cache()
     return main_launches
@@ -859,13 +967,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    src = "src/repro_torch/kernels/rmnp_update.py"
+    src = "src/repro_torch/csrc/rmnp_update.cu"
     kernels = [
-        {"name": "rmnp_apply", "route": "triton", "source": src,
+        {"name": "rmnp_apply", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:129",
          "launches": launches["rmnp_apply"], **rmnp["rmnp_apply"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "rmnp_precondition", "route": "triton", "source": src,
+        {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
          "bound_by": "bytes", "library_ms": None},

@@ -9,11 +9,14 @@
 //   wgmma           make_desc, wgmma_fence / wgmma_commit / wgmma_wait_all,
 //                   fence_regs, wgmma_tf32_m64n128k8 (the tf32 product)
 //   TF32            tf32_rna (integer operations, no PTX)
+//   clusters        cluster_ctarank, cluster_arrive, cluster_wait,
+//                   dsmem_map, ld_dsmem_f32
+//   streaming loads ld_stream_f4, ld_stream_u2
 //
 // The bf16 wgmma forms of the flash-attention kernel stay in its own source.
-// tests/test_torch_kernel_emulation.py compiles csrc/matmul.cu on the CPU
-// against a C++ model of the helpers that source uses, so a helper's
-// signature is part of that test's contract.
+// tests/test_torch_kernel_emulation.py compiles csrc/matmul.cu and
+// csrc/rmnp_update.cu on the CPU against a C++ model of the helpers each
+// source uses, so a helper's signature is part of that test's contract.
 #pragma once
 
 #include <cuda.h>
@@ -210,6 +213,58 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da
 // conversion unit out of the producer's loop
 __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// ------------------------------------------------------------ clusters ---
+
+// this block's rank in its thread-block cluster (0 .. cluster size - 1)
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// the cluster barrier, in two halves: every thread of every block of the
+// cluster arrives (releasing its earlier shared-memory writes to the
+// cluster), and a wait returns once all have arrived (acquiring theirs).
+// Each thread alternates arrive and wait; all threads of a warp take them
+// together (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of the word at shared::cta address `addr`
+// in the block of cluster rank `rank` (distributed shared memory)
+__device__ __forceinline__ uint32_t dsmem_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// ---------------------------------------------------------- streaming ---
+
+// 16 (8) bytes of global memory that the kernel reads once: evict-first
+// (.cs), and L2 asked to fetch the whole 128-byte line, whose other bytes a
+// neighbouring block reads at about the same time
+__device__ __forceinline__ float4 ld_stream_f4(const void* p) {
+  float4 r;
+  asm("ld.global.cs.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint2 ld_stream_u2(const void* p) {
+  uint2 r;
+  asm("ld.global.cs.L2::128B.v2.u32 {%0, %1}, [%2];\n" : "=r"(r.x), "=r"(r.y) : "l"(p));
+  return r;
 }
 
 }  // namespace sm90

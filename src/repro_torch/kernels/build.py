@@ -4,8 +4,7 @@ CUDA C++ sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface, loaded with
 ``ctypes``. Each library is named by a hash of its source, the headers of
 ``csrc/`` it includes and the flags, so an edited source or header rebuilds
-and concurrent builds never see a half-written file. Triton keeps its
-compiled kernels in a cache directory beside them.
+and concurrent builds never see a half-written file.
 Everything goes under ``build/kernels`` at the repository root, which
 ``.gitignore`` lists. A build failure raises with the compiler's output;
 nothing falls back to a plain version.
@@ -68,11 +67,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_library(name: str) -> Path:
+def build_library(name: str, force: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact source (headers
-    included) was built before."""
+    included) was built before, or always with ``force`` (which records the
+    ptxas report)."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -93,13 +93,3 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library(name)))
         _LIBS[name] = lib
     return lib
-
-
-def triton_cache_dir() -> None:
-    """Point Triton's cache into the build directory (unless the caller set
-    one), so that compiled Triton kernels stay inside the checkout. Call
-    before Triton compiles anything."""
-    if "TRITON_CACHE_DIR" not in os.environ:
-        path = BUILD_DIR / "triton"
-        path.mkdir(parents=True, exist_ok=True)
-        os.environ["TRITON_CACHE_DIR"] = str(path)

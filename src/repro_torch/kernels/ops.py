@@ -1,12 +1,12 @@
 """Public entry points of the kernels (mirror of ``repro.kernels.ops``).
 
 Each dispatches on where its tensors lie: CUDA tensors go to the kernel (the
-RMNP update in Triton, ``kernels/rmnp_update.py``; the GEMM that carries
-Newton-Schulz in CUDA C++, ``kernels/matmul.py`` and
-``kernels/newton_schulz.py``), which raises on anything it does not take;
-CPU tensors go to the plain version. There is no fan-in fallback: the
-JAX package sends fan-in above 32768 to its jnp reference, while the Hopper
-kernel loops over ``d_in`` and takes every bucket, the ``50432 x 768``
+RMNP update, ``kernels/rmnp_update.py``, and the GEMM that carries
+Newton-Schulz, ``kernels/matmul.py`` and ``kernels/newton_schulz.py``, all
+CUDA C++), which raises on anything it does not take; CPU tensors go to the
+plain version. There is no fan-in fallback: the JAX package sends fan-in
+above 32768 to its jnp reference, while the Hopper kernel splits ``d_in``
+over a thread-block cluster and takes every bucket, the ``50432 x 768``
 embedding included. Launches are counted at the launch site
 (``repro_torch.kernels.LAUNCHES``).
 """

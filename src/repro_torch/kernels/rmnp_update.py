@@ -1,108 +1,110 @@
-"""Fused RMNP update kernel for Hopper, in Triton: precondition and apply.
+"""The RMNP update kernel for Hopper: its binding, its split and its plain
+versions.
 
-Replaces the TPU kernels ``repro/kernels/rmnp_update.py::_kernel3d``
-(precondition: ``v_new``, ``d``) and ``::_kernel3d_apply`` (single-pass
-apply: ``v_new``, ``w_new``). Per stacked bucket ``(L, d_in, d_out)``:
+The kernel (``repro_torch/csrc/rmnp_update.cu``, CUDA C++) replaces the TPU
+kernels ``repro/kernels/rmnp_update.py::_kernel3d`` (precondition: ``v_new``,
+``d``) and ``::_kernel3d_apply`` (single-pass apply: ``v_new``, ``w_new``).
+Per contiguous stacked bucket ``(L, d_in, d_out)``:
 
     v_new = beta * v + (1 - beta) * g
     d     = v_new / (||v_new||_col + eps)        (norm over d_in, per column)
-    w_new = w + (-scale) * (d + wd * w)          (APPLY only)
+    w_new = w + (-scale) * (d + wd * w)          (apply only)
 
-Why Triton and not CUDA C++: the work is a fused elementwise pass plus a
-column reduction. It is memory-bound, needs no tensor core, and Triton's
-masked block loads express it directly.
+It is bound by bytes, 16 per element at the main path's types (g, v, w read
+once, v and w written once), and reads each byte once: a thread-block
+cluster of K blocks splits a column block's rows, each block keeps its slab
+of ``v_new`` in shared memory, and the blocks add their partial sums of
+squares through distributed shared memory before they write. Its source
+says how. It is built with ``nvcc`` at first use and called through
+``ctypes`` on PyTorch's current stream. ``scale`` and ``wd`` arrive as a
+device tensor, so a step reads no scalar back to the host.
 
-What bounds it on the card: bytes. It does a handful of fp32 operations per
-element and needs no tensor core, so its least time is the bytes it must
-move over the memory rate: at gpt2-small full width, with fp32 gradient and
-momentum and bf16 weights, about 16 B per matrix parameter (g read, v read
-and written, w read and written), 2.4 GB a step, about 0.7 ms at 3.35 TB/s.
+This module chooses what the kernel cannot see: the split (``split``), a
+function of ``(d_in, d_out)`` alone, so that a stacked launch gives each
+slice the bits of a one-slice launch and the two forms give the same norm;
+and whether the column block fits the cluster's shared memory (the one-read
+path) or the kernel reads ``g`` and ``v`` a second time (the two-sweep
+path, which no gpt2-small bucket takes).
 
-What the design does about it. One program owns ``(l, BLOCK_N columns)``;
-loads are coalesced along ``d_out``. The TPU kernel holds a whole
-``(d_in, block_n)`` stripe in VMEM; an SM cannot, so the program loops over
-``d_in`` in ``BLOCK_M``-row tiles: one sweep accumulates the fp32 sum of
-squares, a second recomputes ``v_new`` from ``g`` and ``v`` and writes. That
-loop is what lets the ``50432 x 768`` embedding bucket run on the kernel (the
-JAX package sends fan-in above 32768 to its jnp reference; the port has no
-such fallback). The second sweep reads every element before it writes it, so
-``v_out`` may alias ``v``. Ragged edges are masked, never padded. ``scale``
-and ``wd`` arrive as a device tensor, so the step reads no scalar back to
-the host. Every element's math is fp32, as in the TPU kernel.
-
-Launches per program grid: ``L * ceil(d_out / BLOCK_N)`` programs; the
-``L = 1`` embedding bucket has few programs in flight (recorded in PERF.md,
-not tuned here).
+Launches are counted under ``rmnp_precondition`` and ``rmnp_apply``
+(``repro_torch.kernels.LAUNCHES``), one per bucket and call.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.ref import rmnp_momentum_rownorm_ref, rmnp_rownorm_apply_ref
 
-BLOCK_M = 64
-BLOCK_N = 64
-NUM_WARPS = 4
+_FN = None
+_INT32_MAX = 2 ** 31 - 1
+THREADS = 256
+TALL_THREADS = 512  # one block an SM: twice the threads keep twice the loads in flight
+SMEM_LIMIT = 232448  # the shared memory a block may use on an H100 (227 KB)
+# A block's slab of v_new: at most ROWS rows by COLUMNS_WIDE columns, 96 KB,
+# two blocks an SM (tools/rmnp_sweep.py chose 384 x 64 over 768 x 32).
+ROWS = 384
+COLUMNS_WIDE = 64
+MAX_PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16  # the kernel sets the non-portable cluster attribute above 8
+COLUMNS = (8, 16, 32, 64)  # the kernel's column blocks
 
-_KERNEL = None
-tl = None  # triton.language, bound when the kernel is first built
+
+class Split(NamedTuple):
+    """How a launch lays out one ``(d_in, d_out)`` slice: clusters of ``K``
+    blocks along ``d_in``, ``R`` rows and ``C`` columns a block,
+    ``threads`` a block; ``one_read`` keeps ``v_new`` in shared memory."""
+    K: int
+    R: int
+    C: int
+    threads: int
+    one_read: bool
+
+    def smem_bytes(self) -> int:
+        """The kernel's dynamic shared memory (csrc/rmnp_update.cu::smem_bytes)."""
+        return 4 * (4 * self.threads + 2 * self.C + (self.R * self.C if self.one_read else 0))
 
 
-def _rmnp_kernel(g_ptr, v_ptr, w_ptr, v_out_ptr, out_ptr, scal_ptr,
-                 d_in, d_out, beta, one_minus_beta, eps,
-                 APPLY: tl.constexpr, BLOCK_M: tl.constexpr,
-                 BLOCK_N: tl.constexpr):
-    pid_l = tl.program_id(0)
-    pid_n = tl.program_id(1)
-    cols = pid_n * BLOCK_N + tl.arange(0, BLOCK_N)
-    col_ok = cols < d_out
-    base = pid_l.to(tl.int64) * d_in * d_out
+def split(d_in: int, d_out: int) -> Split:
+    """The split of a ``(d_in, d_out)`` slice, never of ``L`` or the card.
 
-    # sweep 1: fp32 sum of squares of v_new down each column
-    sumsq = tl.zeros([BLOCK_N], dtype=tl.float32)
-    for m0 in range(0, d_in, BLOCK_M):
-        rows = m0 + tl.arange(0, BLOCK_M)
-        mask = (rows[:, None] < d_in) & col_ok[None, :]
-        offs = base + rows[:, None] * d_out + cols[None, :]
-        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        v = tl.load(v_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        v_new = beta * v + one_minus_beta * g
-        sumsq += tl.sum(v_new * v_new, axis=0)
-    denom = tl.sqrt_rn(sumsq) + eps
-
-    if APPLY:
-        scale = tl.load(scal_ptr)
-        wd = tl.load(scal_ptr + 1)
-    # sweep 2: recompute v_new (never re-read a rounded v_out), write
-    for m0 in range(0, d_in, BLOCK_M):
-        rows = m0 + tl.arange(0, BLOCK_M)
-        mask = (rows[:, None] < d_in) & col_ok[None, :]
-        offs = base + rows[:, None] * d_out + cols[None, :]
-        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        v = tl.load(v_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        v_new = beta * v + one_minus_beta * g
-        d = tl.div_rn(v_new, denom[None, :])
-        tl.store(v_out_ptr + offs, v_new.to(v_out_ptr.dtype.element_ty), mask=mask)
-        if APPLY:
-            w = tl.load(w_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            # op order of the two-pass reference: w + (-scale) * (d + wd * w)
-            w_new = w + (-scale) * (d + wd * w)
-            tl.store(out_ptr + offs, w_new.to(out_ptr.dtype.element_ty), mask=mask)
-        else:
-            tl.store(out_ptr + offs, d, mask=mask)
+    Up to 8 blocks of at most ``ROWS`` rows and 64 columns (96 KB of
+    ``v_new`` a block, two blocks an SM; d_in 768: 2 blocks, 3072: 8);
+    taller columns take 16 blocks (the non-portable cluster size) of 512
+    threads with 16, then 8 columns, as long as the slab fits a block's
+    shared memory (the ``50432 x 768`` embedding: 3152 rows by 16 columns,
+    197 KB, one block an SM); beyond that the two-sweep path, 8 blocks of
+    32 columns that keep no slab."""
+    K = -(-d_in // ROWS)
+    if K <= MAX_PORTABLE_CLUSTER:
+        return Split(K, -(-d_in // K), COLUMNS_WIDE, THREADS, True)
+    R = -(-d_in // MAX_CLUSTER)
+    for C in (16, 8):
+        s = Split(MAX_CLUSTER, R, C, TALL_THREADS, True)
+        if s.smem_bytes() <= SMEM_LIMIT:
+            return s
+    return Split(MAX_PORTABLE_CLUSTER, -(-d_in // MAX_PORTABLE_CLUSTER), 32, THREADS, False)
 
 
 def _kernel():
-    global _KERNEL, tl
-    if _KERNEL is None:
-        from repro_torch.kernels.build import triton_cache_dir
-        triton_cache_dir()
-        import triton
-        import triton.language as triton_language
-        tl = triton_language
-        _KERNEL = triton.jit(_rmnp_kernel)
-    return _KERNEL
+    global _FN
+    if _FN is None:
+        from repro_torch.kernels.build import load_library
+        lib = load_library("rmnp_update")
+        fn = lib.rmnp_update
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        occ = lib.rmnp_max_active_clusters
+        occ.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        lib.rmnp_error_string.argtypes = [ctypes.c_int]
+        lib.rmnp_error_string.restype = ctypes.c_char_p
+        _FN = (fn, occ, lib.rmnp_error_string)
+    return _FN
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -134,20 +136,50 @@ def _check(g, v, w=None, scalars=None):
                                 or scalars.device != g.device):
         raise ValueError("scalars must be a (2,) float32 [scale, wd] tensor on "
                          "the gradient's device")
+    d_in, d_out = g.shape[-2], g.shape[-1]
+    L = g.numel() // (d_in * d_out) if g.numel() else 0
+    if L * -(-d_out // split(d_in, d_out).C) > _INT32_MAX:
+        raise ValueError(f"{tuple(g.shape)}: more than 2^31 - 1 column blocks in a launch")
 
 
-def _launch(g, v, w, v_out, out, scalars, *, beta, eps, apply):
+def _launch(g, v, w, v_out, out, scalars, *, beta, eps, apply, layout=None):
+    """One launch over the bucket, laid out by ``split`` or by ``layout``
+    (tools/rmnp_sweep.py tries others)."""
     d_in, d_out = g.shape[-2], g.shape[-1]
     L = g.numel() // (d_in * d_out) if g.numel() else 0
     if L == 0:
         return
-    grid = (L, -(-d_out // BLOCK_N))
+    s = layout or split(d_in, d_out)
+    tensors = [t for t in (g, v, w, v_out, out) if t is not None]
+    vec = d_out % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    v_bf16 = v.dtype == torch.bfloat16
+    w_bf16 = w is not None and w.dtype == torch.bfloat16
+    fn, _, err_str = _kernel()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
-        _kernel()[grid](g, v, w, v_out, out, scalars, d_in, d_out,
-                        float(beta), 1.0 - float(beta), float(eps),
-                        APPLY=apply, BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N,
-                        num_warps=NUM_WARPS)
+        err = fn(g.data_ptr(), v.data_ptr(), None if w is None else w.data_ptr(),
+                 v_out.data_ptr(), out.data_ptr(),
+                 None if scalars is None else scalars.data_ptr(), L, d_in, d_out, s.K, s.R,
+                 s.C, s.threads, int(s.one_read), int(vec), int(v_bf16), int(w_bf16),
+                 int(apply), float(beta), 1.0 - float(beta), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"RMNP kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES["rmnp_apply" if apply else "rmnp_precondition"] += 1
+
+
+def max_active_clusters(shape, v_dtype, w_dtype=None, *, apply: bool, layout=None) -> int:
+    """How many clusters of the bucket's split the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: none can be scheduled)."""
+    _, d_in, d_out = shape
+    s = layout or split(d_in, d_out)
+    _, occ, err_str = _kernel()
+    n = ctypes.c_int(0)
+    err = occ(1, d_in, d_out, s.K, s.R, s.C, s.threads, int(s.one_read),
+              int(v_dtype == torch.bfloat16), int(w_dtype == torch.bfloat16), int(apply),
+              ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"RMNP occupancy query failed: {err_str(err).decode()} ({err})")
+    return n.value
 
 
 def rmnp_rownorm(g, v, *, beta: float, eps: float = 1e-8):
@@ -156,7 +188,7 @@ def rmnp_rownorm(g, v, *, beta: float, eps: float = 1e-8):
     _check(g, v)
     v_new = torch.empty_like(v)
     d = torch.empty_like(g)
-    _launch(g, v, g, v_new, d, g, beta=beta, eps=eps, apply=False)
+    _launch(g, v, None, v_new, d, None, beta=beta, eps=eps, apply=False)
     return v_new, d
 
 

@@ -87,6 +87,84 @@ def test_rmnp_apply_matches_plain(cuda, shape, vdt, wdt):
     _close(w_k, w_p)
 
 
+@pytest.mark.parametrize("shape", [(48, 768, 768), (7, 300, 257)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("apply", [False, True], ids=["precondition", "apply"])
+def test_rmnp_stack_equals_slices_bitwise(cuda, shape, apply):
+    """A stacked launch gives each slice the bits of that slice launched
+    alone: the per-leaf engine (one launch per leaf) and the bucketed
+    engines (one per stack) see the same numbers."""
+    g, v, w, scalars = _rmnp_inputs(shape, torch.float32, torch.bfloat16)
+
+    def run(g, v, w):
+        if apply:
+            return rm.rmnp_rownorm_apply(g, v, w, scalars, beta=0.95)
+        return rm.rmnp_rownorm(g, v, beta=0.95)
+
+    stacked = run(g, v, w)
+    for i in range(shape[0]):
+        one = run(g[i:i + 1], v[i:i + 1], w[i:i + 1])
+        for a, b in zip(stacked, one, strict=True):
+            assert torch.equal(a[i], b[0]), i
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rmnp_apply_equals_precondition_then_eager_ops_bitwise(cuda, shape):
+    """fp32 momentum and weights: the apply kernel's (v_new, w_new) equal the
+    precondition kernel's v_new and ``w + (-scale) * (d + wd * w)`` taken
+    by eager PyTorch from its d, the two-pass engine's ops
+    (``core/engine.py``, ``core/types.apply_updates``), bit for bit."""
+    g, v, w, scalars = _rmnp_inputs(shape, torch.float32, torch.float32)
+    v_apply, w_apply = rm.rmnp_rownorm_apply(g, v, w, scalars, beta=0.95)
+    v_pre, d = rm.rmnp_rownorm(g, v, beta=0.95)
+    scale, wd = scalars[0], 0.1
+    upd = -scale * (d + wd * w)
+    assert torch.equal(v_apply, v_pre)
+    assert torch.equal(w_apply, w + upd)
+
+
+def test_rmnp_engines_bitwise_equal_on_the_card(cuda):
+    """Reduced gpt2 in fp32 on the card, three steps from one CPU init:
+    the per-leaf engine (precondition kernel per leaf, eager update), the
+    bucketed engine (precondition kernel per bucket) and the single-pass
+    engine (apply kernel per bucket) give the same parameters bit for bit,
+    the card's counterpart of the CPU test in test_torch_optim.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import apply_updates, cosine_with_warmup, make_optimizer
+    from repro_torch.core.types import tree_map, tree_paths
+    from repro_torch.models import init_params
+
+    cfg = get_config("gpt2-small").reduced()
+    init = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    grads = [tree_map(lambda p: (0.01 * torch.randn(p.shape, generator=gen)).to("cuda"),
+                      init) for _ in range(3)]
+    engines = {"per-leaf": dict(fused=False, fused_apply=False),
+               "bucketed": dict(fused=True, fused_apply=False),
+               "single-pass": dict(fused=True, fused_apply=True)}
+    results, launches = {}, {}
+    for name, engine in engines.items():
+        opt = make_optimizer("rmnp", dict(lr_matrix=cosine_with_warmup(2e-2, 3),
+                                          lr_adamw=cosine_with_warmup(1e-2, 3),
+                                          use_kernel=True, **engine))
+        params = tree_map(lambda t: t.to("cuda"), init)
+        state = opt.init(params)
+        reset_launches()
+        for step, g in enumerate(grads):
+            if opt.update_apply is not None:
+                params, state = opt.update_apply(g, state, params, step)
+            else:
+                updates, state = opt.update(g, state, params, step)
+                params = apply_updates(params, updates)
+        launches[name] = (LAUNCHES["rmnp_precondition"], LAUNCHES["rmnp_apply"])
+        results[name] = dict(tree_paths(params))
+    assert launches["per-leaf"][0] > launches["bucketed"][0] > 0
+    assert launches["single-pass"][1] > 0
+    for name in ("bucketed", "single-pass"):
+        for path, t in results[name].items():
+            assert torch.equal(t, results["per-leaf"][path]), (name, path)
+
+
 def test_rmnp_ops_launch_the_kernel_once(cuda):
     g, v, w, _ = _rmnp_inputs((4, 64, 96), torch.float32, torch.bfloat16)
     reset_launches()

@@ -64,10 +64,14 @@ EMULATION_HEADER = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -76,41 +80,198 @@ EMULATION_HEADER = r"""
 struct dim3 { unsigned x, y, z;
               dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx;
-inline uint3 blockIdx, gridDim;
+inline thread_local uint3 threadIdx, blockIdx;
+inline uint3 gridDim, blockDim;
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed = 10 };
 typedef struct CUstream_st* cudaStream_t;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
-  return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;  // 227 KB a block
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute attr, int value) {
+  if (attr == cudaFuncAttributeNonPortableClusterSizeAllowed) return cudaSuccess;
+  return value <= 232448 ? cudaSuccess : cudaErrorInvalidValue;  // 227 KB a block
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline float __ldcg(const float* p) { return *p; }
+template <class T> void __stcs(T* p, T x) { *p = x; }
 template <class T> T min(T a, T b) { return b < a ? b : a; }
-inline std::barrier<>* g_barrier = nullptr;
+// this thread's block: its barrier, and (cluster launches) its dynamic shared
+// memory, its rank, the cluster's blocks' shared memory and the cluster barrier
+inline thread_local std::barrier<>* g_barrier = nullptr;
+inline thread_local uint8_t* g_smem = nullptr;
+inline thread_local unsigned g_rank = 0, g_cluster_size = 1;
+inline thread_local uint8_t* const* g_cluster_smem = nullptr;
+inline thread_local std::barrier<>* g_cluster_barrier = nullptr;
+inline thread_local std::optional<std::barrier<>::arrival_token> g_cluster_token;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 template <class Kernel, class Args>
 void emulate_launch(Kernel kernel, dim3 grid, int threads, Args args) {
   gridDim = {grid.x, grid.y, grid.z};
+  blockDim = {unsigned(threads), 1, 1};
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = {x, y, z};
         std::barrier<> barrier(threads);
-        g_barrier = &barrier;
         std::vector<std::thread> block;
         for (int t = 0; t < threads; ++t)
-          block.emplace_back([&, t] { threadIdx = {unsigned(t), 0, 0}; kernel(args); });
+          block.emplace_back([&, t] {
+            threadIdx = {unsigned(t), 0, 0};
+            blockIdx = {x, y, z};
+            g_barrier = &barrier;
+            kernel(args);
+          });
         for (auto& th : block) th.join();
       }
 }
+// cudaLaunchKernelEx with a cluster dimension along x: the blocks of one
+// cluster run together, each as blockDim.x threads with its own barrier and
+// its own dynamic shared memory (filled with NaN bits first); clusters run
+// one after another
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
+                               Act&&... args) {
+  unsigned K = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      if (cfg->attrs[i].val.clusterDim.y != 1 || cfg->attrs[i].val.clusterDim.z != 1)
+        return cudaErrorInvalidValue;
+      K = cfg->attrs[i].val.clusterDim.x;
+    }
+  const dim3 grid = cfg->gridDim;
+  const int threads = cfg->blockDim.x;
+  if (K < 1 || K > 16 || grid.x % K || cfg->dynamicSmemBytes > 232448) return cudaErrorInvalidValue;
+  gridDim = {grid.x, grid.y, grid.z};
+  blockDim = {unsigned(threads), 1, 1};
+  std::vector<std::vector<uint8_t>> smem(K, std::vector<uint8_t>(cfg->dynamicSmemBytes + 16));
+  std::vector<uint8_t*> bases(K);
+  for (unsigned r = 0; r < K; ++r) bases[r] = smem[r].data();
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x0 = 0; x0 < grid.x; x0 += K) {
+        for (auto& m : smem) std::memset(m.data(), 0xFF, m.size());
+        std::barrier<> cluster(K * threads);
+        std::vector<std::unique_ptr<std::barrier<>>> blocks;
+        for (unsigned r = 0; r < K; ++r) blocks.emplace_back(new std::barrier<>(threads));
+        std::vector<std::thread> all;
+        for (unsigned r = 0; r < K; ++r)
+          for (int t = 0; t < threads; ++t)
+            all.emplace_back([&, r, t] {
+              threadIdx = {unsigned(t), 0, 0};
+              blockIdx = {x0 + r, y, z};
+              g_barrier = blocks[r].get();
+              g_smem = bases[r];
+              g_rank = r;
+              g_cluster_size = K;
+              g_cluster_smem = bases.data();
+              g_cluster_barrier = &cluster;
+              kernel(args...);
+              if (g_cluster_token) std::abort();  // an arrive without its wait
+            });
+        for (auto& th : all) th.join();
+      }
+  return cudaSuccess;
+}
+template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
+"""
+
+BF16_HEADER = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+// bf16 storage; conversions as the card's intrinsics: widening is exact,
+// narrowing rounds to nearest even
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = uint32_t(b.x) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return {uint16_t((u >> 16) | 0x40)};  // NaN
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
+"""
+
+# The helpers of sm90.cuh that csrc/rmnp_update.cu calls. A block's
+# shared memory is its own buffer (``g_smem``) and a shared::cta address an
+# offset into it; ``dsmem_map`` puts rank + 1 above bit 24 of that offset,
+# and ``ld_dsmem_f32`` reads the block of that rank; the cluster barrier is
+# a std::barrier over all the cluster's threads, its arrive and wait the two
+# halves of one phase; a streaming load is a plain read of an aligned address.
+SM90_CLUSTER_MODEL = r"""
+#pragma once
+#include <cuda_runtime.h>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+namespace sm90 {
+inline uint8_t* dynamic_smem() { return g_smem; }
+inline uint32_t smem_u32(const void* p) {
+  return uint32_t(static_cast<const uint8_t*>(p) - g_smem);
+}
+inline uint32_t cluster_ctarank() { return g_rank; }
+inline void cluster_arrive() {
+  if (g_cluster_token) std::abort();  // two arrives without a wait
+  g_cluster_token.emplace(g_cluster_barrier->arrive());
+}
+inline void cluster_wait() {
+  if (!g_cluster_token) std::abort();  // a wait without an arrive
+  g_cluster_barrier->wait(std::move(*g_cluster_token));
+  g_cluster_token.reset();
+}
+inline uint32_t dsmem_map(uint32_t addr, uint32_t rank) {
+  if (addr >= (1u << 24) || rank >= g_cluster_size) std::abort();
+  return ((rank + 1) << 24) | addr;
+}
+// a vector load faults on the card unless aligned to its size
+inline float4 ld_stream_f4(const void* p) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) std::abort();
+  float4 r;
+  std::memcpy(&r, p, 16);
+  return r;
+}
+inline uint2 ld_stream_u2(const void* p) {
+  if (reinterpret_cast<uintptr_t>(p) % 8) std::abort();
+  uint2 r;
+  std::memcpy(&r, p, 8);
+  return r;
+}
+inline float ld_dsmem_f32(uint32_t addr) {
+  if ((addr >> 24) == 0 || (addr & 3)) std::abort();  // not a mapped, aligned address
+  float x;
+  std::memcpy(&x, g_cluster_smem[(addr >> 24) - 1] + (addr & 0xFFFFFF), 4);
+  return x;
+}
+}  // namespace sm90
 """
 
 SM90_MODEL = r"""
@@ -429,3 +590,256 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / "inner.cuh").write_text("int inner_edited;\n")
     assert build.library_path("one") != before[0]
     assert build.library_path("two") == before[1]
+
+
+# ---------------------------------------------------------------- RMNP ---
+#
+# csrc/rmnp_update.cu under the same emulation: each cluster's blocks run
+# together as threads, with the cluster helpers of sm90.cuh modelled above
+# (SM90_CLUSTER_MODEL). The numpy model ``_rmnp_model`` is the kernel's own
+# order of the sum of squares (a thread's rows in order, the block's threads
+# in order, the cluster's blocks in rank order), independent of the C++.
+
+RMNP_SOURCE = SOURCE.with_name("rmnp_update.cu")
+BETA, EPS = 0.95, 1e-8
+
+
+@pytest.fixture(scope="module")
+def rmnp_f32(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    out = tmp_path_factory.mktemp("rmnp_emulation")
+    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    (out / "cuda_bf16.h").write_text(BF16_HEADER)
+    (out / "sm90.cuh").write_text(SM90_CLUSTER_MODEL)
+    src = RMNP_SOURCE.read_text()
+    assert "<<<" not in src and src.count("cudaLaunchKernelEx(") == 1
+    (out / "rmnp_update.cpp").write_text(src)
+    lib = out / "librmnp_emulated.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-Wno-unknown-pragmas",
+                    "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
+                    str(out / "rmnp_update.cpp")], check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).rmnp_update
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bf16(x):
+    """float32 -> bf16 bits (uint16), to nearest even."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _f32(bits):
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _rmnp(fn, g, v, w=None, scalars=(2e-3, 0.1), layout=None, vec=None):
+    """The kernel's C entry on numpy operands: g float32; v and w float32 or
+    bf16 bits (uint16). Precondition without w -> (v_new, d), else apply ->
+    (v_new, w_new), in the operands' types."""
+    from repro_torch.kernels.rmnp_update import split
+    *lead, d_in, d_out = g.shape
+    L = int(np.prod(lead)) if lead else 1
+    s = layout or split(d_in, d_out)
+    apply = w is not None
+    v_out = np.empty_like(v)
+    out = np.empty_like(w) if apply else np.empty_like(g)
+    sc = np.asarray(scalars, np.float32)
+    if vec is None:
+        vec = d_out % 4 == 0
+    err = fn(g.ctypes.data, v.ctypes.data, w.ctypes.data if apply else None, v_out.ctypes.data,
+             out.ctypes.data, sc.ctypes.data, L, d_in, d_out, s.K, s.R, s.C, s.threads,
+             int(s.one_read), int(vec), int(v.dtype == np.uint16),
+             int(apply and w.dtype == np.uint16), int(apply), BETA, 1.0 - BETA, EPS, None)
+    assert err == 0
+    return v_out, out
+
+
+def _rmnp_model(g, v32, layout):
+    """(v_new, d) in float32 as the kernel computes them, the sum of squares
+    in the kernel's order."""
+    K, R, C, threads, _ = layout
+    RT = threads // (C // 4)
+    d_in = g.shape[-2]
+    vn = np.float32(BETA) * v32 + np.float32(1.0 - BETA) * g
+    total = np.zeros(vn[..., 0, :].shape, np.float32)
+    for k in range(K):
+        part = np.zeros_like(total)
+        for rg in range(RT):
+            acc = np.zeros_like(total)
+            for r in range(k * R + rg, min(d_in, (k + 1) * R), RT):
+                acc = acc + vn[..., r, :] * vn[..., r, :]
+            part = part + acc
+        total = total + part
+    return vn, vn / (np.sqrt(total) + np.float32(EPS))[..., None, :]
+
+
+def _rmnp_operands(shape, v_bf16, w_bf16=None, seed=0):
+    rng = np.random.default_rng(seed)
+    g = (1e-3 * rng.standard_normal(shape)).astype(np.float32)
+    v = (1e-3 * rng.standard_normal(shape)).astype(np.float32)
+    w = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    v = _bf16(v) if v_bf16 else v
+    if w_bf16 is not None:
+        w = _bf16(w) if w_bf16 else w
+    return g, v, w
+
+
+def _as_f32(x):
+    return _f32(x) if x.dtype == np.uint16 else x
+
+
+def _layout(K, R, C, threads, one_read=True):
+    from repro_torch.kernels.rmnp_update import Split
+    return Split(K, R, C, threads, one_read)
+
+
+# (shape, (K, R, C, threads[, one_read]) or None for the wrapper's split,
+# bf16 momentum): ragged d_in and d_out, K of 1, 2 and 4, every column
+# block, a cluster whose last block holds no row, the two-sweep path, and
+# 32 rows a thread
+RMNP_CASES = [((3, 33, 9), (1, 33, 8, 64), False),
+              ((2, 250, 20), (1, 250, 16, 32), False),
+              ((2, 70, 37), (2, 35, 16, 64), True),
+              ((2, 130, 70), (4, 33, 32, 128), False),
+              ((2, 100, 64), (4, 25, 64, 128), True),
+              ((1, 50, 12), (4, 20, 8, 32), False),
+              ((2, 90, 40), (2, 45, 32, 64, False), True),
+              ((300, 257), None, False)]
+
+
+def _case_id(case):
+    shape, layout, v_bf16 = case
+    return ("x".join(map(str, shape)) + ("_wrapper" if layout is None else
+            f"_K{layout[0]}C{layout[2]}" + ("" if len(layout) < 5 or layout[4] else "_2sweep"))
+            + ("_v16" if v_bf16 else ""))
+
+
+@pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
+def test_emulated_rmnp_sum_of_squares_in_its_own_order(rmnp_f32, case):
+    """The precondition kernel's v_new and d equal the numpy model of its own
+    order of the sum of squares, bit for bit."""
+    from repro_torch.kernels.rmnp_update import split
+    shape, layout, v_bf16 = case
+    layout = _layout(*layout) if layout else split(*shape[-2:])
+    g, v, _ = _rmnp_operands(shape, v_bf16)
+    v_new, d = _rmnp(rmnp_f32, g, v, layout=layout)
+    want_v, want_d = _rmnp_model(g, _as_f32(v), layout)
+    assert np.array_equal(v_new, _bf16(want_v) if v_bf16 else want_v)
+    assert np.array_equal(d, want_d)
+
+
+@pytest.mark.parametrize("case", RMNP_CASES[:7], ids=_case_id)
+def test_emulated_rmnp_stack_equals_slices(rmnp_f32, case):
+    """Each slice of a stacked launch, precondition and apply, equals that
+    slice launched alone, bit for bit."""
+    shape, layout, v_bf16 = case
+    layout = _layout(*layout)
+    g, v, w = _rmnp_operands(shape, v_bf16, w_bf16=not v_bf16)
+    for apply in (False, True):
+        stacked = _rmnp(rmnp_f32, g, v, w if apply else None, layout=layout)
+        for i in range(shape[0]):
+            one = _rmnp(rmnp_f32, g[i:i + 1].copy(), v[i:i + 1].copy(),
+                        w[i:i + 1].copy() if apply else None, layout=layout)
+            for a, b in zip(stacked, one, strict=True):
+                assert np.array_equal(a[i], b[0]), (apply, i)
+
+
+@pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
+@pytest.mark.parametrize("w_bf16", [False, True], ids=["w32", "w16"])
+def test_emulated_rmnp_apply_equals_precondition_then_eager_ops(rmnp_f32, case, w_bf16):
+    """fp32 momentum: apply's (v_new, w_new) equal the precondition's v_new
+    and ``w + (-scale) * (d + wd * w)`` in float32 from its d, each
+    operation rounded (then rounded to bf16 for bf16 weights), bit for bit."""
+    from repro_torch.kernels.rmnp_update import split
+    shape, layout, _ = case
+    layout = _layout(*layout) if layout else split(*shape[-2:])
+    g, v, w = _rmnp_operands(shape, False, w_bf16=w_bf16)
+    scale, wd = np.float32(2e-3), np.float32(0.1)
+    v_apply, w_apply = _rmnp(rmnp_f32, g, v, w, scalars=(scale, wd), layout=layout)
+    v_pre, d = _rmnp(rmnp_f32, g, v, layout=layout)
+    w32 = _as_f32(w)
+    eager = w32 + (-scale) * (d + wd * w32)
+    assert np.array_equal(v_apply, v_pre)
+    assert np.array_equal(w_apply, _bf16(eager) if w_bf16 else eager)
+
+
+@pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
+@pytest.mark.parametrize("w_bf16", [False, True], ids=["w32", "w16"])
+def test_emulated_rmnp_matches_plain(rmnp_f32, case, w_bf16):
+    """Against the plain versions (torch, CPU) at the tolerances of
+    tests/test_torch_gpu.py: fp32 rtol 1e-5, bf16 one bf16 step (2^-7),
+    atol 1e-6."""
+    import torch
+
+    from repro_torch.kernels import rmnp_update as rm
+    shape, layout, v_bf16 = case
+    layout = _layout(*layout) if layout else None
+    g, v, w = _rmnp_operands(shape, v_bf16, w_bf16)
+    scalars = (2e-3, 0.1)
+
+    def torch_of(x):
+        t = torch.from_numpy(_as_f32(x).copy())
+        return t.to(torch.bfloat16) if x.dtype == np.uint16 else t
+
+    tg, tv, tw = torch_of(g), torch_of(v), torch_of(w)
+    want = {"precondition": rm.rmnp_rownorm_plain(tg, tv, beta=BETA, eps=EPS),
+            "apply": rm.rmnp_rownorm_apply_plain(tg, tv, tw, torch.tensor(scalars), beta=BETA,
+                                                 eps=EPS)}
+    got = {"precondition": _rmnp(rmnp_f32, g, v, layout=layout),
+           "apply": _rmnp(rmnp_f32, g, v, w, scalars=scalars, layout=layout)}
+    for kind in want:
+        for a, b in zip(got[kind], want[kind], strict=True):
+            bf16 = b.dtype == torch.bfloat16
+            assert (a.dtype == np.uint16) == bf16, kind
+            torch.testing.assert_close(torch.from_numpy(_as_f32(a)), b.float(),
+                                       rtol=2.0 ** -7 if bf16 else 1e-5, atol=1e-6)
+
+
+def test_emulated_rmnp_paths_agree_bitwise(rmnp_f32):
+    """Masked element loads and aligned vector loads, and the two-sweep path
+    and the one-read path of one split, give the same bits."""
+    g, v, w = _rmnp_operands((2, 90, 40), True, w_bf16=True)
+    one = _layout(2, 45, 32, 64)
+    two = _layout(2, 45, 32, 64, one_read=False)
+    for apply in (False, True):
+        ww = w if apply else None
+        ref = _rmnp(rmnp_f32, g, v, ww, layout=one)
+        for layout, vec in ((one, False), (two, True), (two, False)):
+            got = _rmnp(rmnp_f32, g, v, ww, layout=layout, vec=vec)
+            for a, b in zip(got, ref, strict=True):
+                assert np.array_equal(a, b), (apply, layout, vec)
+
+
+GPT2_SMALL_BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768)]
+
+
+@pytest.mark.parametrize("d_in,d_out", [(768, 768), (768, 6144), (3072, 768), (50432, 768),
+                                        (33, 9), (300, 257), (6145, 64), (8192, 50),
+                                        (102400, 16), (250000, 768)])
+def test_rmnp_split(d_in, d_out):
+    """The split covers d_in, fits a block's shared memory, is a function
+    of (d_in, d_out) alone, and reads once wherever a cluster can hold the
+    column block (always for gpt2-small's buckets)."""
+    import inspect
+
+    from repro_torch.kernels import rmnp_update as rm
+    assert list(inspect.signature(rm.split).parameters) == ["d_in", "d_out"]
+    s = rm.split(d_in, d_out)
+    assert s.K * s.R >= d_in and (s.K - 1) * s.R < d_in  # no block without rows
+    assert 1 <= s.K <= rm.MAX_CLUSTER and s.C in rm.COLUMNS
+    assert s.threads % (s.C // 4) == 0 and s.threads <= 512
+    assert s.smem_bytes() <= rm.SMEM_LIMIT
+    if s.K > rm.MAX_PORTABLE_CLUSTER:
+        assert s.one_read
+    if not s.one_read:  # only where no cluster of 16 can hold 8 columns
+        assert s.C == 32 and rm.Split(16, -(-d_in // 16), 8, s.threads, True).smem_bytes() \
+            > rm.SMEM_LIMIT
+    if (d_in, d_out) in [b[1:] for b in GPT2_SMALL_BUCKETS]:
+        assert s.one_read
+    if (d_in, d_out) == (50432, 768):
+        assert s == rm.Split(16, 3152, 16, rm.TALL_THREADS, True)
