@@ -8,7 +8,8 @@ Phases:
          started together, from the sources in this checkout;
   A      the RMNP kernel (csrc/rmnp_update.cu; apply and precondition, one
          line each) against its plain versions at the four gpt2-small
-         bucket shapes, fp32 and bf16 momentum, bf16 weights (the main
+         bucket shapes and llama-130m's five (2048x768 at split K = 6),
+         fp32 and bf16 momentum, bf16 weights (the main
          path's), and for the apply kernel also fp32 weights, whose update
          w_new - w is held against the plain version's at its own
          magnitude; per bucket its time, bound, rate, split (K, R, C) and
@@ -53,7 +54,24 @@ Phases:
          while each call is enqueued, which reads the card's time alone);
   D      a small input: reduced gpt2 with attn_impl="pallas", 3 single-pass
          steps under RMNP and under Muon with the kernels on the card against
-         the same steps with the plain versions on the CPU.
+         the same steps with the plain versions on the CPU;
+  R      checkpointing and the non-finite guard on llama-130m at full width
+         (B=8, S=1024, bf16, single-pass RMNP, 6 steps of
+         repro_torch.launch.train.train, 5 apply launches a step):
+         R1 two uninterrupted runs give the same parameter and state bits;
+         R2 stop_at=3 with a checkpoint every 3 steps, then a restart to
+         step 6, equals the uninterrupted run bit for bit, and so does a
+         restart after a subprocess SIGKILLed (kill_at) with an async save
+         in flight, which leaves no .tmp_step_* behind; R3 inject_fault
+         "nan:*:2" under the guard skips step 2 naming the poisoned leaf and
+         ends on the bits of a clean run that skipped step 2's update, and a
+         sticky fault that exhausts the skip budget rewinds to the
+         last-known-good checkpoint; R4 each of the four storage faults on a
+         checkpoint written here raises CheckpointCorruptionError by name
+         and restore_latest falls back to the step before, bit for bit; R5
+         reports (no gate) the save() stall async against blocking, the
+         step time with a write in flight and with the guard, each the
+         median of 5 interleaved, and the bytes of one checkpoint.
 
 Every phase prints one JSON line; then a line with the card's name and power
 limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``. Any
@@ -78,6 +96,10 @@ FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
 TF32_FLOPS = 495e12         # H100 SXM, dense TF32 tensor cores
 BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768)]
+# llama-130m's five (its 2048x768 bucket takes split K = 6, which no gpt2
+# bucket does; the untied head and the embedding are buckets of one)
+LLAMA_BUCKETS = [(48, 768, 768), (12, 768, 4096), (12, 2048, 768), (1, 768, 32000),
+                 (1, 32000, 768)]
 # Phase C3, flash against dense attention in bf16 at full width: the loss,
 # and the final hidden state by relative Frobenius distance. The dense path
 # rounds its probabilities to bf16 and the kernel keeps them in fp32, so the
@@ -243,8 +265,11 @@ def phase_rmnp():
               (torch.float32, torch.float32)]
     rows, bitwise = {name: [] for name in kernels}, []
     summary = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0,
-                      "plain_ms": 0.0, "bound_ms": 0.0} for name in kernels}
-    for shape in BUCKETS:
+                      "plain_ms": 0.0, "bound_ms": 0.0,
+                      "llama": {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                "max_abs_err": 0.0}} for name in kernels}
+    for model, shape in ([("gpt2-small", b) for b in BUCKETS]
+                         + [("llama-130m", b) for b in LLAMA_BUCKETS]):
         layout = rm.split(*shape[1:])
         path = "one-read" if layout.one_read else "two-sweep"
         check(layout.one_read, f"rmnp {shape}: split {layout} takes the two-sweep path")
@@ -261,8 +286,8 @@ def phase_rmnp():
                 got = kernel(g, v, w, scalars)
                 want = plain(g, v, w, scalars)
                 torch.cuda.synchronize()
-                rec = {"shape": list(shape), "momentum": str(vdt).split(".")[1],
-                       "weights": str(wdt).split(".")[1]}
+                rec = {"model": model, "shape": list(shape),
+                       "momentum": str(vdt).split(".")[1], "weights": str(wdt).split(".")[1]}
                 err, ratio = 0.0, 0.0
                 for out, a, b in zip(("v", "w" if apply else "d"), got, want, strict=True):
                     check(torch.isfinite(a.float()).all().item(),
@@ -291,13 +316,18 @@ def phase_rmnp():
                            split=layout._asdict(), path=path, clusters_at_once=clusters)
                 rec["gb_s"] = nbytes / rec["kernel_ms"] / 1e6
                 rows[name].append(rec)
-                print(f"{name} {'x'.join(map(str, shape))} v {rec['momentum']} w "
+                print(f"{name} {model} {'x'.join(map(str, shape))} v {rec['momentum']} w "
                       f"{rec['weights']}: {rec['kernel_ms']:.4f} ms, bound "
                       f"{rec['bound_ms']:.4f} ms, {rec['gb_s']:.0f} GB/s, plain "
                       f"{rec['plain_ms']:.4f} ms; K={layout.K} R={layout.R} C={layout.C} "
                       f"threads={layout.threads}, {path}, {clusters} clusters at once",
                       flush=True)
-                if (vdt, wdt) == combos[0]:  # the main path's types
+                if (vdt, wdt) == combos[0] and model == "llama-130m":
+                    s = summary[name]["llama"]
+                    s["max_abs_err"] = max(s["max_abs_err"], err)
+                    for k in ("ms", "plain_ms", "bound_ms"):
+                        s[k] += rec["kernel_ms" if k == "ms" else k]
+                elif (vdt, wdt) == combos[0]:  # the main path's types
                     s = summary[name]
                     s["max_abs_err"] = max(s["max_abs_err"], err)
                     s["worst_ratio"] = max(s["worst_ratio"], ratio)
@@ -306,7 +336,7 @@ def phase_rmnp():
                     s["bound_ms"] += rec["bound_ms"]
             del g, v, w
             torch.cuda.empty_cache()
-        bitwise.append(rmnp_bitwise(shape, gen, beta, eps))
+        bitwise.append(dict(rmnp_bitwise(shape, gen, beta, eps), model=model))
     for name, recs in rows.items():
         emit(f"A_{name}", {"buckets": recs})
     ptxas = ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_kernel", "",
@@ -943,6 +973,278 @@ def phase_small():
               "loss_abs_err": loss_err, "param_max_abs_err": p_err})
 
 
+R_ARCH, R_BATCH, R_SEQ, R_STEPS = "llama-130m", 8, 1024, 6
+
+
+def card_name():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def host_copy(tree):
+    """[(path, CPU tensor)] of a tree of tensors, for bit comparisons."""
+    from repro_torch.core.types import tree_paths
+    return [(p, t.detach().to("cpu", copy=True)) for p, t in tree_paths(tree)]
+
+
+def differing(a, b):
+    """Paths whose bits differ between two host copies (or the path lists)."""
+    import torch
+    if [p for p, _ in a] != [p for p, _ in b]:
+        return ["<tree structure>"]
+    out = []
+    for (p, x), (_, y) in zip(a, b, strict=True):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
+            out.append(p)
+    return out
+
+
+def step_seconds(hist):
+    walls = [0.0] + [h["wall_s"] for h in hist if "wall_s" in h]
+    return [round(b - a, 3) for a, b in zip(walls, walls[1:])]
+
+
+def phase_resilience():
+    """R: checkpointing and the guard on llama-130m at full width."""
+    import os
+    import shutil
+    import warnings
+    import torch
+    from repro_torch.checkpoint import faults as ckpt_faults
+    from repro_torch.checkpoint.manager import CheckpointCorruptionError, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import batch_to_device, train
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_train_step
+
+    work = ROOT / "build" / "phase_r"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kw = dict(reduced=False, optimizer="rmnp", fused=True, fused_apply=True, use_kernel=True,
+              batch=R_BATCH, seq=R_SEQ, steps=R_STEPS, log_every=1, seed=0)
+    n_buckets = len(LLAMA_BUCKETS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # R1: two uninterrupted runs from one init (the seed, on the card)
+    reset_launches()
+    p, s, h1 = train(R_ARCH, **kw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    ref = host_copy((p, s))
+    n_params = sum(t.numel() for _, t in host_copy(p))
+    buckets = {k: list(b.shape) for k, b in s.buckets.items()}
+    del p, s
+    p, s, h2 = train(R_ARCH, **kw)
+    diff = differing(ref, host_copy((p, s)))
+    losses = [h["loss"] for h in h1]
+    emit("R1_determinism", {
+        "model": R_ARCH, "batch": R_BATCH, "seq": R_SEQ, "steps": R_STEPS,
+        "params": n_params, "buckets": buckets, "losses": losses,
+        "losses_second_run": [h["loss"] for h in h2], "step_s": step_seconds(h1),
+        "step_s_second_run": step_seconds(h2), "launches": launches,
+        "bitwise_equal": not diff, "differing_leaves": diff[:20],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    check(sorted(buckets) == sorted(f"{a}x{b}" for _, a, b in LLAMA_BUCKETS),
+          f"llama buckets {buckets}")
+    check(all(math.isfinite(x) for x in losses), f"llama losses {losses}")
+    check([h["launches"]["rmnp_apply"] for h in h1] == [n_buckets] * R_STEPS,
+          f"apply launches per step {[h['launches'] for h in h1]}")
+    check(not diff, f"two runs from one init differ in {len(diff)} leaves: {diff[:5]}")
+    del p, s
+    torch.cuda.empty_cache()
+
+    # R2: stop at step 3 and restart; SIGKILL with an async save in flight
+    stop_dir = work / "stop"
+    p, s, _ = train(R_ARCH, stop_at=3, ckpt_dir=str(stop_dir), ckpt_every=3, **kw)
+    at3 = host_copy((p, s))
+    del p, s
+    p, s, hr = train(R_ARCH, ckpt_dir=str(stop_dir), ckpt_every=3, **kw)
+    diff_stop = differing(ref, host_copy((p, s)))
+    del p, s
+    kill_dir = work / "kill"
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.train import train; "
+            f"train({R_ARCH!r}, reduced=False, optimizer='rmnp', fused=True, fused_apply=True, "
+            f"batch={R_BATCH}, seq={R_SEQ}, steps={R_STEPS}, log_every=1, seed=0, "
+            "ckpt_every=2, kill_at=4, ckpt_dir=sys.argv[1])")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code, str(kill_dir)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    kill_s = time.time() - t0
+    committed = sorted(int(d.name.split("_")[1]) for d in kill_dir.glob("step_*")
+                       if (d / "COMMITTED").exists())
+    torn = sorted(d.name for d in kill_dir.glob(".tmp_step_*"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        p, s, hk = train(R_ARCH, ckpt_dir=str(kill_dir), ckpt_every=2, **kw)
+    diff_kill = differing(ref, host_copy((p, s)))
+    left = sorted(d.name for d in kill_dir.glob(".tmp_step_*"))
+    emit("R2_crash_resume", {
+        "stop_at": 3, "resumed_steps": [h["step"] for h in hr], "stop_bitwise_equal":
+        not diff_stop, "stop_differing": diff_stop[:20], "kill_returncode": proc.returncode,
+        "kill_s": round(kill_s, 2), "committed_at_kill": committed, "torn_at_kill": torn,
+        "resumed_after_kill_from": hk[0]["step"] if hk else None,
+        "tmp_left_after_restart": left, "kill_bitwise_equal": not diff_kill,
+        "kill_differing": diff_kill[:20],
+        "restart_warnings": [str(w.message)[:200] for w in caught]})
+    check(not diff_stop, f"stop/resume differs from the uninterrupted run in {diff_stop[:5]}")
+    check(proc.returncode == -9, f"kill_at: return code {proc.returncode}, "
+                                 f"stderr {proc.stderr[-2000:]}")
+    check("SIGKILL at step 4" in proc.stdout, "kill_at: the process did not reach step 4")
+    check(4 not in committed and committed and committed[-1] == 2,
+          f"kill_at: committed steps {committed}; the step-4 save should be in flight")
+    check(hk and hk[0]["step"] == committed[-1], f"kill restart resumed at {hk[:1]}")
+    check(not left, f"kill restart left {left}")
+    check(not diff_kill, f"kill/resume differs from the uninterrupted run in {diff_kill[:5]}")
+    shutil.rmtree(kill_dir)
+
+    # R3: the guard skips a NaN step bit for bit; a sticky fault rewinds
+    pg, sg, hg = train(R_ARCH, guard=True, inject_fault="nan:*:2", **kw)
+    guarded = host_copy((pg, sg))
+    del pg, sg
+    cfg = get_config(R_ARCH)
+    opt = make_optimizer("rmnp", dict(
+        lr_matrix=cosine_with_warmup(2e-3, R_STEPS), lr_adamw=cosine_with_warmup(1e-3, R_STEPS),
+        fused=True, fused_apply=True))
+    params = init_params(cfg, seed=0, device="cuda")
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat="full")
+    stream = make_stream(cfg, R_SEQ, R_BATCH, seed=0)
+    for t in range(R_STEPS):
+        batch = batch_to_device(next(stream), "cuda")
+        if t != 2:
+            params, state, _ = step_fn(params, state, batch, t)
+    diff_guard = differing(host_copy((params, state)), guarded)
+    del params, state
+    rewind_dir = work / "rewind"
+    _, _, hw = train(R_ARCH, guard=True, inject_fault="nan:*:4+", ckpt_dir=str(rewind_dir),
+                     ckpt_every=2, anomaly_skip_budget=1, anomaly_health_window=1, **kw)
+    rewinds = [h for h in hw if h.get("action") == "rewind"]
+    skipped = [h["skipped"] for h in hg]
+    emit("R3_guard", {
+        "skipped": skipped, "actions": [h.get("action") for h in hg],
+        "nonfinite_at_step_2": hg[2].get("nonfinite"), "losses": [h["loss"] for h in hg],
+        "bitwise_equal_to_clean_run_without_step_2": not diff_guard,
+        "differing": diff_guard[:20],
+        "rewind_run": [(h["step"], h.get("action"), h.get("rewind_to")) for h in hw]})
+    check(skipped == [0.0, 0.0, 1.0, 0.0, 0.0, 0.0], f"guard skipped {skipped}")
+    check(hg[2].get("nonfinite") == ["embed/tokens"],
+          f"step 2's flags name {hg[2].get('nonfinite')}, want the first leaf embed/tokens")
+    check(not diff_guard, f"guarded run differs from the clean run in {diff_guard[:5]}")
+    check(len(rewinds) == 1 and rewinds[0]["rewind_to"] == 2 and rewinds[0]["step"] == 5,
+          f"rewind run {[(h['step'], h.get('action')) for h in hw]}")
+    check([h["step"] for h in hw if h.get("action") == "ok"][-4:] == [2, 3, 4, 5],
+          "the rewind did not replay steps 2-5")
+    shutil.rmtree(rewind_dir)
+
+    # R4: storage faults on a checkpoint written here (stop_dir: steps 3, 6)
+    like = (init_params(cfg, seed=0, device="cuda"), None)
+    like = (like[0], opt.init(like[0]))
+    faults_seen = {}
+    for kind in ("bit_rot", "truncated", "missing_shard", "torn_manifest"):
+        d = work / f"r4_{kind}"
+        for step in (3, 6):
+            src = stop_dir / f"step_{step:09d}"
+            dst = d / src.name
+            dst.mkdir(parents=True)
+            for f in src.iterdir():
+                written = (f.name == "manifest.json" or (
+                    f.suffix == ".npz" and kind in ("bit_rot", "truncated") and step == 6))
+                (shutil.copy2 if written else os.link)(f, dst / f.name)
+        ckpt_faults.CORRUPTIONS[kind](d / "step_000000006")
+        mgr = CheckpointManager(str(d))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                mgr.restore(6, like)
+            except CheckpointCorruptionError as e:
+                error = str(e)
+            else:
+                error = None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = mgr.restore_latest(like)
+        back = got[1] if got else None
+        diff4 = differing(at3, host_copy(got[0])) if got else ["<nothing restored>"]
+        faults_seen[kind] = {"error": error, "fell_back_to": back, "bitwise_equal": not diff4,
+                             "warning": [str(w.message)[:240] for w in caught]}
+        del got
+        shutil.rmtree(d)
+    emit("R4_corruption", faults_seen)
+    for kind, rec in faults_seen.items():
+        check(rec["error"] is not None and ("leaf '" in rec["error"] or "shard" in rec["error"]
+                                            or "manifest.json" in rec["error"]),
+              f"{kind}: not detected by name: {rec['error']}")
+        check(rec["fell_back_to"] == 3 and rec["bitwise_equal"],
+              f"{kind}: restore_latest gave step {rec['fell_back_to']}, "
+              f"equal {rec['bitwise_equal']}")
+
+    # R5: cost, reported and not gated; medians of 5 interleaved samples
+    params, state = like
+    del like
+    batch = batch_to_device(make_stream(cfg, R_SEQ, R_BATCH, seed=0).sample(0), "cuda")
+    plain = make_train_step(cfg, opt, remat="full")
+    guarded_fn = make_train_step(cfg, opt, remat="full", guard=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    amgr = CheckpointManager(str(work / "r5_async"), keep=1)
+    bmgr = CheckpointManager(str(work / "r5_block"), keep=1, async_save=False)
+    stall = {"async": [], "blocking": [], "async_write": []}
+    step_t = {"plain": [], "write_in_flight": [], "guarded": []}
+    for i in range(7):  # two rounds fill both host buffers and are dropped
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        amgr.save(i, (params, state))
+        a = time.perf_counter() - t
+        dt_flight, _ = timed(lambda: plain(params, state, batch, 3))
+        t = time.perf_counter()
+        amgr.wait()
+        w = time.perf_counter() - t + a + dt_flight
+        dt_plain, _ = timed(lambda: plain(params, state, batch, 3))
+        dt_guard, _ = timed(lambda: guarded_fn(params, state, batch, 3))
+        t = time.perf_counter()
+        bmgr.save(i, (params, state), block=True)
+        b = time.perf_counter() - t
+        if i >= 2:
+            stall["async"].append(a)
+            stall["blocking"].append(b)
+            stall["async_write"].append(w)
+            step_t["write_in_flight"].append(dt_flight)
+            step_t["plain"].append(dt_plain)
+            step_t["guarded"].append(dt_guard)
+    (step_dir,) = (work / "r5_block").glob("step_*")
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    med = {k: statistics.median(v) * 1e3 for k, v in {**stall, **step_t}.items()}
+    card = card_name()
+    emit("R5_cost", {
+        "card": card, "save_stall_ms_async": med["async"], "save_stall_ms_blocking":
+        med["blocking"], "async_save_to_commit_ms": med["async_write"],
+        "step_ms_plain": med["plain"], "step_ms_write_in_flight": med["write_in_flight"],
+        "step_ms_guarded": med["guarded"], "checkpoint_bytes": nbytes,
+        "samples_ms": {k: [round(x * 1e3, 3) for x in v] for k, v in {**stall, **step_t}.items()}})
+    print(f"R5 ({card}): save() stall async {med['async']:.2f} ms, blocking "
+          f"{med['blocking']:.1f} ms; step {med['plain']:.1f} ms, with a write in flight "
+          f"{med['write_in_flight']:.1f} ms, guarded {med['guarded']:.1f} ms; "
+          f"{nbytes / 2**30:.3f} GiB a checkpoint", flush=True)
+    del params, state, batch
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {"rmnp_apply": launches["rmnp_apply"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -962,17 +1264,16 @@ def main():
     launches = phase_train()
     launches.update(phase_muon())
     phase_small()
+    llama_launches = phase_resilience()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     print(smi, flush=True)
     src = "src/repro_torch/csrc/rmnp_update.cu"
     kernels = [
         {"name": "rmnp_apply", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:129",
          "launches": launches["rmnp_apply"], **rmnp["rmnp_apply"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "launches_llama_130m_R1": llama_launches["rmnp_apply"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],

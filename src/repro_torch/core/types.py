@@ -13,8 +13,10 @@ or, for the single-pass engine, ``params, state = opt.update_apply(...)``.
 Tree order: ``jax.tree_util`` flattens dicts in sorted-key order, and that
 order decides bucket entry offsets, bucket order and the summation order of
 the global-norm clip. :func:`tree_paths` walks dicts in the same sorted
-order and joins keys with ``/``, so the port's paths and their order equal
-the JAX package's.
+order and joins keys with ``/``; a NamedTuple field is named ``.field`` and
+a sequence item by its index, as ``repro.core.types.path_str`` names them,
+so the port's paths and their order equal the JAX package's (the checkpoint
+manifest keys every leaf by its path).
 """
 from __future__ import annotations
 
@@ -39,20 +41,29 @@ class Optimizer:
     bucket_plan: Optional[Callable[[PyTree], Any]] = None
 
 
+def _child_keys(tree) -> List[str]:
+    """Path components of a sequence's items: ``.field`` for a NamedTuple,
+    the index otherwise."""
+    if hasattr(tree, "_fields"):
+        return [f".{f}" for f in tree._fields]
+    return [str(i) for i in range(len(tree))]
+
+
 def _walk(tree, prefix: Tuple[str, ...], out: List):
     if isinstance(tree, dict):
         for k in sorted(tree):
             _walk(tree[k], prefix + (str(k),), out)
     elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            _walk(x, prefix + (str(i),), out)
+        for key, x in zip(_child_keys(tree), tree, strict=True):
+            _walk(x, prefix + (key,), out)
     elif tree is not None:
         out.append(("/".join(prefix), tree))
 
 
 def tree_paths(tree: PyTree) -> List[Tuple[str, Any]]:
     """[(path_string, leaf)] in JAX's flattening order: dict keys sorted,
-    sequences by index, ``None`` leaves dropped."""
+    NamedTuple fields as ``.field``, other sequences by index, ``None``
+    leaves dropped."""
     out: List = []
     _walk(tree, (), out)
     return out
@@ -67,8 +78,8 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: PyTree,
             return {k: go(t[k], [r[k] for r in rs], prefix + (str(k),))
                     for k in t}
         if isinstance(t, (list, tuple)):
-            vals = [go(x, [r[i] for r in rs], prefix + (str(i),))
-                    for i, x in enumerate(t)]
+            vals = [go(x, [r[i] for r in rs], prefix + (key,))
+                    for i, (key, x) in enumerate(zip(_child_keys(t), t, strict=True))]
             return type(t)(vals) if not hasattr(t, "_fields") else type(t)(*vals)
         if t is None:
             return None

@@ -5,15 +5,18 @@ process, one device.
         --optimizer rmnp --engine single-pass --use-kernel --steps 3 \\
         --batch 8 --seq 1024
 
-Wires config -> synthetic data -> mixed optimizer -> train step -> metrics
-log. It runs on ``cuda`` unless ``device="cpu"`` (``--device cpu``) is
-passed. Flags of features the port does not have yet raise and name their
-ROADMAP item.
+Wires config -> synthetic data -> mixed optimizer -> train step ->
+checkpoint manager (resume on restart) -> metrics log, with the non-finite
+guard and its anomaly ladder, fault injection and the hang watchdog. It runs
+on ``cuda`` unless ``device="cpu"`` (``--device cpu``) is passed. ``zero2``
+raises and names its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import time
 import warnings
 from pathlib import Path
@@ -22,24 +25,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import (cosine_with_warmup, global_dominance, make_optimizer,
                               momentum_for_diagnostics, optimizer_names)
 from repro_torch.core.types import tree_paths
 from repro_torch.data.pipeline import make_stream
+from repro_torch.distributed import elastic
+from repro_torch.distributed.monitor import AnomalyMonitor, HangGuard
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import init_params
+from repro_torch.train import faults, pipeline
 from repro_torch.train.step import make_train_step
-
-# flag -> the ROADMAP item that brings it
-_NOT_PORTED = {
-    "zero2": "Queue 1, item 6 (ZeRO-2 data parallel)",
-    "ckpt_dir": "Queue 1, item 7 (checkpointing and resilience)",
-    "guard": "Queue 1, item 7 (checkpointing and resilience)",
-    "inject_fault": "Queue 1, item 7 (checkpointing and resilience)",
-    "kill_at": "Queue 1, item 7 (checkpointing and resilience)",
-    "watchdog_deadline": "Queue 1, item 7 (checkpointing and resilience)",
-}
 
 
 def batch_to_device(np_batch, device):
@@ -70,50 +67,184 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     and Newton-Schulz iteration runs the Hopper kernels, on ``cpu`` their
     plain versions. ``dominance_every`` adds the momentum's diagonal
     dominance (``r_avg``, ``r_min``, ``r_max``) to the logged steps it
-    divides.
-    ``stop_at`` trains to that step with the schedules still spanning
-    ``steps``. Each history entry also holds the kernel launches of its step
-    (``launches``). ``compress``, ``overlap`` and the ``anomaly_*`` settings
-    belong to ZeRO-2 and the guard and are accepted for the JAX driver's
-    signature."""
-    del ckpt_every, compress, overlap, anomaly_spike_k, anomaly_skip_budget
-    del anomaly_rewind_budget, anomaly_lr_backoff, anomaly_health_window
-    del anomaly_skip_batch
-    asked = {"zero2": zero2, "ckpt_dir": ckpt_dir, "guard": guard,
-             "inject_fault": inject_fault, "kill_at": kill_at,
-             "watchdog_deadline": watchdog_deadline}
-    for flag, value in asked.items():
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {_NOT_PORTED[flag]})")
+    divides. Each history entry also holds the kernel launches of its step
+    (``launches``).
+
+    **Checkpoints.** With ``ckpt_dir`` the run resumes from the newest
+    committed checkpoint there (the data stream from its ``data_step``),
+    saves every ``ckpt_every`` steps (async) and saves the final state.
+    ``stop_at`` simulates a crash: train to that step (schedules still span
+    ``steps``) and exit without the final checkpoint. ``kill_at`` SIGKILLs
+    the process after that step, with any async save still in flight.
+    ``watchdog_deadline`` (seconds) arms the hang/straggler ladder: the
+    state is snapshotted to host memory after every step, and a step that
+    exceeds the deadline or is flagged as a straggler writes that snapshot
+    as an emergency checkpoint.
+
+    **Numerical resilience.** ``guard=True`` arms the non-finite guard (a
+    NaN/Inf step leaves every buffer bit for bit unchanged) and the
+    anomaly ladder (``repro_torch.distributed.monitor.AnomalyMonitor``):
+    more than ``anomaly_skip_budget`` consecutive skipped steps, or a finite
+    loss spike, rewinds to the last-known-good checkpoint with both learning
+    rates multiplied by ``anomaly_lr_backoff`` and the data stream replayed
+    from the checkpoint's position (``anomaly_skip_batch`` also drops the
+    batches of skipped steps on replay); more than ``anomaly_rewind_budget``
+    rewinds aborts, naming the step and the leaves. A periodic checkpoint is
+    promoted to last-known-good after ``anomaly_health_window`` further
+    anomaly-free steps. With the guard, each logged entry holds ``skipped``,
+    the ladder's ``action`` and the ``nonfinite`` gradient leaves, and a
+    rewind appends an entry with ``rewind_to``. ``inject_fault``
+    (``kind:leaf:step[:microbatch]``, ``repro_torch.train.faults``) poisons
+    a gradient; an injected fault is disarmed on rewind. ``clip_norm <= 0``
+    disables clipping.
+
+    ``zero2`` raises (ROADMAP Queue 1, item 6); ``compress`` and ``overlap``
+    belong to it and are accepted for the JAX driver's signature."""
+    del compress, overlap
+    if zero2:
+        raise NotImplementedError(
+            "zero2 is not ported yet (ROADMAP Queue 1, item 6: ZeRO-2 data parallel)")
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    fault_spec = faults.parse_fault(inject_fault) if inject_fault else None
+    if fault_spec is not None:
+        print(f"[train] fault injection armed: {fault_spec.describe()}", flush=True)
 
-    opt = make_optimizer(optimizer, dict(
-        lr_matrix=cosine_with_warmup(lr_matrix, steps),
-        lr_adamw=cosine_with_warmup(lr_adamw, steps),
-        matrix_embed=matrix_embed, use_kernel=use_kernel, fused=fused,
-        momentum_dtype=momentum_dtype, fused_apply=fused_apply))
+    def build_opt(lr_scale: float = 1.0):
+        return make_optimizer(optimizer, dict(
+            lr_matrix=cosine_with_warmup(lr_matrix * lr_scale, steps),
+            lr_adamw=cosine_with_warmup(lr_adamw * lr_scale, steps),
+            matrix_embed=matrix_embed, use_kernel=use_kernel, fused=fused,
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply))
+
+    def build_step(opt_, fault):
+        return make_train_step(cfg, opt_, num_microbatches=accum,
+                               clip_norm=clip_norm, guard=guard, fault=fault,
+                               remat="none" if reduced else "full")
+
+    opt = build_opt()
     params = init_params(cfg, seed=seed, device=device)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, num_microbatches=accum,
-                              clip_norm=clip_norm,
-                              remat="none" if reduced else "full")
-    stream = make_stream(cfg, seq, batch, seed=seed)
+    start_step, data_step = 0, 0
+    layout = elastic.state_layout(opt, params, mesh_size=1, rule=optimizer,
+                                  opt_state=opt_state)
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    latest = mgr.latest_step() if mgr is not None else None
+    if latest is not None:
+        elastic.check_restorable(mgr.read_layout(latest), layout)
+        restored = mgr.restore_latest((params, opt_state))
+        if restored is None:
+            raise RuntimeError(f"no committed checkpoint in {ckpt_dir} is readable; "
+                               f"refusing to start over in a directory that has some")
+        (params, opt_state), start_step, data_step = restored
+        print(f"[train] resumed from step {start_step}", flush=True)
+
+    stream = make_stream(cfg, seq, batch, seed=seed, start_step=data_step)
+    step_fn = build_step(opt, fault_spec)
+
+    hang_guard = None
+    if watchdog_deadline:
+        def emergency_save():
+            if mgr is None:
+                print("[watchdog] no checkpoint dir — nothing to save", flush=True)
+                return
+            # from the host snapshot filled after every step: no device access
+            saved = mgr.emergency_save()
+            if saved is None:
+                print("[watchdog] no snapshot newer than the last committed "
+                      "checkpoint — nothing to save", flush=True)
+            else:
+                print(f"[watchdog] emergency checkpoint written at step {saved}",
+                      flush=True)
+        hang_guard = HangGuard(watchdog_deadline, emergency_save)
+
+    monitor = None
+    if guard:
+        monitor = AnomalyMonitor(spike_k=anomaly_spike_k,
+                                 skip_budget=anomaly_skip_budget,
+                                 rewind_budget=anomaly_rewind_budget,
+                                 leaf_names=pipeline.guard_flag_names(params))
+    lr_scale = 1.0
+    pending_good: list = []      # checkpoint steps awaiting the health window
+    bad_data_steps: set = set()  # data positions of skipped steps (replay)
 
     history = []
     t0 = time.time()
     end_step = min(steps, stop_at) if stop_at else steps
-    for step in range(end_step):
+    step = start_step
+    while step < end_step:
+        if anomaly_skip_batch and stream.step in bad_data_steps:
+            bad_data_steps.discard(stream.step)
+            next(stream)  # drop the offending batch on replay
+            print(f"[train] replay: dropped the batch of skipped data step "
+                  f"{stream.step - 1}", flush=True)
         before = dict(LAUNCHES)
+        if hang_guard is not None:
+            hang_guard.arm()
+            t_step = time.time()
         params, opt_state, metrics = step_fn(
             params, opt_state, batch_to_device(next(stream), device), step)
+        if hang_guard is not None:
+            # the host snapshot comes first: the emergency save reads only it
+            if mgr is not None:
+                mgr.snapshot(step + 1, (params, opt_state), data_step=stream.step,
+                             layout=layout)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            hang_guard.record(step, time.time() - t_step)
+        action = None
+        if monitor is not None:
+            gflags = metrics.pop("guard_flags").cpu().numpy()
+            was_skipped = bool(float(metrics["skipped"]))
+            action = monitor.record(step, float(metrics["loss"]),
+                                    skipped=was_skipped, flags=gflags)
+            if action != "ok":
+                pending_good.clear()  # nothing in flight becomes last-known-good
+            if action == "skip":
+                leaves = ", ".join(monitor.bad_leaves(gflags)) or "<loss non-finite>"
+                bad_data_steps.add(stream.step - 1)
+                print(f"[train] guard: step {step} SKIPPED bitwise (non-finite: "
+                      f"{leaves}; {monitor.consecutive_skips}/{anomaly_skip_budget} "
+                      f"consecutive)", flush=True)
+            elif action == "rewind":
+                lr_scale *= anomaly_lr_backoff
+                opt = build_opt(lr_scale)
+                good = mgr.latest_good_step() if mgr is not None else None
+                if good is not None:
+                    mgr.wait()
+                    (params, opt_state), data_step = mgr.restore(good, (params, opt_state))
+                    rewind_to = good
+                else:  # no good checkpoint yet: restart from init
+                    params = init_params(cfg, seed=seed, device=device)
+                    opt_state = opt.init(params)
+                    rewind_to, data_step = 0, 0
+                if fault_spec is not None:
+                    print("[train] rewind: disarming the injected fault "
+                          "(transient-fault model)", flush=True)
+                    fault_spec = None
+                step_fn = build_step(opt, fault_spec)
+                stream = make_stream(cfg, seq, batch, seed=seed, start_step=data_step)
+                print(f"[train] anomaly ladder: rewind #{monitor.rewinds} to step "
+                      f"{rewind_to} (lr x{lr_scale:g}, data step {data_step}; "
+                      f"{monitor.post_mortem()})", flush=True)
+                history.append({"step": step, "action": action, "rewind_to": rewind_to,
+                                "lr_scale": lr_scale, "data_step": data_step})
+                step = rewind_to
+                continue
+            elif action == "abort":
+                raise RuntimeError(
+                    f"[train] numerical-anomaly escalation ladder exhausted at "
+                    f"step {step}: {monitor.post_mortem()}")
         if log_every and (step % log_every == 0 or step == steps - 1):
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step
             m["wall_s"] = round(time.time() - t0, 2)
             m["launches"] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if action is not None:
+                m["action"] = action
+                m["nonfinite"] = monitor.bad_leaves(gflags)
             if dominance_every and step % dominance_every == 0 and optimizer != "adamw":
                 dom = global_dominance(momentum_for_diagnostics(
                     opt_state, params, matrix_embed=matrix_embed))
@@ -123,6 +254,29 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
                   f"gnorm={m['grad_norm']:.3f} clip={m['clip_rate']:.0f}"
                   + (f" r_avg={m['r_avg']:.2f}" if "r_avg" in m else "")
                   + f" launches={m['launches']}", flush=True)
+        if mgr is not None and ckpt_every and (step + 1) % ckpt_every == 0:
+            mgr.save(step + 1, (params, opt_state), data_step=stream.step, layout=layout)
+            if monitor is not None:
+                pending_good.append(step + 1)
+        if monitor is not None and pending_good:
+            # promote the checkpoints that survived the health window
+            for s in [s for s in pending_good if step + 1 - s >= anomaly_health_window]:
+                mgr.mark_good(s)
+                pending_good.remove(s)
+                print(f"[train] checkpoint step {s} promoted to last-known-good",
+                      flush=True)
+        if kill_at and step + 1 == kill_at:
+            print(f"[train] fault injection: SIGKILL at step {step + 1}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        step += 1
+    if hang_guard is not None:
+        hang_guard.stop()
+    if mgr is not None and end_step == steps:
+        mgr.save(steps, (params, opt_state), data_step=stream.step, block=True,
+                 layout=layout)
+        mgr.wait()
+    elif mgr is not None:
+        mgr.wait()  # crash simulation: the last periodic checkpoint survives
     if log_file:
         Path(log_file).parent.mkdir(parents=True, exist_ok=True)
         Path(log_file).write_text(json.dumps(history, indent=1))
@@ -169,7 +323,8 @@ def main(argv=None):
                     help="DEPRECATED alias for --engine bucketed")
     ap.add_argument("--fused-apply", action="store_true",
                     help="DEPRECATED alias for --engine single-pass")
-    ap.add_argument("--zero2", action="store_true", help="not ported yet")
+    ap.add_argument("--zero2", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1, item 6)")
     ap.add_argument("--no-compress", action="store_true", help="with --zero2")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatch gradient-accumulation factor")
@@ -179,16 +334,40 @@ def main(argv=None):
                     help="AdamW on LM-head/embeddings (paper App D.4 ablation)")
     ap.add_argument("--stop-at", type=int, default=0,
                     help="stop at this step (schedules span --steps)")
-    ap.add_argument("--kill-at", type=int, default=0, help="not ported yet")
+    ap.add_argument("--kill-at", type=int, default=0,
+                    help="fault injection: SIGKILL the process after this step, "
+                         "with any async save in flight")
     ap.add_argument("--watchdog-deadline", type=float, default=0.0,
-                    help="not ported yet")
+                    help="arm the hang/straggler watchdog: a step exceeding "
+                         "this many seconds (or flagged by the step-time "
+                         "monitor) writes an emergency checkpoint of the last "
+                         "completed step")
     ap.add_argument("--dump-params", default="",
                     help="write the final params to this npz (fp32)")
     ap.add_argument("--log-file", default="")
     ap.add_argument("--clip-norm", type=float, default=1.0,
                     help="global gradient-norm clip; <= 0 disables clipping")
-    ap.add_argument("--guard", action="store_true", help="not ported yet")
-    ap.add_argument("--inject-fault", default="", help="not ported yet")
+    ap.add_argument("--guard", action="store_true",
+                    help="non-finite guard (a NaN/Inf step is skipped with every "
+                         "buffer bit for bit unchanged) and the anomaly ladder "
+                         "(skip -> rewind to last-known-good -> abort)")
+    ap.add_argument("--inject-fault", default="",
+                    help="kind:leaf:step[:microbatch], kind nan|inf, leaf a "
+                         "gradient-leaf path ('*' = first), a trailing '+' on "
+                         "step makes it sticky; e.g. nan:*:6+")
+    ap.add_argument("--anomaly-spike-k", type=float, default=6.0,
+                    help="loss-spike threshold of the anomaly ladder (EWMA sigmas)")
+    ap.add_argument("--anomaly-skip-budget", type=int, default=3,
+                    help="consecutive skipped steps tolerated before a rewind")
+    ap.add_argument("--anomaly-rewind-budget", type=int, default=2,
+                    help="rewinds tolerated before aborting")
+    ap.add_argument("--anomaly-lr-backoff", type=float, default=0.5,
+                    help="multiply both learning rates by this on every rewind")
+    ap.add_argument("--anomaly-health-window", type=int, default=2,
+                    help="anomaly-free steps before a checkpoint becomes "
+                         "last-known-good")
+    ap.add_argument("--anomaly-skip-batch", action="store_true",
+                    help="on replay, drop the batches of skipped steps")
     args = ap.parse_args(argv)
     engine = args.engine
     if args.fused or args.fused_apply:
@@ -211,7 +390,12 @@ def main(argv=None):
           log_file=args.log_file, stop_at=args.stop_at, kill_at=args.kill_at,
           watchdog_deadline=args.watchdog_deadline, dump_params=args.dump_params,
           clip_norm=args.clip_norm, guard=args.guard,
-          inject_fault=args.inject_fault, device=args.device)
+          inject_fault=args.inject_fault, anomaly_spike_k=args.anomaly_spike_k,
+          anomaly_skip_budget=args.anomaly_skip_budget,
+          anomaly_rewind_budget=args.anomaly_rewind_budget,
+          anomaly_lr_backoff=args.anomaly_lr_backoff,
+          anomaly_health_window=args.anomaly_health_window,
+          anomaly_skip_batch=args.anomaly_skip_batch, device=args.device)
 
 
 if __name__ == "__main__":

@@ -59,9 +59,11 @@ def _rmnp_inputs(shape, vdt, wdt, seed=0):
     return g, v, w, scalars
 
 
-# the four gpt2-small buckets, a ragged small bucket and a ragged 2-D leaf
+# the four gpt2-small buckets, a ragged small bucket and a ragged 2-D leaf;
+# llama-130m's 2048x768 bucket (split K = 6); a tall narrow leaf that takes
+# C = 8, and one tall enough for the two-sweep path
 SHAPES = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768),
-          (3, 33, 9), (300, 257)]
+          (3, 33, 9), (300, 257), (12, 2048, 768), (1, 60000, 24), (1, 120000, 8)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -87,7 +89,8 @@ def test_rmnp_apply_matches_plain(cuda, shape, vdt, wdt):
     _close(w_k, w_p)
 
 
-@pytest.mark.parametrize("shape", [(48, 768, 768), (7, 300, 257)],
+@pytest.mark.parametrize("shape", [(48, 768, 768), (7, 300, 257), (12, 2048, 768),
+                                   (2, 60000, 24), (2, 120000, 8)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("apply", [False, True], ids=["precondition", "apply"])
 def test_rmnp_stack_equals_slices_bitwise(cuda, shape, apply):
@@ -435,3 +438,69 @@ def test_gemm_rejects_what_it_does_not_take(cuda):
         mm.matmul(a, b)
     with pytest.raises(TypeError, match="float32"):
         nsk.ns_step(a[0].double(), 1.0, 1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# checkpointing and the guard on the card (chip_smoke.py phase R, reduced)
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+
+
+def _same_bits(a, b):
+    from repro_torch.core.types import tree_paths
+    pa, pb = tree_paths(a), tree_paths(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        _bits(x) == _bits(y) for (_, x), (_, y) in zip(pa, pb, strict=True))
+
+
+def _train_card(**kw):
+    from repro_torch.launch.train import train
+    base = dict(batch=2, seq=64, seed=3, log_every=1, fused=True, fused_apply=True,
+                momentum_dtype="bfloat16", steps=6)
+    return train("llama-60m", **{**base, **kw})
+
+
+def test_resume_on_the_card_equals_the_uninterrupted_run_bitwise(cuda, tmp_path):
+    """R2 at reduced size: stop at step 3 with an async checkpoint every 3
+    steps (pinned buffers, side-stream copy), restart to step 6: params and
+    optimizer state equal the uninterrupted run's bit for bit, which needs
+    the step itself to be repeatable on the card."""
+    p1, s1, _ = _train_card()
+    p2, s2, _ = _train_card()
+    assert _same_bits((p1, s1), (p2, s2))
+    _train_card(stop_at=3, ckpt_dir=str(tmp_path), ckpt_every=3)
+    p3, s3, hist = _train_card(ckpt_dir=str(tmp_path), ckpt_every=3)
+    assert [h["step"] for h in hist] == [3, 4, 5]
+    assert _same_bits((p1, s1), (p3, s3))
+    assert all(t.device.type == "cuda" for t in s3.buckets.values())
+
+
+def test_guard_on_the_card_skips_the_poisoned_step_bitwise(cuda):
+    """R3 at reduced size: ``nan:*:2`` under the guard skips step 2, its
+    flags name the poisoned leaf, and the final bits equal a clean run that
+    skipped step 2's update."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_train_step
+    p_g, s_g, hist = _train_card(guard=True, inject_fault="nan:*:2")
+    assert [h["skipped"] for h in hist] == [0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
+    assert [h["action"] for h in hist][2] == "skip"
+    cfg = get_config("llama-60m").reduced()
+    opt = make_optimizer("rmnp", dict(
+        lr_matrix=cosine_with_warmup(2e-3, 6), lr_adamw=cosine_with_warmup(1e-3, 6),
+        fused=True, fused_apply=True, momentum_dtype="bfloat16"))
+    params = init_params(cfg, seed=3, device="cuda")
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat="none")
+    stream = make_stream(cfg, 64, 2, seed=3)
+    for t in range(6):
+        batch = batch_to_device(next(stream), "cuda")
+        if t != 2:
+            params, state, _ = step_fn(params, state, batch, t)
+    assert _same_bits((params, state), (p_g, s_g))

@@ -1,5 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package.
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and no script under ``tools/`` imports JAX or the JAX
+package.
 
 The machine with the card has PyTorch and no JAX, so one such import would
 stop the port there. The scan reads every import statement (top level or
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
-SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -32,7 +34,13 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/kernels/matmul.py",
                      "src/repro_torch/kernels/newton_schulz.py",
                      "src/repro_torch/core/muon.py", "src/repro_torch/core/dominance.py",
-                     "src/repro_torch/launch/train.py"):
+                     "src/repro_torch/launch/train.py",
+                     "src/repro_torch/checkpoint/manager.py",
+                     "src/repro_torch/checkpoint/faults.py",
+                     "src/repro_torch/distributed/monitor.py",
+                     "src/repro_torch/distributed/elastic.py",
+                     "src/repro_torch/train/faults.py", "src/repro_torch/train/pipeline.py",
+                     "tools/step_repeat.py"):
         assert expected in names
 
 

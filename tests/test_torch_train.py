@@ -111,19 +111,39 @@ def test_cli_runs_the_engines_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--zero2", "Queue 1, item 6"), ("--ckpt-dir=x", "Queue 1, item 7"),
-    ("--guard", "Queue 1, item 7"), ("--inject-fault=nan:wq:1", "Queue 1, item 7"),
-    ("--kill-at=1", "Queue 1, item 7"), ("--watchdog-deadline=5", "Queue 1, item 7")])
+    ("--zero2", "Queue 1, item 6"), ("--inject-fault=bitflip:768x768:1", "Queue 1, item 6")])
 def test_unported_flags_raise_and_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "gpt2-small", "--steps", "1", "--device", "cpu", flag])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--ckpt-dir={d}", "--ckpt-every=1"], ["--guard"],
+    ["--guard", "--inject-fault=nan:*:1"], ["--ckpt-dir={d}", "--kill-at=0"],
+    ["--ckpt-dir={d}", "--watchdog-deadline=60"]],
+    ids=["ckpt-dir", "guard", "inject-fault", "kill-at", "watchdog-deadline"])
+def test_resilience_flags_run_on_the_cpu(flags, tmp_path, capsys):
+    """The flags of checkpointing and the guard, once refused, now run."""
+    train_mod.main(["--arch", "gpt2-small", "--steps", "2", "--batch", "2", "--seq", "16",
+                    "--log-every", "1", "--device", "cpu"]
+                   + [f.format(d=tmp_path / "ck") for f in flags])
+    out = capsys.readouterr().out
+    assert out.count("[train] step=") == 2
+    if "--inject-fault=nan:*:1" in flags:
+        assert "step 1 SKIPPED bitwise" in out
+    if any(f.startswith("--ckpt-dir") for f in flags):
+        assert (tmp_path / "ck" / "step_000000002" / "COMMITTED").exists()
+
+
 def test_guard_and_fault_in_the_step_raise():
+    """The guard and gradient faults are ported; the int8 wire's bit-flip
+    fault raises and names ZeRO-2's item."""
+    from repro_torch.train.faults import parse_fault
     cfg = get_config("gpt2-small").reduced()
     opt = make_optimizer("rmnp", dict(lr_matrix=1e-3))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        make_train_step(cfg, opt, guard=True)
+    make_train_step(cfg, opt, guard=True, fault=parse_fault("nan:*:1"))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+        make_train_step(cfg, opt, guard=True, fault=parse_fault("bitflip:768x768:1"))
 
 
 def test_entry_points_default_to_the_card():
