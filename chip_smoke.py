@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = all phases passed
 
 Phases:
-  build  compile the three CUDA sources with nvcc, one process each, all
+  build  compile the four CUDA sources with nvcc, one process each, all
          started together, from the sources in this checkout;
   A      the RMNP kernel (csrc/rmnp_update.cu; apply and precondition, one
          line each) against its plain versions at the four gpt2-small
@@ -17,16 +17,19 @@ Phases:
          a stacked launch against its slices launched alone (both forms)
          and, in fp32, apply against precondition followed by the two-pass
          engine's eager ops; the ptxas report of each instantiation;
-  B      the flash-attention forward kernel against its plain version at
-         B=8 S=1024 H=K=12 hd=64 (bf16, tensor cores), causal and not, a
-         GQA shape (H=8, K=2) with a ragged S in bf16 (causal and not) and
-         fp32 (CUDA cores), hd 32 and 16 with G=4, and S in {1, 63, 65,
-         129}; two launches must give the same bits; 40 seeds of a
-         non-causal S=1000 GQA head must all hold the limit; the ptxas
-         report of the bf16 kernel is printed, and cuobjdump must find
-         HGMMA in each of its instantiations;
-         F.scaled_dot_product_attention is timed beside it as a yardstick
-         only;
+  B      the flash-attention forward kernels (bf16: csrc/flash_attention_fwd.cu;
+         fp32, 3xTF32: csrc/flash_attention_fwd_tf32.cu; both on the tensor
+         cores) against their plain version, in each type at B=8 S=1024
+         H=K=12 hd=64, causal and not, a GQA shape (H=8, K=2) with a ragged
+         S (causal and not), hd 32 and 16 with G=4, and S in {1, 63, 65,
+         129}, each fp32 case also against a float64 softmax; two launches
+         must give the same bits; 40 seeds of a non-causal S=1000 GQA head
+         must all hold the limit in each type; the ptxas report of both
+         kernels is printed, and cuobjdump must find HGMMA in each
+         instantiation of each; an fp32 row's bound is that of its 3xTF32
+         products on the tensor cores, the FFMA bound is recorded beside
+         it; F.scaled_dot_product_attention is timed beside it as a
+         yardstick only;
   C      the main path at full width: 3 steps of
          repro_torch.launch.train.train("gpt2-small", reduced=False,
          optimizer="rmnp", single-pass engine, use_kernel=True, batch=8,
@@ -35,6 +38,11 @@ Phases:
          attn_impl="pallas" through make_train_step, whose final hidden
          state and loss must match dense attention's from the same init,
          while a non-causal attention, the control, must not;
+  C3f    the same in fp32 (gpt2-small at full width with dtype="float32"):
+         one single-pass RMNP step with attn_impl="pallas" (the fp32 flash
+         kernel, 24 launches) against dense attention from one init, loss
+         and final hidden state within 1e-4, the non-causal control 10x
+         outside; then 3 more steps of each, timed, and peak memory;
   E      the GEMM kernel (csrc/matmul.cu) in the three launches of a
          Newton-Schulz step (Gram, polynomial, apply) at gpt2-small's four
          buckets, each against a float64 product on the card, with a
@@ -42,9 +50,9 @@ Phases:
          plain; ns_step3 on a stack against ns_step on its slices; a ragged
          stack and a 2-D matrix taken on its transposed side; the ptxas
          report of each instantiation is printed, and cuobjdump must find
-         HGMMA in all four; each launch's bound is given for FFMA and for
-         3xTF32 on the tensor cores; torch.bmm/baddbmm are timed beside it
-         as yardsticks only;
+         HGMMA in all four; each launch's bound is that of its 3xTF32
+         products on the tensor cores, the FFMA bound is recorded beside
+         it; torch.bmm/baddbmm are timed beside it as yardsticks only;
   C4     Muon on the main path at full width: 3 single-pass steps with 40
          matmul3 and 20 ns_poly3 launches each, one per-leaf step (the 2-D
          kernels for the embedding), one bucketed step each of NorMuon,
@@ -108,6 +116,13 @@ LLAMA_BUCKETS = [(48, 768, 768), (12, 768, 4096), (12, 2048, 768), (1, 768, 3200
 # attention must land at least 10 times past the hidden-state tolerance.
 C3_LOSS_TOL = 1e-3
 C3_HIDDEN_TOL = 5e-2
+# Phase C3f, the same in fp32: dense attention and the kernel (3xTF32, held
+# at 1e-5 of each element in phase B) both compute in fp32, so the loss and
+# the hidden state agree to fp32 rounding carried through 12 layers, orders
+# of magnitude inside these tolerances; the control must still land at
+# least 10 times past the hidden-state tolerance.
+C3F_LOSS_TOL = 1e-4
+C3F_HIDDEN_TOL = 1e-4
 # Newton-Schulz at gpt2-small's buckets, smaller side first: (L, m, n)
 NS_BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 768, 3072), (1, 768, 50432)]
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
@@ -199,7 +214,7 @@ def check(cond, msg):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.time()
-    libs = ("flash_attention_fwd", "matmul", "rmnp_update")
+    libs = ("flash_attention_fwd", "flash_attention_fwd_tf32", "matmul", "rmnp_update")
     # one nvcc per CUDA source, all started together; built even where a
     # library of the same source exists, for its ptxas report
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
@@ -433,13 +448,48 @@ def hgmma_counts(library):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            kind = re.search(r"fa_fwd_tc|fa_fwd_fp32|gemm_kernel", m.group(1))
+            kind = re.search(r"fa_fwd_tc|fa_fwd_tf32_kernel|gemm_kernel", m.group(1))
             args = template_args(m.group(1))
             name = (kind.group(0) + "".join(f"_{a}" for a in args)) if kind else m.group(1)
             counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
     return counts
+
+
+def attention_bounds(B, S, H, K, hd, dtype, causal):
+    """(bound_ms, bound_by, ffma_ms or None): q/k/v read once and the output
+    written once over the memory rate, against the FLOP at the peak of the
+    units the kernel runs them on: bf16 on the tensor cores; fp32 as three
+    TF32 products per fp32 product on the tensor cores (3xTF32). For fp32
+    also the same with the FLOP at the CUDA cores' FFMA rate, for the
+    record only."""
+    import torch
+    size = 2 if dtype == torch.bfloat16 else 4
+    t_bytes = (2 * B * S * H * hd + 2 * B * S * K * hd) * size / HBM_BYTES_PER_S * 1e3
+    flops = attention_flops(B, S, H, hd, causal)
+    t_ops = (flops / BF16_FLOPS if size == 2 else 3 * flops / TF32_FLOPS) * 1e3
+    ffma = None if size == 2 else max(flops / FP32_FLOPS * 1e3, t_bytes)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ffma
+
+
+def exact_attention(q, k, v, causal):
+    """Softmax attention in float64 (dense, kv head h // G), (B,S,H,hd)."""
+    import torch
+    G = q.shape[2] // k.shape[2]
+    qd, kd, vd = (x.double().transpose(1, 2) for x in (q, k, v))
+    kd, vd = kd.repeat_interleave(G, 1), vd.repeat_interleave(G, 1)
+    s = qd @ kd.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1),
+                          float("-inf"))
+    return (torch.softmax(s, -1) @ vd).transpose(1, 2)
+
+
+def attention_inputs(gen, B, S, H, K, hd, dtype):
+    import torch
+    return [torch.randn(B, S, h, hd, generator=gen, device="cuda").to(dtype) for h in (H, K, K)]
 
 
 def phase_attention():
@@ -449,9 +499,11 @@ def phase_attention():
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
-    # (name, B, S, H, K, hd, dtype, causal, timed): the main path's shape
-    # causal and not; GQA with a ragged S in both types; hd 32 and 16 with
-    # G = 4; and ragged S around the 64-key tile and the 128-row query tile
+    # (name, B, S, H, K, hd, dtype, causal, timed): in each type the main
+    # path's shape causal and not, GQA with a ragged S causal and not, hd 32
+    # and 16 with G = 4, and ragged S around the 64-key tile and the 128-row
+    # query tile; timed: bf16 at the main shape causal and not and at the
+    # GQA shape, fp32 at the main shape and at the GQA shape (row 3f)
     cases = [("main", 8, 1024, 12, 12, 64, bf16, True, True),
              ("main_noncausal", 8, 1024, 12, 12, 64, bf16, False, True),
              ("gqa_ragged", 2, 1000, 8, 2, 64, bf16, True, True),
@@ -460,27 +512,45 @@ def phase_attention():
              ("hd32_g4", 2, 1024, 8, 2, 32, bf16, True, False),
              ("hd16_g4", 2, 1024, 8, 2, 16, bf16, True, False)]
     cases += [(f"s{S}", 2, S, 8, 2, 64, bf16, True, False) for S in (1, 63, 65, 129)]
+    cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
+              ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
+              ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
+              ("hd32_g4_fp32", 2, 1024, 8, 2, 32, fp32, True, False),
+              ("hd16_g4_fp32", 2, 1024, 8, 2, 16, fp32, True, False)]
+    cases += [(f"s{S}_fp32", 2, S, 8, 2, 64, fp32, True, False) for S in (1, 63, 65, 129)]
+    # Each output element is held at 1e-6 * max|want| + rtol * |want|
+    # (elementwise_err). fp32: the plain version sums fp32 products, the
+    # kernel 3xTF32 products (to about 2^-22 each) in its own order, and
+    # both agree to a few fp32 ulps of each element: rtol 1e-5. bf16: both
+    # compute in fp32 (the kernel keeps p to fp32 accuracy in three bf16
+    # parts) and round once; where a value straddles a rounding boundary they
+    # differ by one bf16 step, at most 2^-7 of the element.
+    rtol = {bf16: 2.0 ** -7, fp32: 1e-5}
     rows, inputs = [], {}
     for name, B, S, H, K, hd, dt, causal, timed in cases:
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
+        q, k, v = attention_inputs(gen, B, S, H, K, hd, dt)
         inputs[name] = (q, k, v, causal)
         out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
         ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                            block_q=min(512, S), block_k=min(512, S))
         torch.cuda.synchronize()
-        # both sides compute in fp32 with different tilings (sums agree to
-        # ~1e-6 relative): an fp32 output is held at rtol 1e-5 per element; a
-        # bf16 output rounds those values once and may differ by one bf16
-        # step, at most 2^-7 of the element (see elementwise_err)
-        e, ratio = elementwise_err(out, ref, 2.0 ** -7 if dt == bf16 else 1e-5)
+        e, ratio = elementwise_err(out, ref, rtol[dt])
         check(out.shape == q.shape and torch.isfinite(out.float()).all().item(),
               f"attention {name}: bad output")
         check(ratio <= 1.0, f"attention {name}: max_abs_err {e}, worst ratio {ratio} > 1")
         rec = {"case": name, "B": B, "S": S, "H": H, "K": K, "hd": hd,
                "dtype": str(dt).split(".")[1], "causal": causal, "max_abs_err": e,
                "worst_ratio": ratio}
+        if dt == fp32:
+            # also against a float64 softmax, so that a miss is assigned to
+            # the kernel or to the plain version
+            exact = exact_attention(q, k, v, causal)
+            rec["worst_ratio_float64"] = elementwise_err(out, exact, rtol[dt])[1]
+            rec["plain_worst_ratio_float64"] = elementwise_err(ref, exact, rtol[dt])[1]
+            check(rec["worst_ratio_float64"] <= 1.0,
+                  f"attention {name}: against float64, worst ratio "
+                  f"{rec['worst_ratio_float64']} > 1")
+            del exact
         del out, ref
         if timed:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -491,47 +561,71 @@ def phase_attention():
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=K != H)))
             del qt, kt, vt
-            nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
-            peak = BF16_FLOPS if dt == bf16 else FP32_FLOPS
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = attention_flops(B, S, H, hd, causal) / peak * 1e3
-            rec["bound_ms"] = max(t_bytes, t_ops)
-            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            bound, by, ffma = attention_bounds(B, S, H, K, hd, dt, causal)
+            rec.update(bound_ms=bound, bound_by=by)
+            if ffma is not None:
+                rec["bound_ffma_ms"] = ffma
             rec["tflops"] = attention_flops(B, S, H, hd, causal) / rec["kernel_ms"] / 1e9
+            print(f"attention {name}: {rec['kernel_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+                  + (f", FFMA bound {ffma:.4f} ms" if ffma is not None else "")
+                  + f", SDPA {rec['library_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms",
+                  flush=True)
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
-    q, k, v, causal = inputs["main"]
-    a = fa.flash_attention_fwd_kernel(q, k, v)
-    b = fa.flash_attention_fwd_kernel(q, k, v)
-    check(torch.equal(a, b), "attention: two launches on the main input differ")
-    del a, b
+    for name in ("main", "main_fp32"):
+        q, k, v, causal = inputs[name]
+        a = fa.flash_attention_fwd_kernel(q, k, v)
+        b = fa.flash_attention_fwd_kernel(q, k, v)
+        check(torch.equal(a, b), f"attention: two launches on the {name} input differ")
+        del a, b
 
     # Near-zero elements of non-causal rows over ~1000 keys are where P's
-    # precision shows: one head config, many seeds, every element of every
-    # seed held at the limit
-    def seeds_over_limit(n=40):
-        over, worst = 0, 0.0
+    # precision (bf16) and the 3xTF32 sums (fp32) show: one head config,
+    # many seeds, every element of every seed held at the limit. bf16 is
+    # held against the plain version, whose fp32 error is far below a bf16
+    # step. fp32 is held against a float64 softmax: there the plain
+    # version's own fp32 error reaches 0.93-0.96 of the limit on near-zero
+    # elements (PERF.md, PR 17), so a reading against it measures the plain
+    # version; the kernel's reading against the plain version is reported
+    # beside it.
+    def seeds_over_limit(dt, n=40):
+        over, worst, ratios = 0, 0.0, []
         g = torch.Generator(device="cuda").manual_seed(3)
         for _ in range(n):
-            q, k, v = (torch.randn(1, 1000, h, 64, generator=g, device="cuda").to(bf16)
-                       for h in (4, 1, 1))
-            r = elementwise_err(fa.flash_attention_fwd_kernel(q, k, v, causal=False),
-                                fa.flash_attention_fwd_plain(q, k, v, causal=False),
-                                2.0 ** -7)[1]
+            q, k, v = attention_inputs(g, 1, 1000, 4, 1, 64, dt)
+            got = fa.flash_attention_fwd_kernel(q, k, v, causal=False)
+            want = fa.flash_attention_fwd_plain(q, k, v, causal=False)
+            if dt == fp32:
+                exact = exact_attention(q, k, v, causal=False)
+                ratios.append({"kernel_float64": elementwise_err(got, exact, rtol[dt])[1],
+                               "plain_float64": elementwise_err(want, exact, rtol[dt])[1],
+                               "kernel_plain": elementwise_err(got, want, rtol[dt])[1]})
+                r = ratios[-1]["kernel_float64"]
+            else:
+                r = elementwise_err(got, want, rtol[dt])[1]
             over, worst = over + (r > 1.0), max(worst, r)
-        return {"seeds": n, "over_limit": over, "worst_ratio": worst}
+        out = {"seeds": n, "reference": "float64" if dt == fp32 else "plain",
+               "over_limit": over, "worst_ratio": worst}
+        if ratios:
+            out.update({f"worst_{k}": max(r[k] for r in ratios) for k in ratios[0]})
+            out["per_seed"] = ratios
+        return out
 
-    stress = seeds_over_limit()
-    check(stress["over_limit"] == 0,
+    stress = {"bf16": seeds_over_limit(bf16), "fp32": seeds_over_limit(fp32)}
+    check(all(r["over_limit"] == 0 for r in stress.values()),
           f"attention: the non-causal seed sweep missed the limit {stress}")
-    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("flash_attention_fwd", ""), "fa_fwd_tc", "hd")
-    hgmma = hgmma_counts(build.library_path("flash_attention_fwd"))
-    tc = {n: c for n, c in hgmma.items() if n.startswith("fa_fwd_tc")}
-    check(len(tc) == len(fa.HEAD_DIMS) and all(c > 0 for c in tc.values()),
-          f"attention: HGMMA missing from the bf16 kernel's SASS: {hgmma}")
-    for key, line in ptxas.items():
-        print(f"ptxas fa_fwd_tc {key}: {line}", flush=True)
+    ptxas, hgmma = {}, {}
+    for lib, kernel in (("flash_attention_fwd", "fa_fwd_tc"),
+                        ("flash_attention_fwd_tf32", "fa_fwd_tf32_kernel")):
+        lines = ptxas_lines(build.PTXAS_REPORTS.get(lib, ""), kernel, "hd")
+        counts = hgmma_counts(build.library_path(lib))
+        ours = {n: c for n, c in counts.items() if n.startswith(kernel)}
+        check(len(ours) == len(fa.HEAD_DIMS) and all(c > 0 for c in ours.values()),
+              f"attention: HGMMA missing from {kernel}'s SASS: {counts}")
+        for key, line in lines.items():
+            print(f"ptxas {kernel} {key}: {line}", flush=True)
+        ptxas[kernel], hgmma[kernel] = lines, ours
     emit("B_attention", {"cases": rows, "noncausal_seeds": stress, "ptxas": ptxas,
                          "hgmma": hgmma})
     del inputs
@@ -540,16 +634,16 @@ def phase_attention():
 
 
 def gemm_bound(L, M, N, K, reads):
-    """(bound_ms, bound_by, bound_3xtf32_ms) of one GEMM launch: 2MNK FLOP
-    plus the epilogue at the fp32 CUDA-core rate, against ``reads`` input
-    elements read once and the (L, M, N) output written once; and the same
-    with the products as 3xTF32, three TF32 products per fp32 product at
-    the TF32 tensor-core rate (the kernel's own floor)."""
-    flops = L * (2 * M * N * K + 3 * M * N)
-    t_ops = flops / FP32_FLOPS * 1e3
+    """(bound_ms, bound_by, ffma_ms) of one GEMM launch: ``reads`` input
+    elements read once and the (L, M, N) output written once over the
+    memory rate, against the 2MNK FLOP as the kernel runs them, three TF32
+    products per fp32 product at the TF32 tensor-core rate (3xTF32); and,
+    for the record only, the same with 2MNK FLOP plus the epilogue at the
+    fp32 CUDA-core (FFMA) rate."""
+    t_ops = 3 * L * 2 * M * N * K / TF32_FLOPS * 1e3
     t_bytes = 4 * (reads + L * M * N) / HBM_BYTES_PER_S * 1e3
-    t_3xtf32 = max(3 * L * 2 * M * N * K / TF32_FLOPS * 1e3, t_bytes)
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_3xtf32
+    t_ffma = max(L * (2 * M * N * K + 3 * M * N) / FP32_FLOPS * 1e3, t_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_ffma
 
 
 def phase_ns():
@@ -615,10 +709,10 @@ def phase_ns():
             if shape == (3, 100, 300):
                 rows.append(rec)
                 continue
-            bound, by, bound3 = gemm_bound(Lb, M, N, K, reads)
+            bound, by, ffma = gemm_bound(Lb, M, N, K, reads)
             rec.update(ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
                        library_ms=time_ms(library), bound_ms=bound, bound_by=by,
-                       bound_3xtf32_ms=bound3)
+                       bound_ffma_ms=ffma)
             rows.append(rec)
             per_kind.setdefault(name, []).append(rec)
             del want
@@ -680,7 +774,7 @@ def phase_ns():
 
     def total(recs):
         out = {k: sum(r[k] for r in recs)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in recs)
                            else "bytes")
@@ -806,6 +900,95 @@ def phase_train():
           f"less than 10x the tolerance {C3_HIDDEN_TOL}")
     main_launches["flash_attention_fwd"] = counts["flash_attention_fwd"]
     return main_launches
+
+
+def phase_train_fp32():
+    """C3f: gpt2-small at full width in fp32 with attn_impl="pallas", the
+    fp32 flash kernel on the main path, against dense attention from one
+    init: the final hidden state (and a non-causal control), one single-pass
+    RMNP step under remat="full" (24 launches: 12 layers' forward and each
+    again in the recompute) and its loss, then 3 more steps of each, timed
+    on the host clock (each ends in a host read of the loss)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import init_params, layers
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import make_train_step
+
+    base = dataclasses.replace(get_config("gpt2-small"), dtype="float32")
+    batch = batch_to_device(make_stream(base, 1024, 8, seed=0).sample(0), "cuda")
+    dense_attention = layers.attention
+    hidden, loss, step_s, peak, counts = {}, {}, {}, {}, {}
+    for run in ("auto", "pallas", "control"):
+        cfg = dataclasses.replace(base, attn_impl="auto" if run == "control" else run)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda")
+        if run == "control":
+            layers.attention = lambda q, k, v, causal=True, **kw: dense_attention(
+                q, k, v, False, **kw)
+        try:
+            with torch.no_grad():
+                hidden[run] = forward(cfg, params, batch, return_hidden=True)[0].float()
+        finally:
+            layers.attention = dense_attention
+        if run == "control":
+            del params
+            continue
+        opt = make_optimizer("rmnp", dict(
+            lr_matrix=cosine_with_warmup(2e-3, 4), lr_adamw=cosine_with_warmup(1e-3, 4),
+            fused=True, fused_apply=True, use_kernel=True))
+        state = opt.init(params)
+        step_fn = make_train_step(cfg, opt, remat="full")
+        secs = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            if i == 0:
+                reset_launches()
+            t = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch, i)
+            value = float(metrics["loss"])
+            secs.append(time.perf_counter() - t)
+            if i == 0:
+                counts[run], loss[run] = dict(LAUNCHES), value
+            check(math.isfinite(value), f"C3f {run} step {i}: loss {value}")
+        step_s[run] = secs
+        peak[run] = torch.cuda.max_memory_allocated() / 2**30
+        del params, state
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    rel_flash = rel(hidden["pallas"], hidden["auto"])
+    rel_control = rel(hidden["control"], hidden["auto"])
+    diff = abs(loss["auto"] - loss["pallas"])
+    timing = {run: {"first_step_s": secs[0], "median_s": statistics.median(secs[1:]),
+                    "min_s": min(secs[1:]), "max_s": max(secs[1:]), "step_s": secs}
+              for run, secs in step_s.items()}
+    emit("C3f_train_flash_fp32", {
+        "loss_dense": loss["auto"], "loss_flash": loss["pallas"], "loss_abs_diff": diff,
+        "loss_tolerance": C3F_LOSS_TOL, "hidden_rel_flash": rel_flash,
+        "hidden_rel_control": rel_control, "hidden_tolerance": C3F_HIDDEN_TOL,
+        "launches": counts["pallas"], "steps": timing, "peak_mem_gb": peak})
+    for run, t in timing.items():
+        print(f"C3f {run}: first step {t['first_step_s']:.3f} s, then median "
+              f"{t['median_s']:.3f} s ({t['min_s']:.3f}-{t['max_s']:.3f}), peak "
+              f"{peak[run]:.2f} GiB", flush=True)
+    check(counts["pallas"]["flash_attention_fwd"] == 2 * base.num_layers,
+          f"C3f flash launches {counts['pallas']}")
+    check(counts["auto"]["flash_attention_fwd"] == 0, f"C3f dense launches {counts['auto']}")
+    check(diff <= C3F_LOSS_TOL, f"C3f pallas loss {loss['pallas']} vs dense {loss['auto']}")
+    check(rel_flash <= C3F_HIDDEN_TOL,
+          f"C3f hidden state: flash {rel_flash} > {C3F_HIDDEN_TOL}")
+    check(rel_control >= 10 * C3F_HIDDEN_TOL,
+          f"C3f hidden state: the non-causal control is only {rel_control} from dense, "
+          f"less than 10x the tolerance {C3F_HIDDEN_TOL}")
+    return counts["pallas"]["flash_attention_fwd"]
 
 
 def phase_muon():
@@ -1259,9 +1442,10 @@ def main():
     phase_build()
     rmnp = phase_rmnp()
     attn_cases = phase_attention()
-    attn, fp32 = attn_cases["main"], attn_cases["gqa_ragged_fp32"]
+    attn, attn_fp32 = attn_cases["main"], attn_cases["main_fp32"]
     ns = phase_ns()
     launches = phase_train()
+    fp32_launches = phase_train_fp32()
     launches.update(phase_muon())
     phase_small()
     llama_launches = phase_resilience()
@@ -1284,8 +1468,24 @@ def main():
          "launches": launches["flash_attention_fwd"], "max_abs_err": attn["max_abs_err"],
          "worst_ratio": attn["worst_ratio"], "ms": attn["kernel_ms"], "plain_ms": attn["plain_ms"],
          "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
-         "library_ms": attn["library_ms"], "fp32_ragged_ms": fp32["kernel_ms"],
-         "fp32_ragged_bound_ms": fp32["bound_ms"]},
+         "library_ms": attn["library_ms"],
+         # the fp32 kernel (csrc/flash_attention_fwd_tf32.cu): launches on
+         # C3f, and per timed shape its time, plain and SDPA times and its
+         # 3xTF32 bound
+         "fp32_source": "src/repro_torch/csrc/flash_attention_fwd_tf32.cu",
+         "launches_C3f": fp32_launches,
+         "fp32": {name: {k: attn_cases[name][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+             "worst_ratio")} for name in ("main_fp32", "gqa_ragged_fp32")}},
+        # the same TPU kernel in fp32, its own source: launches on C3f, times
+        # at the full-width shape C3f runs
+        {"name": "flash_attention_fwd_fp32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_fwd_tf32.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:37", "launches": fp32_launches,
+         "max_abs_err": attn_fp32["max_abs_err"], "worst_ratio": attn_fp32["worst_ratio"],
+         "ms": attn_fp32["kernel_ms"], "plain_ms": attn_fp32["plain_ms"],
+         "bound_ms": attn_fp32["bound_ms"], "bound_by": attn_fp32["bound_by"],
+         "library_ms": attn_fp32["library_ms"]},
     ]
     replaces = {"matmul": "src/repro/kernels/matmul.py:19",
                 "matmul3": "src/repro/kernels/matmul.py:69",

@@ -1,11 +1,12 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Causal GQA flash-attention forward in bf16 for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fwd_kernel
-// (entry flash_attention_fwd). Same function: q (B,S,H,hd), k/v (B,S,K,hd)
-// with H % K == 0, kv head h / (H/K) read in place; fp32 online softmax;
-// masked scores are -1e30 after the 1/sqrt(hd) scale; l is summed from the
-// unrounded fp32 p; out = acc / (l + 1e-30) in q's type. Any S: the ragged
-// edge is masked, not padded. hd is 16, 32 or 64.
+// (entry flash_attention_fwd) for bf16 q, k, v; fp32 runs on the tensor
+// cores too, as 3xTF32, in csrc/flash_attention_fwd_tf32.cu. Same function:
+// q (B,S,H,hd), k/v (B,S,K,hd) with H % K == 0, kv head h / (H/K) read in
+// place; fp32 online softmax; masked scores are -1e30 after the 1/sqrt(hd)
+// scale; l is summed from the unrounded fp32 p; out = acc / (l + 1e-30) in
+// bf16. Any S: the ragged edge is masked, not padded. hd is 16, 32 or 64.
 //
 // What bounds it on this card. At the main path's shape (B=8, S=1024,
 // H=12, hd=64, causal) the function reads 37.7 MB of q/k/v and writes 12.6
@@ -13,7 +14,7 @@
 // GFLOP (0.013 ms at the 989 TFLOP/s bf16 peak): bytes and operations are
 // about even, so the tensor cores are what a kernel has to reach.
 //
-// bf16: the tensor-core kernel (fa_fwd_tc). One block per (128-row query
+// The tensor-core kernel (fa_fwd_tc). One block per (128-row query
 // tile, query head, batch): two consumer warpgroups of 64 rows each and one
 // producer warp. The producer issues TMA loads: Q once, and K/V tiles of 64
 // keys into a ring of 2 stages guarded by full/empty mbarriers. The
@@ -54,10 +55,6 @@
 // skips the tiles past its last row. The first visited tile always holds
 // key 0, which every row sees, so no row meets a fully masked tile before
 // its running max is finite.
-//
-// fp32: the CUDA-core kernel (fa_fwd_fp32), one thread per query row, the
-// products as fp32 FMA. Tensor cores take fp32 only as TF32 (2^-11
-// relative), and fp32 callers are held at 1e-5, so fp32 stays there.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,125 +68,6 @@ namespace {
 using namespace sm90;
 
 constexpr float NEG = -1e30f;
-
-// ---------------------------------------------------------------- fp32 ---
-
-constexpr int F_BQ = 64;  // query rows per block, one thread each
-constexpr int F_BK = 64;  // keys per shared-memory tile
-
-template <int HD>
-__global__ void __launch_bounds__(F_BQ)
-fa_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int S, int H, int K,
-            int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;              // [F_BK][HD]
-  float* Vs = Ks + F_BK * HD;    // [F_BK][HD]
-  float* Ps = Vs + F_BK * HD;    // [F_BK][F_BQ], scores then probabilities
-
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * F_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / K);
-  const int qpos = q0 + t;
-  const bool row_ok = qpos < S;
-
-  float qr[HD];
-  float acc[HD];
-  const float* qrow = q + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = row_ok ? qrow[d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = NEG;
-  float l = 0.f;
-
-  const int kv_end = causal ? min(S, q0 + F_BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += F_BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = t; e < F_BK * HD; e += F_BQ) {
-      const int r = e / HD, c = e % HD;
-      const int kpos = kv0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kpos < S) {
-        const int64_t off = ((static_cast<int64_t>(b) * S + kpos) * K + kh) * HD + c;
-        kx = k[off];
-        vx = v[off];
-      }
-      Ks[e] = kx;
-      Vs[e] = vx;
-    }
-    __syncthreads();
-
-    float mt = NEG;
-    for (int j = 0; j < F_BK; ++j) {
-      const float4* k4 = reinterpret_cast<const float4*>(Ks + j * HD);
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 kk = k4[d4];
-        s = fmaf(qr[4 * d4 + 0], kk.x, s);
-        s = fmaf(qr[4 * d4 + 1], kk.y, s);
-        s = fmaf(qr[4 * d4 + 2], kk.z, s);
-        s = fmaf(qr[4 * d4 + 3], kk.w, s);
-      }
-      s *= scale;
-      const int kpos = kv0 + j;
-      if (kpos >= S || (causal && kpos > qpos)) s = NEG;
-      Ps[j * F_BQ + t] = s;
-      mt = fmaxf(mt, s);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float lsum = 0.f;
-    for (int j = 0; j < F_BK; ++j) {
-      const float p = expf(Ps[j * F_BQ + t] - m_new);
-      Ps[j * F_BQ + t] = p;
-      lsum += p;
-    }
-    l = l * corr + lsum;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= corr;
-    for (int j = 0; j < F_BK; ++j) {
-      const float p = Ps[j * F_BQ + t];
-      const float4* v4 = reinterpret_cast<const float4*>(Vs + j * HD);
-#pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 vv = v4[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    float* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * HD;
-    const float den = l + 1e-30f;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) orow[d] = acc[d] / den;
-  }
-}
-
-template <int HD>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int K, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = (2 * F_BK * HD + F_BK * F_BQ) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_fp32<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
-  fa_fwd_fp32<HD><<<grid, F_BQ, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, K, causal, scale);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- bf16 ---
 
 using bf16 = __nv_bfloat16;
 
@@ -209,12 +87,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 // turns they run in step: both in softmax while the tensor cores idle.
 __device__ __forceinline__ void turn_wait(int wg) { bar_sync(1 + wg, CONSUMERS); }
 __device__ __forceinline__ void turn_pass(int wg) { bar_arrive(2 - wg, CONSUMERS); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // N bf16x2 pairs that sum to two fp32 values: part 0 = bf16(x), part i
 // = bf16(x - parts 0..i-1) (each difference is exact in fp32), so three
@@ -609,31 +481,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
 
 }  // namespace
 
-// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (tensor-core kernel).
-// Returns the cudaError_t of
-// the launch, or TENSOR_MAP_ERROR + a CUresult (0 on success); the caller
-// raises on anything else.
+// bf16 q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd), all contiguous and
+// 16-byte aligned; hd 16, 32 or 64 (fp32 is csrc/flash_attention_fwd_tf32.cu).
+// Returns the cudaError_t of the launch, or TENSOR_MAP_ERROR + a CUresult (0
+// on success); the caller raises on anything else.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int H, int K, int hd, int dtype, int causal, float scale, void* stream) {
+                      int H, int K, int hd, int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (hd) {
-      case 16: return launch_fp32<16>(q, k, v, o, B, S, H, K, causal, scale, st);
-      case 32: return launch_fp32<32>(q, k, v, o, B, S, H, K, causal, scale, st);
-      case 64: return launch_fp32<64>(q, k, v, o, B, S, H, K, causal, scale, st);
-      default: return cudaErrorInvalidValue;
-    }
+  switch (hd) {
+    case 16: return launch_tc<16>(q, k, v, o, B, S, H, K, causal, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, B, S, H, K, causal, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, B, S, H, K, causal, scale, st);
+    default: return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    switch (hd) {
-      case 16: return launch_tc<16>(q, k, v, o, B, S, H, K, causal, scale, st);
-      case 32: return launch_tc<32>(q, k, v, o, B, S, H, K, causal, scale, st);
-      case 64: return launch_tc<64>(q, k, v, o, B, S, H, K, causal, scale, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_error_string(int err) {

@@ -7,16 +7,20 @@
 //                   mbar_wait
 //   TMA             tma_load_4d, encode_fn (cuTensorMapEncodeTiled)
 //   wgmma           make_desc, wgmma_fence / wgmma_commit / wgmma_wait_all,
-//                   fence_regs, wgmma_tf32_m64n128k8 (the tf32 product)
+//                   fence_regs; the tf32 products wgmma_tf32_m64n128k8 and
+//                   wgmma_tf32_m64n64k8 (A and B in shared memory) and
+//                   wgmma_tf32_m64n{16,32,64}k8_rs (A in registers)
 //   TF32            tf32_rna (integer operations, no PTX)
+//   exp2            ex2
 //   clusters        cluster_ctarank, cluster_arrive, cluster_wait,
 //                   dsmem_map, ld_dsmem_f32
 //   streaming loads ld_stream_f4, ld_stream_u2
 //
 // The bf16 wgmma forms of the flash-attention kernel stay in its own source.
-// tests/test_torch_kernel_emulation.py compiles csrc/matmul.cu and
-// csrc/rmnp_update.cu on the CPU against a C++ model of the helpers each
-// source uses, so a helper's signature is part of that test's contract.
+// tests/test_torch_kernel_emulation.py compiles csrc/matmul.cu,
+// csrc/rmnp_update.cu and csrc/flash_attention_fwd_tf32.cu on the CPU
+// against a C++ model of the helpers each source uses, so a helper's
+// signature is part of that test's contract.
 #pragma once
 
 #include <cuda.h>
@@ -205,6 +209,71 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T on tf32 operands, both K-major in
+// shared memory; the fragment layout of wgmma_tf32_m64n128k8
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 8] . B[N x 8]^T on tf32 operands, A in registers and
+// B K-major in shared memory. Warp w of the warpgroup holds rows 16 w ..
+// 16 w + 15 of A: a[0] row g, column c; a[1] row g + 8, column c; a[2] row g,
+// column c + 4; a[3] row g + 8, column c + 4 (g = lane / 4, c = lane % 4),
+// each an fp32 bit pattern whose low 13 bits are not read. D as in
+// wgmma_tf32_m64n128k8.
+__device__ __forceinline__ void wgmma_tf32_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------- TF32 ---
 
 // x rounded to tf32 (10 mantissa bits), to nearest with ties away from
@@ -213,6 +282,16 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da
 // conversion unit out of the producer's loop
 __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// ---------------------------------------------------------------- exp2 ---
+
+// 2^x on the special-function unit (ex2.approx, about 2 ulp; subnormal
+// results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ------------------------------------------------------------ clusters ---

@@ -1,11 +1,14 @@
 """Flash attention (forward) on Hopper: the CUDA kernel's binding, its plain
 version, and the differentiable wrapper.
 
-The kernel (``repro_torch/csrc/flash_attention_fwd.cu``) replaces the TPU
-kernel ``repro/kernels/flash_attention.py::_fwd_kernel``; its source says
-what bounds it and how it is laid out. bf16 runs on the tensor cores
-(``wgmma`` fed by TMA), fp32 on the CUDA cores. It is built with ``nvcc``
-at first use and called through ``ctypes`` on PyTorch's current stream.
+Two CUDA kernels replace the TPU kernel
+``repro/kernels/flash_attention.py::_fwd_kernel``, one per type, both on
+the tensor cores with ``wgmma``: bf16 in ``repro_torch/csrc/flash_attention_fwd.cu``
+(TMA-fed, P in three bf16 parts) and fp32 in
+``repro_torch/csrc/flash_attention_fwd_tf32.cu`` (every product as three
+TF32 products); each source says what bounds it and how it is laid out.
+Each is built with ``nvcc`` at first use and called through ``ctypes`` on
+PyTorch's current stream.
 
 The backward recomputes, as the JAX package's ``_fa_bwd`` does: autograd
 over the chunked online-softmax oracle (``kernels/ref.py``), with the
@@ -22,25 +25,29 @@ from repro_torch.kernels.ref import chunked_attention_ref
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-HEAD_DIMS = (16, 32, 64)  # the kernel's instantiations
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)  # the kernels' instantiations
+# each type's library, C entry and error string; both entries take
+# (q, k, v, out, B, S, H, K, hd, causal, scale, stream)
+_LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string"),
+         torch.float32: ("flash_attention_fwd_tf32", "fa_fwd_tf32", "fa_tf32_error_string")}
 
-_FN = None
+_FN = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
+def _kernel(dtype):
+    if dtype not in _FN:
         from repro_torch.kernels.build import load_library
-        lib = load_library("flash_attention_fwd")
-        fn = lib.fa_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        name, entry, error = _LIBS[dtype]
+        lib = load_library(name)
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fa_error_string.argtypes = [ctypes.c_int]
-        lib.fa_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.fa_error_string)
-    return _FN
+        err_str = getattr(lib, error)
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _FN[dtype] = (fn, err_str)
+    return _FN[dtype]
 
 
 def _check(q, k, v):
@@ -54,7 +61,7 @@ def _check(q, k, v):
             raise ValueError("q, k and v must share dtype and device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _LIBS:
         raise TypeError(f"unsupported dtype {q.dtype}")
     B, S, H, hd = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
@@ -64,28 +71,27 @@ def _check(q, k, v):
         raise ValueError(f"query heads {H} not a multiple of kv heads {k.shape[2]}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not built; the kernel takes {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16:
-        # TMA reads each tensor from its base address, which must be 16-byte
-        # aligned; a contiguous view into a larger tensor need not be
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start at a 16-byte aligned address for "
-                                 f"the bf16 kernel's TMA loads; got {t.data_ptr():#x}")
+    # both kernels read rows from each tensor's base address in 16-byte
+    # pieces (TMA for bf16, vector loads for fp32), so the base must be
+    # 16-byte aligned; a contiguous view into a larger tensor need not be
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned address for the "
+                             f"kernel's 16-byte loads; got {t.data_ptr():#x}")
 
 
 def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
     """The CUDA kernel. q (B,S,H,hd); k, v (B,S,K,hd) -> (B,S,H,hd) in q's
-    type: bf16 on the tensor cores, fp32 on the CUDA cores. Raises on
-    anything the kernel does not take."""
+    type, both types on the tensor cores: bf16 with P in three bf16 parts,
+    fp32 as 3xTF32. Raises on anything the kernel does not take."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
-    fn, err_str = _kernel()
+    fn, err_str = _kernel(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-                 k.shape[2], hd, _DTYPES[q.dtype], int(causal), 1.0 / (hd ** 0.5),
-                 stream)
+                 k.shape[2], hd, int(causal), 1.0 / (hd ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")

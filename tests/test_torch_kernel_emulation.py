@@ -1,8 +1,11 @@
-"""The GEMM kernel's CUDA source (``csrc/matmul.cu``) run on the CPU under an
-emulation of the CUDA features it uses.
+"""The port's CUDA sources run on the CPU under an emulation of the CUDA
+features they use: the GEMM kernel (``csrc/matmul.cu``), the RMNP kernel
+(``csrc/rmnp_update.cu``) and the fp32 flash-attention kernel
+(``csrc/flash_attention_fwd_tf32.cu``).
 
-There is no ``nvcc`` and no card on a CPU machine, so the source is compiled
-with the host C++ compiler against two small headers written below:
+There is no ``nvcc`` and no card on a CPU machine, so each source is
+compiled with the host C++ compiler against two small headers written below
+(the RMNP and flash-attention sections further down say what they add):
 
 - ``cuda_runtime.h``: each block runs as ``THREADS`` std::threads that meet
   at a std::barrier for ``__syncthreads``, ``__shared__`` variables are
@@ -84,6 +87,8 @@ inline thread_local uint3 threadIdx, blockIdx;
 inline uint3 gridDim, blockDim;
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -95,6 +100,7 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute attr, int value) {
   if (attr == cudaFuncAttributeNonPortableClusterSizeAllowed) return cudaSuccess;
@@ -843,3 +849,180 @@ def test_rmnp_split(d_in, d_out):
         assert s.one_read
     if (d_in, d_out) == (50432, 768):
         assert s == rm.Split(16, 3152, 16, rm.TALL_THREADS, True)
+
+
+# --------------------------------------------------- flash attention, fp32 ---
+#
+# csrc/flash_attention_fwd_tf32.cu under the GEMM's emulation and model
+# (SM90_MODEL), with the helpers it adds: named barriers (a count and a
+# generation each; bar_sync waits for the generation to turn), the tf32
+# wgmma forms m64n64k8 (A and B from shared memory, read as the GEMM's) and
+# m64n{16,32,64}k8 with A from registers (the warpgroup's threads put their
+# A fragments in a common buffer and meet at a barrier of the warpgroup, so
+# each thread reads the rows it needs from the threads that hold them: row g
+# and g + 8 of warp w, column c and c + 4, from lane 4 (row % 8) + c % 4),
+# ex2 as exp2 in fp32, and __shfl_xor_sync through a buffer and a barrier of
+# the warp.
+
+FLASH_SOURCE = SOURCE.with_name("flash_attention_fwd_tf32.cu")
+
+FLASH_MODEL = r"""
+#include <barrier>
+#include <condition_variable>
+#include <memory>
+#include <vector>
+namespace sm90 {
+struct GroupBarriers {
+  std::vector<std::unique_ptr<std::barrier<>>> warp, warpgroup;
+  GroupBarriers() {
+    for (int i = 0; i < 32; ++i) warp.emplace_back(new std::barrier<>(32));
+    for (int i = 0; i < 8; ++i) warpgroup.emplace_back(new std::barrier<>(128));
+  }
+};
+inline GroupBarriers group_barriers;
+// named barriers 0-15: arrivals so far and completed generations
+inline std::mutex named_lock;
+inline std::condition_variable named_cv;
+inline int named_count[16];
+inline unsigned named_gen[16];
+inline bool named_arrive(int id, int threads) {
+  if (id < 0 || id > 15 || threads % 32) std::abort();
+  if (++named_count[id] < threads) return false;
+  named_count[id] = 0;
+  ++named_gen[id];
+  named_cv.notify_all();
+  return true;
+}
+inline void bar_arrive(int id, int threads) {
+  std::lock_guard<std::mutex> g(named_lock);
+  named_arrive(id, threads);
+}
+inline void bar_sync(int id, int threads) {
+  std::unique_lock<std::mutex> g(named_lock);
+  const unsigned gen = named_gen[id];
+  if (!named_arrive(id, threads)) named_cv.wait(g, [&] { return named_gen[id] != gen; });
+}
+template <int N> inline void fence_regs(uint32_t (&)[N][4]) {}
+inline float ex2(float x) { return std::exp2(x); }
+inline void wgmma_tf32_m64n64k8(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+    double prod[8];
+    for (int k = 0; k < 8; ++k) prod[k] = operand(da, row, k) * operand(db, col, k);
+    d[i] = tc_sum(scale_d ? d[i] : 0.f, prod, 8);
+  }
+}
+// the warpgroups' A fragments, by warpgroup and thread
+inline uint32_t a_frags[8][128][4];
+template <int N>
+inline void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  std::memcpy(a_frags[wg][t], a, 16);
+  group_barriers.warpgroup[wg]->arrive_and_wait();
+  auto a_at = [&](int row, int k) {  // element (row, k) of the 64 x 8 A
+    const int w = row / 16, r = row % 16;
+    uint32_t u = a_frags[wg][32 * w + 4 * (r % 8) + k % 4][2 * (k / 4) + r / 8] & ~0x1FFFu;
+    float f;
+    std::memcpy(&f, &u, 4);
+    return double(f);
+  };
+  for (int i = 0; i < N / 2; ++i) {
+    const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+    double prod[8];
+    for (int k = 0; k < 8; ++k) prod[k] = a_at(row, k) * operand(db, col, k);
+    d[i] = tc_sum(scale_d ? d[i] : 0.f, prod, 8);
+  }
+  group_barriers.warpgroup[wg]->arrive_and_wait();  // the buffer is free again
+}
+inline void wgmma_tf32_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_tf32_rs<16>(d, a, db, s);
+}
+inline void wgmma_tf32_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_tf32_rs<32>(d, a, db, s);
+}
+inline void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_tf32_rs<64>(d, a, db, s);
+}
+}  // namespace sm90
+inline float shfl_buffer[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int t = threadIdx.x;
+  shfl_buffer[t] = v;
+  sm90::group_barriers.warp[t / 32]->arrive_and_wait();
+  const float r = shfl_buffer[(t & ~31) | ((t % 32) ^ lane_mask)];
+  sm90::group_barriers.warp[t / 32]->arrive_and_wait();
+  return r;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def flash_tf32(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    out = tmp_path_factory.mktemp("flash_emulation")
+    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    (out / "sm90.cuh").write_text(SM90_MODEL + FLASH_MODEL)
+    src = re.sub(r"(\w+<\w+>)<<<(\w+), (\w+), [^>]*>>>\((\w+)\)",
+                 r"emulate_launch(\1, \2, \3, \4)", FLASH_SOURCE.read_text())
+    assert src.count("emulate_launch(") == 1, "the launch site of flash_attention_fwd_tf32.cu changed"
+    (out / "flash.cpp").write_text(src)
+    lib = out / "libflash_emulated.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-Wno-unknown-pragmas",
+                    "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
+                    str(out / "flash.cpp")], check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).fa_fwd_tf32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash(fn, q, k, v, causal):
+    """The kernel's C entry on contiguous numpy fp32 (B, S, heads, hd)."""
+    B, S, H, hd = q.shape
+    out = np.full_like(q, np.nan)
+    err = fn(q.ctypes.data, k.ctypes.data, v.ctypes.data, out.ctypes.data, B, S, H, k.shape[2],
+             hd, int(causal), 1.0 / hd ** 0.5, None)
+    assert err == 0
+    return out
+
+
+def _flash_inputs(B, S, H, K, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, h, hd)).astype(np.float32) for h in (H, K, K)]
+
+
+# (B, S, H, K, hd, causal): S of 1, one short of and one past the 64-key
+# tile, and past the 128-row query tile; hd 16, 32 and 64; G = 1 and 4;
+# causal and not
+FLASH_CASES = [(1, 1, 4, 1, 64, True), (2, 1, 2, 2, 16, False), (2, 63, 2, 2, 64, False),
+               (1, 63, 4, 1, 32, True), (1, 65, 4, 1, 32, False), (1, 65, 2, 2, 16, True),
+               (1, 129, 2, 2, 64, True), (1, 129, 4, 1, 16, False), (1, 129, 4, 1, 64, False)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}".format(
+    *c[:5], "causal" if c[5] else "noncausal"))
+def test_emulated_flash_tf32_matches_plain(flash_tf32, case):
+    """Against the plain version (torch, CPU) at the fp32 limit of phase B,
+    1e-5 * |want| + 1e-6 * max|want| per element."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, K, hd, causal = case
+    q, k, v = _flash_inputs(B, S, H, K, hd, seed=S * H + hd)
+    got = _flash(flash_tf32, q, k, v, causal)
+    want = fa.flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    assert np.isfinite(got).all()
+    lim = 1e-6 * np.abs(want).max() + 1e-5 * np.abs(want)
+    print(f"emulated {case}: {float(np.max(np.abs(got - want) / lim)):.3f} of the limit")
+    assert np.all(np.abs(got - want) <= lim)
+
+
+def test_emulated_flash_tf32_two_launches_give_identical_bits(flash_tf32):
+    q, k, v = _flash_inputs(1, 129, 4, 1, 64, seed=3)
+    first = _flash(flash_tf32, q, k, v, True)
+    assert np.array_equal(first, _flash(flash_tf32, q, k, v, True))
