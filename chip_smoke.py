@@ -79,7 +79,21 @@ Phases:
          and restore_latest falls back to the step before, bit for bit; R5
          reports (no gate) the save() stall async against blocking, the
          step time with a write in flight and with the guard, each the
-         median of 5 interleaved, and the bytes of one checkpoint.
+         median of 5 interleaved, and the bytes of one checkpoint;
+  Z      ZeRO-2 through a NCCL group of one rank at full width (gpt2-small,
+         B=8, S=1024, bf16, seed 0): Z1 five runs of 3 steps of
+         train(zero2=True) (exact and int8 wire, serialized and pipelined,
+         accum 2), 4 apply launches a step and no plain version run; the
+         exact wire equals the world-1 replicated dp step bit for bit and
+         pipelined equals serialized on each wire; the step times of each
+         form beside C1's single-device step (5 rounds in turns, medians),
+         peak memory, the distance from C1; Z2 each rank's slice of
+         gpt2-small's four and llama-130m's five buckets padded 4 and 8
+         ways through the RMNP apply kernel, and Newton-Schulz on slices of
+         the 768x768 bucket, equal that slice of the whole stack's result
+         bit for bit, pads zero; Z3 the int8 codes and scales of one
+         bucket's gradient and one world-1 reduce-scatter on the card equal
+         the CPU's, and a Muon ZeRO-2 step equals its ZeRO-0 step.
 
 Every phase prints one JSON line; then a line with the card's name and power
 limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``. Any
@@ -89,6 +103,7 @@ Details go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -144,6 +159,7 @@ E_ERR_FACTOR = 8.0
 # apart by at most ~2e-4.
 NS_REL_TOL = 5e-4
 RESULTS = {}
+C1_FINAL = {}  # phase C1's final params and momentum (host copies), for phase Z
 
 
 def emit(name, record):
@@ -803,6 +819,7 @@ def phase_train():
     main_launches = {}
     # C1: the main path, single-pass engine
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params, state, hist = train("gpt2-small", reduced=False, optimizer="rmnp",
                                 fused=True, fused_apply=True, use_kernel=True,
@@ -817,6 +834,9 @@ def phase_train():
           f"apply launches per step {[h['launches'] for h in hist]}")
     check(counts["rmnp_apply"] == 12, f"apply launches {counts}")
     main_launches["rmnp_apply"] = counts["rmnp_apply"]
+    C1_FINAL.update(final=host_copy((params, state.buckets)),
+                    step_s=step_seconds(hist),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     n_matrix = sum(b.numel() for b in state.buckets.values())
     buckets = {k: list(b.shape) for k, b in state.buckets.items()}
     check(sorted(buckets) == ["3072x768", "50432x768", "768x6144", "768x768"],
@@ -1101,6 +1121,239 @@ def phase_muon():
     del params, grads
     torch.cuda.empty_cache()
     return main_launches
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count calls of the kernels' plain versions (the CPU path) while the
+    block runs; on the card none may run."""
+    from repro_torch.kernels import ops, rmnp_update
+    calls = {"n": 0}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (rmnp_update, "rmnp_rownorm_plain"), (rmnp_update, "rmnp_rownorm_apply_plain"),
+        (ops, "matmul_ref"), (ops, "ns_step_ref"))]
+    for mod, name, fn in saved:
+        def counted(*a, _fn=fn, **k):
+            calls["n"] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def max_abs_diff(a, b):
+    """Largest |a - b| over two host copies of the same tree (as fp32)."""
+    return max(float((x.float() - y.float()).abs().max()) for (_, x), (_, y) in zip(a, b, strict=True))
+
+
+def phase_zero():
+    """Z: ZeRO-2 at full width through a NCCL group of one rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, cosine_with_warmup, make_optimizer
+    from repro_torch.core.muon import newton_schulz
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.comm import Comm, init_comm
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.launch.train import batch_to_device, train
+    from repro_torch.models import init_params
+    from repro_torch.train import pipeline
+    from repro_torch.train.dp_step import init_dp_state, make_dp_train_step
+
+    comm = init_comm("cuda")
+    check(dist.get_backend() == "nccl" and comm.world == 1, f"group {comm}, {dist.get_backend()}")
+    cfg = get_config("gpt2-small")
+    z_launches = {}
+
+    # Z1: five runs of 3 steps of train(zero2=True), each from seed 0
+    runs = {}
+    for name, kw in (("exact_serial", dict(compress=False, overlap=False)),
+                     ("exact_overlap", dict(compress=False, overlap=True)),
+                     ("int8_serial", dict(compress=True, overlap=False)),
+                     ("int8_overlap", dict(compress=True, overlap=True)),
+                     ("exact_accum2", dict(compress=False, accum=2))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with plain_calls() as plain:
+            params, state, hist = train("gpt2-small", reduced=False, optimizer="rmnp",
+                                        fused=True, fused_apply=True, use_kernel=True,
+                                        zero2=True, batch=8, seq=1024, steps=3,
+                                        log_every=1, **kw)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        losses = [h["loss"] for h in hist]
+        check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+              f"Z1 {name}: losses {losses}")
+        check([h["launches"]["rmnp_apply"] for h in hist] == [4, 4, 4],
+              f"Z1 {name}: apply launches per step {[h['launches'] for h in hist]}")
+        check(plain["n"] == 0, f"Z1 {name}: {plain['n']} plain-version calls")
+        runs[name] = {"final": host_copy((params, state.buckets)), "losses": losses,
+                      "step_s": step_seconds(hist), "launches": counts,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "plain_calls": plain["n"]}
+        z_launches.setdefault("rmnp_apply", counts["rmnp_apply"])
+        del params, state
+    # the world-1 ZeRO-0 dp step from the same init, schedules and batches
+    torch.cuda.empty_cache()
+    opt = make_optimizer("rmnp", dict(
+        lr_matrix=cosine_with_warmup(2e-3, 3), lr_adamw=cosine_with_warmup(1e-3, 3),
+        fused=True, fused_apply=True, shard_axis=comm, shard_size=1))
+    params = init_params(cfg, seed=0, device=comm.device)
+    st, comp = init_dp_state(opt, params, comm)
+    fn = make_dp_train_step(cfg, opt, comm, compress=False, remat="full")
+    stream = make_stream(cfg, 1024, 8, seed=0)
+    for t in range(3):
+        params, st, comp, _ = fn(params, st, comp, batch_to_device(next(stream), comm.device), t)
+    zero0 = host_copy((params, st.buckets))
+    del params, st, comp
+    # step times at a finer grain than train()'s 10 ms log: the single-device
+    # step of C1 and each ZeRO-2 form on one batch, 5 rounds taken in turns,
+    # each step ended by a synchronize; medians
+    from repro_torch.train.step import make_train_step
+    params = init_params(cfg, seed=0, device=comm.device)
+    batch = batch_to_device(make_stream(cfg, 1024, 8, seed=0).sample(0), comm.device)
+    forms = {}
+    for name, kw in (("exact_serial", dict(compress=False, overlap=False)),
+                     ("exact_overlap", dict(compress=False, overlap=True)),
+                     ("int8_serial", dict(compress=True, overlap=False)),
+                     ("int8_overlap", dict(compress=True, overlap=True)),
+                     ("exact_accum2", dict(compress=False, accum=2))):
+        opt_z = make_optimizer("rmnp", dict(lr_matrix=2e-3, lr_adamw=1e-3, fused_apply=True,
+                                            shard_axis=comm, shard_size=1))
+        st_z, comp_z = init_dp_state(opt_z, params, comm, shard_state=True)
+        forms[name] = [make_dp_train_step(cfg, opt_z, comm, zero2=True, remat="full", **kw),
+                       [params, st_z, comp_z]]
+    opt_c1 = make_optimizer("rmnp", dict(lr_matrix=2e-3, lr_adamw=1e-3, fused_apply=True))
+    c1_step = make_train_step(cfg, opt_c1, remat="full")
+    forms["single_device_C1"] = [lambda p, o, c, b, t: c1_step(p, o, b, t) + (None,),
+                                 [params, opt_c1.init(params), None]]
+    samples = {name: [] for name in forms}
+    for rnd in range(6):  # round 0 warms up
+        for name, (fn_z, st_list) in forms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn_z(*st_list, batch, rnd + 1)
+            torch.cuda.synchronize()
+            if rnd:
+                samples[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+            st_list[:] = out[:3] if name != "single_device_C1" else [out[0], out[1], None]
+    step_ms = {name: statistics.median(v) for name, v in samples.items()}
+    del forms, params, batch, opt_c1, c1_step
+    torch.cuda.empty_cache()
+    bad = {"exact_serial vs zero0": differing(runs["exact_serial"]["final"], zero0),
+           "exact_overlap vs exact_serial": differing(runs["exact_overlap"]["final"],
+                                                      runs["exact_serial"]["final"]),
+           "int8_overlap vs int8_serial": differing(runs["int8_overlap"]["final"],
+                                                    runs["int8_serial"]["final"])}
+    c1 = C1_FINAL["final"]
+    emit("Z1_zero2", {
+        "runs": {k: {kk: vv for kk, vv in v.items() if kk != "final"} for k, v in runs.items()},
+        "bitwise_failures": bad, "step_ms_median": step_ms, "step_ms_samples": samples,
+        "c1_step_s": C1_FINAL["step_s"], "c1_peak_mem_gb": C1_FINAL["peak_mem_gb"],
+        "exact_vs_c1_max_abs": max_abs_diff(runs["exact_serial"]["final"], c1),
+        "exact_vs_c1_bitwise": not differing(runs["exact_serial"]["final"], c1),
+        "accum2_vs_exact_max_abs": max_abs_diff(runs["exact_accum2"]["final"],
+                                                runs["exact_serial"]["final"]),
+        "int8_vs_exact_max_abs": max_abs_diff(runs["int8_serial"]["final"],
+                                              runs["exact_serial"]["final"])})
+    for what, paths in bad.items():
+        check(not paths, f"Z1 {what}: differs at {paths[:4]}")
+    del runs
+
+    # Z2: each rank's slice of a padded bucket through the kernel equals that
+    # slice of the whole stack's result, at shard sizes 4 and 8
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shards = []
+    for model, buckets in (("gpt2-small", BUCKETS), ("llama-130m", LLAMA_BUCKETS)):
+        for n in (4, 8):
+            for (L, d_in, d_out) in buckets:
+                padded = -(-L // n) * n
+                rows = padded // n
+                g = torch.randn((padded, d_in, d_out), generator=gen, device="cuda")
+                v = torch.randn((padded, d_in, d_out), generator=gen, device="cuda")
+                w = torch.randn((padded, d_in, d_out), generator=gen, device="cuda").bfloat16()
+                for t in (g, v, w):
+                    t[L:] = 0
+                scale = torch.tensor(2e-3)
+                v_all, w_all = ops.rmnp_bucket_update_apply(g, v, w, scale, 0.1, beta=0.95)
+                same = True
+                for r in range(n):
+                    part = slice(r * rows, (r + 1) * rows)
+                    v_r, w_r = ops.rmnp_bucket_update_apply(
+                        g[part].clone(), v[part].clone(), w[part].clone(), scale, 0.1, beta=0.95)
+                    same = same and torch.equal(v_r, v_all[part]) and torch.equal(
+                        w_r.view(torch.int16), w_all[part].view(torch.int16))
+                pads_zero = not (v_all[L:].any() or w_all[L:].any())
+                shards.append({"model": model, "n": n, "bucket": [padded, d_in, d_out],
+                               "slices_bitwise": bool(same), "pads_zero": bool(pads_zero)})
+                del g, v, w, v_all, w_all
+    x = torch.randn((48, 768, 768), generator=gen, device="cuda")
+    ns_all = newton_schulz(x)
+    ns_same = {n: all(torch.equal(newton_schulz(x[r * 48 // n:(r + 1) * 48 // n].clone()),
+                                  ns_all[r * 48 // n:(r + 1) * 48 // n]) for r in range(n))
+               for n in (4, 8)}
+    del x, ns_all
+    torch.cuda.empty_cache()
+    emit("Z2_shard_slices", {"rmnp_apply": shards, "newton_schulz_768x768": ns_same})
+    check(all(s["slices_bitwise"] and s["pads_zero"] for s in shards),
+          f"Z2: {[s for s in shards if not (s['slices_bitwise'] and s['pads_zero'])]}")
+    check(all(ns_same.values()), f"Z2 Newton-Schulz slices: {ns_same}")
+
+    # Z3: the int8 quantizer and one world-1 reduce-scatter on the card
+    # against the CPU, on the 768x768 bucket's gradient; Muon ZeRO-2 against
+    # its ZeRO-0 step
+    params = init_params(cfg, seed=0, device=comm.device)
+    batch = batch_to_device(make_stream(cfg, 1024, 8, seed=0).sample(0), comm.device)
+    rmnp_opt = make_optimizer("rmnp", dict(lr_matrix=2e-3, fused_apply=True))
+    grads, _ = pipeline.grads_of(cfg, params, batch, "full")
+    plan = rmnp_opt.bucket_plan(params)
+    with torch.no_grad():
+        chunks = bucketing.gather_chunks(plan, grads, 1, dtype=torch.float32)["768x768"]
+    del grads
+    q, s = compression.quantize_blockwise(chunks.reshape(-1))
+    q_cpu, s_cpu = compression.quantize_blockwise(chunks.reshape(-1).cpu())
+    quant_same = torch.equal(q.cpu(), q_cpu) and torch.equal(
+        s.cpu().view(torch.int32), s_cpu.view(torch.int32))
+    cpu_comm = Comm(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"))
+    mean, resid = compression.compressed_reduce_scatter_leaf(chunks, comm)
+    mean_cpu, resid_cpu = compression.compressed_reduce_scatter_leaf(chunks.cpu(), cpu_comm)
+    rs_same = torch.equal(mean.cpu(), mean_cpu) and torch.equal(resid.cpu(), resid_cpu)
+    del chunks, mean, resid, mean_cpu, resid_cpu, q, s
+    muon = make_optimizer("muon", dict(lr_matrix=2e-3, lr_adamw=1e-3, fused_apply=True,
+                                       shard_axis=comm, shard_size=1))
+    finals = {}
+    for mode in ("zero2", "zero0"):
+        st, comp = init_dp_state(muon, params, comm, shard_state=mode == "zero2")
+        fn = make_dp_train_step(cfg, muon, comm, compress=False, remat="full",
+                                zero2=mode == "zero2")
+        reset_launches()
+        p, st, comp, m = fn(params, st, comp, batch, 1)
+        torch.cuda.synchronize()
+        if mode == "zero2":
+            muon_launches = {k: LAUNCHES[k] for k in ("matmul3", "ns_poly3", "matmul", "ns_poly")}
+        finals[mode] = host_copy((p, st.buckets))
+        del p, st, comp
+    muon_bad = differing(finals["zero2"], finals["zero0"])
+    emit("Z3_int8_and_muon", {"quantize_card_equals_cpu": quant_same,
+                              "reduce_scatter_card_equals_cpu": rs_same,
+                              "muon_zero2_vs_zero0_differing": muon_bad,
+                              "muon_zero2_launches_per_step": muon_launches})
+    check(quant_same, "Z3: int8 codes or scales differ between the card and the CPU")
+    check(rs_same, "Z3: the world-1 reduce-scatter differs between the card and the CPU")
+    check(not muon_bad, f"Z3: Muon ZeRO-2 differs from ZeRO-0 at {muon_bad[:4]}")
+    check(muon_launches["matmul3"] == 40 and muon_launches["ns_poly3"] == 20,
+          f"Z3 Muon launches {muon_launches}")
+    z_launches.update({k: muon_launches[k] for k in ("matmul3", "ns_poly3")})
+    del params, batch, finals
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return z_launches
 
 
 def phase_small():
@@ -1449,6 +1702,7 @@ def main():
     launches.update(phase_muon())
     phase_small()
     llama_launches = phase_resilience()
+    zero_launches = phase_zero()
 
     smi = card_name()
     print(smi, flush=True)
@@ -1457,7 +1711,8 @@ def main():
         {"name": "rmnp_apply", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:129",
          "launches": launches["rmnp_apply"], **rmnp["rmnp_apply"], "bound_by": "bytes",
-         "library_ms": None, "launches_llama_130m_R1": llama_launches["rmnp_apply"]},
+         "library_ms": None, "launches_llama_130m_R1": llama_launches["rmnp_apply"],
+         "launches_Z1": zero_launches["rmnp_apply"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
@@ -1494,6 +1749,8 @@ def main():
     for name, where in replaces.items():
         kernels.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/matmul.cu",
                         "replaces": where, "launches": launches[name], **ns[name]})
+        if name in zero_launches:
+            kernels[-1]["launches_Z3"] = zero_launches[name]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

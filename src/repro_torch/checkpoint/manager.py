@@ -5,18 +5,29 @@ package restores the other's checkpoints.
 
 Layout (one directory per step):
     <dir>/step_000000100/
-        shard_00000.npz             # the pieces of every leaf
+        shard_00000.npz             # rank 0's pieces of every leaf
         shard_00000.SHARD_COMMITTED # written (and fsync'd) after its npz
+        shard_00001.npz             # rank 1's pieces ...
+        shard_00001.SHARD_COMMITTED
         manifest.json               # format 2: paths, shapes, dtypes,
                                     #   per-shard index + CRC32, data step,
                                     #   state layout
         COMMITTED                   # written only when every shard landed
         GOOD                        # optional: promoted to last-known-good
 
-The port trains on one device, so it writes one shard (rank 0) holding every
-leaf whole; it reads the per-rank shards of a JAX checkpoint as well. Leaves
-are keyed by their tree path (``repro_torch.core.types.tree_paths``), which
-equals the JAX package's, and stored as ``leaf_<i>`` in tree order.
+Each rank of a data-parallel run (``comm``) has its own manager on the same
+directory and writes ``shard_<rank>.npz``: its :class:`Piece` leaves (its
+rows of the ZeRO-sharded momentum and slot stripes, with their ``index``
+along ``L``; its error-feedback residual as row ``rank`` of the JAX
+package's ``(N, *shape)`` leaf) and, on rank 0 only, the replicated leaves.
+Its ``SHARD_COMMITTED`` marker holds the JSON of its pieces (index, shape,
+CRC32). Rank 0 writes the manifest and ``COMMITTED`` once every rank's
+marker has landed (a barrier on the file system, so the writer threads
+never touch the process group), then renames the step into place. This is
+the JAX package's format 2 with ``n_shards = N``. Leaves are keyed by their
+tree path (``repro_torch.core.types.tree_paths``), which equals the JAX
+package's, and stored as ``leaf_<i>`` in tree order; a restore reads every
+rank's file and hands each :class:`Piece` of its template back its window.
 
 bf16 on disk: JAX writes an ``ml_dtypes`` bfloat16 array as a 2-byte
 ``'<V2'`` array with ``"dtype": "bfloat16"`` in the manifest. The port
@@ -25,13 +36,17 @@ header, so each ``leaf_<i>.npy`` member holds the bytes JAX writes, and it
 reads ``'<V2'`` back through the same view, never through float32.
 
 Commit protocol (two-phase):
-  1. write + fsync ``shard_00000.npz``, then ``shard_00000.SHARD_COMMITTED``;
-  2. write + fsync ``manifest.json`` (with a CRC32 per piece), then
-     ``COMMITTED``;
-  3. rename the ``.tmp_step_*`` directory into place (``os.replace``).
-A crash before (3) leaves only a ``.tmp_step_*`` directory, which a new
-manager on the same directory removes; a ``COMMITTED`` step missing a
-``SHARD_COMMITTED`` marker is corruption and never restored.
+  1. per rank: write + fsync ``shard_r.npz``, then ``shard_r.SHARD_COMMITTED``;
+  2. rank 0, once every marker exists: write + fsync ``manifest.json``
+     (with a CRC32 per piece), then ``COMMITTED``;
+  3. rank 0: rename the ``.tmp_step_*`` directory into place (``os.replace``).
+With more than one rank the n-th write of every rank goes to
+``.tmp_step_<step>.<n>``, so two saves of one step never share a directory; a watchdog's emergency save commits
+only when every rank's watchdog has written its shard. A crash before (3)
+leaves only a ``.tmp_step_*`` directory, which a new manager on the same
+directory removes (rank 0's, before the others pass a barrier); a
+``COMMITTED`` step missing a ``SHARD_COMMITTED`` marker is corruption and
+never restored.
 
 Integrity: bit-rot, a truncated or missing shard and a torn manifest each
 raise :class:`CheckpointCorruptionError` naming the checkpoint and the leaf
@@ -52,8 +67,8 @@ A failed async write is raised by the next ``save()``, ``wait()`` or
 it every step) and ``emergency_save()`` persists the last snapshot from the
 host buffer, with no device access.
 
-Retention keeps the ``keep`` newest steps, the newest last-known-good step
-and any step that is being restored.
+Retention (rank 0's) keeps the ``keep`` newest steps, the newest
+last-known-good step and any step that is being restored.
 """
 from __future__ import annotations
 
@@ -88,6 +103,7 @@ _DTYPES = {
 }
 _NAMES = {tdt: name for name, (tdt, _) in _DTYPES.items()}
 _BF16_DESCR = "<V2"  # what numpy writes for ml_dtypes.bfloat16
+_COMMIT_TIMEOUT_S = 600.0  # rank 0's wait for the other ranks' shards
 
 
 class CheckpointCorruptionError(RuntimeError):
@@ -146,7 +162,8 @@ def savez(path: Path, arrays: Dict[str, Tuple[np.ndarray, Optional[str]]]) -> No
                 _write_npy(f, arr, descr)
 
 
-def _to_tensor(arr: np.ndarray, name: str, device) -> torch.Tensor:
+def to_tensor(arr: np.ndarray, name: str, device) -> torch.Tensor:
+    """Stored bits of dtype ``name`` as a tensor on ``device``."""
     if name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
@@ -154,12 +171,68 @@ def _to_tensor(arr: np.ndarray, name: str, device) -> torch.Tensor:
     return t.to(device) if torch.device(device).type != "cpu" else t
 
 
+class Piece:
+    """One rank's part of a leaf: ``tensor`` is the window ``index``
+    (``[start, stop]`` per dimension) of a global leaf of ``shape``; a
+    window one long on a leading dimension the tensor lacks is squeezed
+    (a rank's row of a stacked residual). As a save leaf it is written by
+    this rank; as a restore template it gets its window back."""
+
+    def __init__(self, tensor: torch.Tensor, shape, index):
+        self.tensor = tensor
+        self.shape = tuple(int(d) for d in shape)
+        self.index = [[int(a), int(b)] for a, b in index]
+
+    @property
+    def dtype(self):
+        return self.tensor.dtype
+
+    @classmethod
+    def rows(cls, tensor: torch.Tensor, rank: int, world: int) -> "Piece":
+        """Rows ``[rank * l, (rank + 1) * l)`` of a leaf of ``world * l``
+        rows (a ZeRO shard of a stacked buffer)."""
+        n = tensor.shape[0]
+        shape = (world * n,) + tuple(tensor.shape[1:])
+        return cls(tensor, shape, [[rank * n, (rank + 1) * n]]
+                   + [[0, d] for d in tensor.shape[1:]])
+
+    @classmethod
+    def row(cls, tensor: torch.Tensor, rank: int, world: int) -> "Piece":
+        """Row ``rank`` of a ``(world, *tensor.shape)`` leaf."""
+        return cls(tensor, (world,) + tuple(tensor.shape),
+                   [[rank, rank + 1]] + [[0, d] for d in tensor.shape])
+
+
+def _global_shape(leaf) -> Tuple[int, ...]:
+    return leaf.shape if isinstance(leaf, Piece) else tuple(leaf.shape)
+
+
+def leaf_from(entry: Tuple[np.ndarray, str], like) -> torch.Tensor:
+    """A restored leaf for its template: the whole array for a tensor, the
+    window for a :class:`Piece`, on the template's device."""
+    arr, name = entry
+    if isinstance(like, Piece):
+        arr = arr[tuple(slice(a, b) for a, b in like.index)]
+        return to_tensor(np.ascontiguousarray(arr), name,
+                          like.tensor.device).reshape(like.tensor.shape)
+    return to_tensor(arr, name, like.device).reshape(like.shape)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 comm=None):
+        """``comm`` (a ``repro_torch.distributed.comm.Comm``) makes this the
+        manager of one rank of a data-parallel run; rank 0 commits once every
+        rank's shard has landed, or fails the write after
+        ``_COMMIT_TIMEOUT_S``."""
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_save = async_save
+        self.rank = comm.rank if comm is not None else 0
+        self.world = comm.world if comm is not None else 1
+        # writes started so far: every rank numbers its saves alike
+        self._writes = 0
         # writer handshake: _cv guards everything below; _inflight is True
         # from the moment a job is submitted (or a blocking write starts)
         # until its _write returns; backpressure keeps it to one at a time
@@ -183,7 +256,10 @@ class CheckpointManager:
         self._cache_lock = threading.Lock()
         self._scan_cache: Optional[Tuple[int, List[str]]] = None
         self._manifest_cache: Dict[str, Tuple[int, int, dict]] = {}
-        self._sweep_torn_writes()
+        if self.rank == 0:
+            self._sweep_torn_writes()
+        if comm is not None and self.world > 1:
+            comm.barrier()  # no rank writes before the sweep is done
 
     def _step_dir(self, step: int) -> Path:
         return self.dir / f"step_{step:09d}"
@@ -223,28 +299,39 @@ class CheckpointManager:
         slot["keep"] = None
 
     def _fill(self, slot_idx: int, state: Any) -> None:
-        """Copy ``state`` into buffer ``slot_idx``, reusing its host tensors
-        when the structure matches. CUDA leaves go on a side stream into
-        pinned memory; the call returns once the copies are enqueued."""
-        flat = tree_paths(state)
-        sig = tuple((path, _dtype_name(t.dtype), tuple(t.shape), str(t.device))
-                    for path, t in flat)
+        """Copy this rank's part of ``state`` into buffer ``slot_idx``,
+        reusing its host tensors when the structure matches: its
+        :class:`Piece` leaves, and on rank 0 the whole of every other leaf.
+        CUDA leaves go on a side stream into pinned memory; the call returns
+        once the copies are enqueued."""
+        flat = []
+        for path, leaf in tree_paths(state):
+            if isinstance(leaf, Piece):
+                flat.append((path, leaf.tensor, leaf.shape, leaf.index))
+            else:
+                t = leaf
+                index = [[0, int(d)] for d in t.shape] if self.rank == 0 else None
+                flat.append((path, t, tuple(t.shape), index))
+        sig = tuple((path, _dtype_name(t.dtype), shape, str(index), str(t.device))
+                    for path, t, shape, index in flat)
         slot = self._slots[slot_idx]
         if slot is not None:
             self._copied(slot)  # an earlier copy into it must land first
         if slot is None or slot["sig"] != sig:
             slot = {"sig": sig, "event": None, "keep": None,
-                    "leaves": [{"path": path, "shape": [int(d) for d in t.shape],
-                                "dtype": _dtype_name(t.dtype),
-                                "buf": torch.empty(t.shape, dtype=t.dtype,
-                                                   pin_memory=t.is_cuda)}
-                               for path, t in flat]}
+                    "leaves": [{"path": path, "shape": [int(d) for d in shape],
+                                "dtype": _dtype_name(t.dtype), "index": index,
+                                "buf": (torch.empty(t.shape, dtype=t.dtype,
+                                                    pin_memory=t.is_cuda)
+                                        if index is not None else None)}
+                               for path, t, shape, index in flat]}
             self._slots[slot_idx] = slot
-        on_card = [(leaf["buf"], t) for leaf, (_, t) in zip(slot["leaves"], flat, strict=True)
-                   if t.is_cuda]
-        for leaf, (_, t) in zip(slot["leaves"], flat, strict=True):
+        mine = [(leaf["buf"], t) for leaf, (_, t, _, _) in zip(slot["leaves"], flat, strict=True)
+                if leaf["buf"] is not None]
+        for buf, t in mine:
             if not t.is_cuda:
-                leaf["buf"].copy_(t)
+                buf.copy_(t)
+        on_card = [(buf, t) for buf, t in mine if t.is_cuda]
         if on_card:
             device = on_card[0][1].device
             stream = self._stream(device)
@@ -262,6 +349,12 @@ class CheckpointManager:
         return {"step": int(step),
                 "data_step": int(data_step if data_step is not None else step),
                 "time": time.time(), "layout": layout, "slot": slot_idx}
+
+    def _numbered(self, job: dict) -> dict:
+        """Called with ``_cv`` held: ``job`` with the next write number."""
+        job = dict(job, seq=self._writes)
+        self._writes += 1
+        return job
 
     def _raise_failed_write(self) -> None:
         """Called with ``_cv`` held: re-raise a failed async write once."""
@@ -286,7 +379,7 @@ class CheckpointManager:
             self._raise_failed_write()
             slot = self._pick_slot()
             self._fill(slot, state)
-            job = self._make_job(step, slot, data_step, layout)
+            job = self._numbered(self._make_job(step, slot, data_step, layout))
             self._last_snapshot = job
             self._inflight = True
             self._busy_slot = slot
@@ -331,6 +424,7 @@ class CheckpointManager:
             latest = self.latest_step()
             if latest is not None and job["step"] <= latest:
                 return None
+            job = self._numbered(job)
             self._inflight = True
             self._busy_slot = job["slot"]
         try:
@@ -381,28 +475,44 @@ class CheckpointManager:
         slot = self._slots[job["slot"]]
         self._copied(slot)
         step = job["step"]
-        tmp = self.dir / f".tmp_step_{step:09d}"
-        if tmp.exists():
+        # one rank: the JAX package's name; more: the n-th write of each
+        # rank shares .tmp_step_<step>.<n>, so two saves of a step never mix
+        tmp = self.dir / (f".tmp_step_{step:09d}"
+                          + (f".{job['seq']}" if self.world > 1 else ""))
+        if self.world == 1 and tmp.exists():
             shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        arrays, leaves_manifest = {}, []
+        tmp.mkdir(parents=True, exist_ok=True)
+        # phase 1: this rank's shard file and its marker, which lists the
+        # pieces (leaf, window, CRC32) for rank 0's manifest
+        arrays, pieces = {}, []
         for i, leaf in enumerate(slot["leaves"]):
+            if leaf["buf"] is None:
+                continue
             arr = _host_bits(leaf["buf"])
             arrays[f"leaf_{i}"] = (arr, _BF16_DESCR if leaf["dtype"] == "bfloat16" else None)
-            leaves_manifest.append({
-                "path": leaf["path"], "shape": leaf["shape"], "dtype": leaf["dtype"],
-                "shards": [{"rank": 0, "index": [[0, d] for d in leaf["shape"]],
-                            "shape": list(leaf["shape"]), "crc32": _crc(arr)}]})
-        # phase 1: the shard file and its SHARD_COMMITTED marker
-        spath = tmp / "shard_00000.npz"
+            pieces.append({"leaf": i, "index": leaf["index"],
+                           "shape": [int(d) for d in arr.shape], "crc32": _crc(arr)})
+        spath = tmp / f"shard_{self.rank:05d}.npz"
         savez(spath, arrays)
         _fsync(spath)
-        marker = tmp / "shard_00000.SHARD_COMMITTED"
-        marker.write_text("ok")
+        marker = tmp / f"shard_{self.rank:05d}.SHARD_COMMITTED"
+        marker.write_text(json.dumps(pieces))
         _fsync(marker)
-        # phase 2: manifest (with per-piece CRCs), then the global marker
+        if self.rank != 0:
+            return
+        # phase 2 (rank 0): every rank's marker, then the manifest (with
+        # per-piece CRCs) and the global marker
+        by_leaf: List[List[dict]] = [[] for _ in slot["leaves"]]
+        for rank, listed in enumerate(self._await_markers(tmp, step)):
+            for pc in listed:
+                by_leaf[pc["leaf"]].append({"rank": rank, "index": pc["index"],
+                                            "shape": pc["shape"], "crc32": pc["crc32"]})
+        leaves_manifest = [{"path": leaf["path"], "shape": leaf["shape"],
+                            "dtype": leaf["dtype"], "shards": by_leaf[i]}
+                           for i, leaf in enumerate(slot["leaves"])]
         manifest = {"format": 2, "step": step, "data_step": job["data_step"],
-                    "time": job["time"], "n_shards": 1, "leaves": leaves_manifest}
+                    "time": job["time"], "n_shards": self.world,
+                    "leaves": leaves_manifest}
         if job["layout"] is not None:
             manifest["layout"] = job["layout"]
         mpath = tmp / "manifest.json"
@@ -417,6 +527,25 @@ class CheckpointManager:
         os.replace(tmp, final)
         self._invalidate()
         self._prune()
+
+    def _await_markers(self, tmp: Path, step: int) -> List[list]:
+        """Rank 0's barrier: wait for every rank's ``SHARD_COMMITTED`` and
+        return each one's list of pieces, in rank order."""
+        deadline = time.time() + _COMMIT_TIMEOUT_S
+        out = []
+        for r in range(self.world):
+            marker = tmp / f"shard_{r:05d}.SHARD_COMMITTED"
+            while True:
+                try:
+                    out.append(json.loads(marker.read_text()))
+                    break
+                except (OSError, ValueError):  # not there, or still being written
+                    if time.time() > deadline:
+                        raise RuntimeError(
+                            f"checkpoint step {step}: rank {r} did not commit its "
+                            f"shard within {_COMMIT_TIMEOUT_S} s") from None
+                    time.sleep(0.005)
+        return out
 
     # ------------------------------------------------------------------
     # directory scan (cached) + retention
@@ -478,9 +607,9 @@ class CheckpointManager:
         return out
 
     def _prune(self) -> None:
-        steps = self._committed_steps()
-        if not self.keep:
+        if not self.keep or self.rank != 0:
             return
+        steps = self._committed_steps()
         # the newest last-known-good step (the rewind target) and any step
         # being restored are pinned; all writes go through the one writer
         # handshake, so prune (the tail of _write) cannot race a write
@@ -505,8 +634,11 @@ class CheckpointManager:
     # good step, never merely the newest step
     # ------------------------------------------------------------------
     def mark_good(self, step: int) -> None:
-        """Promote a committed step to last-known-good (idempotent)."""
+        """Promote a committed step to last-known-good (idempotent; rank 0's
+        to write, a no-op on the other ranks)."""
         self.wait()
+        if self.rank != 0:
+            return
         d = self._step_dir(step)
         if not (d / "COMMITTED").exists():
             raise ValueError(f"cannot mark step {step} good: no committed "
@@ -546,11 +678,11 @@ class CheckpointManager:
                 raise ValueError(
                     f"checkpoint step {step}: tree mismatch — checkpoint "
                     f"leaf {m['path']!r} where the template has {path!r}")
-            if tuple(m["shape"]) != tuple(leaf.shape):
+            if tuple(m["shape"]) != _global_shape(leaf):
                 raise ValueError(
                     f"checkpoint step {step}: leaf {path!r} was saved with "
                     f"shape {tuple(m['shape'])} but the template expects "
-                    f"{tuple(leaf.shape)} — a bucketed-state mismatch like this "
+                    f"{_global_shape(leaf)} — a bucketed-state mismatch like this "
                     f"usually means another shard size (see read_layout)")
             if m["dtype"] != _dtype_name(leaf.dtype):
                 raise ValueError(
@@ -642,11 +774,12 @@ class CheckpointManager:
             for f in files:
                 f.close()
 
-    def restore(self, step: int, like: Any) -> Tuple[Any, int]:
-        """Restore into the structure of ``like`` (a tree of tensors whose
-        paths, shapes and dtypes must match the manifest; each restored
-        tensor lands on its template's device); returns (state, data_step).
-        The step is pinned against retention while it is read."""
+    def read_arrays(self, step: int, like: Any = None
+                    ) -> Tuple[Dict[str, Tuple[np.ndarray, str]], int]:
+        """Every leaf of a checkpoint, whole and verified: ``({path: (bits,
+        dtype name)}, data_step)``, bf16 as ``uint16`` bits; with ``like``
+        the template is checked against the manifest first. The step is
+        pinned against retention while it is read."""
         d = self._step_dir(step)
         with self._read_lock:
             self._reading[step] = self._reading.get(step, 0) + 1
@@ -656,18 +789,26 @@ class CheckpointManager:
             except ValueError as e:
                 raise CheckpointCorruptionError(
                     f"checkpoint {d.name}: torn/unparseable manifest.json ({e})") from e
-            self._validate(step, manifest, like)
+            if like is not None:
+                self._validate(step, manifest, like)
             arrays = self._load_arrays(d, manifest)
         finally:
             with self._read_lock:
                 self._reading[step] -= 1
                 if not self._reading[step]:
                     del self._reading[step]
-        by_path = {m["path"]: (a, m["dtype"])
-                   for m, a in zip(manifest["leaves"], arrays, strict=True)}
-        state = map_with_path(
-            lambda path, t: _to_tensor(*by_path[path], t.device).reshape(t.shape), like)
-        return state, int(manifest["data_step"])
+        return ({m["path"]: (a, m["dtype"])
+                 for m, a in zip(manifest["leaves"], arrays, strict=True)},
+                int(manifest["data_step"]))
+
+    def restore(self, step: int, like: Any) -> Tuple[Any, int]:
+        """Restore into the structure of ``like`` (a tree of tensors and
+        :class:`Piece` templates whose paths, global shapes and dtypes must
+        match the manifest; a tensor gets its leaf whole, a Piece its window
+        as a tensor, each on its template's device); returns (state,
+        data_step)."""
+        by_path, data_step = self.read_arrays(step, like)
+        return map_with_path(lambda path, t: leaf_from(by_path[path], t), like), data_step
 
     def restore_latest(self, like: Any) -> Optional[Tuple[Any, int, int]]:
         """Restore the newest committed step, falling back to the previous

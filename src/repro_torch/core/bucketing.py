@@ -8,8 +8,13 @@ instead of once per leaf. The plan is static metadata computed once; its
 bucket order (``sorted`` by integer ``(d_in, d_out)``) and entry offsets
 (tree order, see ``core/types.py``) equal the JAX package's.
 
-The ZeRO chunk functions (``gather_chunks`` and friends) come with the
-data-parallel slice (ROADMAP Queue 1, item 6).
+ZeRO layout: a plan built with ``pad_multiple=N`` stacks every bucket at
+``padded L``, a multiple of ``N``, and rank ``r`` owns slices ``[r * padded
+L / N, (r + 1) * padded L / N)`` of it. ``gather_chunks`` lays a tree out
+as ``(N, padded L / N, d_in, d_out)`` chunks (chunk ``j`` is rank ``j``'s)
+without building the whole bucket, ``accumulate_chunks`` adds microbatches
+in that layout, ``scatter_chunks`` reads leaves back from it, and
+``unpad_buckets``/``repad_buckets`` move stacked state between shard sizes.
 """
 from __future__ import annotations
 
@@ -183,6 +188,117 @@ def gather(plan: BucketPlan, tree: PyTree, dtype=None) -> Dict[str, torch.Tensor
     return out
 
 
+def _chunk_size(bucket: Bucket, n_chunks: int) -> int:
+    """Per-chunk slice count of a bucket split ``n_chunks`` ways; raises
+    (naming the fix) when the padded size does not divide."""
+    if bucket.padded % n_chunks:
+        raise ValueError(
+            f"bucket {bucket.key!r}: padded size {bucket.padded} is not "
+            f"divisible by n_chunks={n_chunks} — build the plan with "
+            f"pad_multiple=n_chunks (optimizer shard_size)")
+    return bucket.padded // n_chunks
+
+
+def _chunk_of(bucket: Bucket, parts, j: int, csize: int, pad_dtype):
+    """Slices ``[j * csize, (j + 1) * csize)`` of the bucket, from the leaf
+    slabs ``parts`` (zeros past the last entry)."""
+    lo, hi = j * csize, (j + 1) * csize
+    pieces = []
+    for e, part in zip(bucket.entries, parts, strict=True):
+        s, t = max(lo, e.offset), min(hi, e.offset + e.lead)
+        if s < t:
+            pieces.append(part[s - e.offset:t - e.offset].to(pad_dtype))
+    filled = sum(p.shape[0] for p in pieces)
+    if filled < csize:  # tail pad of the last chunk(s)
+        pieces.append(torch.zeros((csize - filled, bucket.d_in, bucket.d_out),
+                                  dtype=pad_dtype, device=parts[0].device))
+    return pieces
+
+
+def gather_chunks(plan: BucketPlan, tree: PyTree, n_chunks: int,
+                  dtype=None, only: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stack the planned leaves of ``tree`` into ``(n_chunks, padded L /
+    n_chunks, d_in, d_out)`` per-bucket operands: :func:`gather` split along
+    ``L`` into the chunks of an ``n_chunks``-way ZeRO axis (chunk ``j`` is
+    rank ``j``'s shard; pad slices zero-filled). The whole ``(padded L,
+    d_in, d_out)`` bucket is never built apart from its chunks.
+
+    ``only=j`` returns chunk ``j`` alone, ``(padded L / n_chunks, d_in,
+    d_out)``: the slices a rank updates."""
+    by_path = dict(tree_paths(tree))
+    out = {}
+    for b in plan.buckets:
+        csize = _chunk_size(b, n_chunks)
+        parts, pad_dtype = _bucket_parts(b, by_path, dtype)
+        if only is not None:
+            pieces = _chunk_of(b, parts, only, csize, pad_dtype)
+            out[b.key] = (pieces[0].contiguous() if len(pieces) == 1
+                          else torch.cat(pieces, dim=0))
+            continue
+        buf = torch.empty((n_chunks, csize, b.d_in, b.d_out), dtype=pad_dtype,
+                          device=parts[0].device)
+        for j in range(n_chunks):
+            row = 0
+            for p in _chunk_of(b, parts, j, csize, pad_dtype):
+                buf[j, row:row + p.shape[0]] = p
+                row += p.shape[0]
+        out[b.key] = buf
+    return out
+
+
+def init_chunk_acc(plan: BucketPlan, n_chunks: int, dtype=torch.float32,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """Zero chunked gradient accumulators, one ``(n_chunks, padded L /
+    n_chunks, d_in, d_out)`` buffer per bucket (:func:`accumulate_chunks`)."""
+    return {b.key: torch.zeros((n_chunks, _chunk_size(b, n_chunks), b.d_in,
+                                b.d_out), dtype=dtype, device=device)
+            for b in plan.buckets}
+
+
+def accumulate_chunks(plan: BucketPlan, tree: PyTree,
+                      acc: Dict[str, torch.Tensor], n_chunks: int,
+                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Add one microbatch's planned leaves of ``tree`` into the chunked
+    accumulators ``acc`` (from :func:`init_chunk_acc`), in place, and return
+    them. The leaves are chunked first, so accumulation never builds the
+    whole ``(padded L, d_in, d_out)`` bucket; chunking is slicing, so the
+    accumulated chunks are the chunks of the accumulated leaves, bit for
+    bit."""
+    chunks = gather_chunks(plan, tree, n_chunks, dtype=dtype)
+    for k in acc:
+        acc[k] += chunks[k]
+    return acc
+
+
+def scatter_chunks(plan: BucketPlan, chunks: Dict[str, torch.Tensor],
+                   base: PyTree) -> PyTree:
+    """Inverse of :func:`gather_chunks`: rebuild each planned leaf of
+    ``base`` from its pieces across the chunk axis (pad slices dropped,
+    other leaves passed through)."""
+    slices = {}
+    for b in plan.buckets:
+        for e in b.entries:
+            slices[e.path] = (b, e)
+
+    def visit(path, leaf):
+        hit = slices.get(path)
+        if hit is None:
+            return leaf
+        b, e = hit
+        stacked = chunks[b.key]
+        csize = stacked.shape[1]
+        pieces = []
+        for j in range(stacked.shape[0]):
+            lo, hi = j * csize, (j + 1) * csize
+            s, t = max(lo, e.offset), min(hi, e.offset + e.lead)
+            if s < t:
+                pieces.append(stacked[j, s - lo:t - lo])
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+        return out.reshape(e.shape)
+
+    return map_with_path(visit, base)
+
+
 def scatter(plan: BucketPlan, stacked: Dict[str, torch.Tensor],
             base: PyTree, cast: bool = False) -> PyTree:
     """Inverse of :func:`gather`: slice each bucket back into the planned
@@ -204,6 +320,62 @@ def scatter(plan: BucketPlan, stacked: Dict[str, torch.Tensor],
         return out.to(leaf.dtype) if cast else out
 
     return map_with_path(visit, base)
+
+
+def unpad_buckets(plan: BucketPlan,
+                  bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Strip the pad slices from per-bucket stacked buffers: ``(padded L,
+    ...)`` -> ``(true L, ...)`` (momentum and slot stripes alike). With
+    :func:`repad_buckets` this is the elastic reshard: ``padded_size`` is
+    the one quantity of the layout that depends on the shard size, and pad
+    slices are zero, so unpad then repad under the new plan moves no real
+    slice."""
+    out = {}
+    for b in plan.buckets:
+        buf = bufs[b.key]
+        if buf.shape[0] != b.padded:
+            raise ValueError(
+                f"bucket {b.key!r}: buffer holds {buf.shape[0]} slices but "
+                f"the plan stacks {b.size} padded to {b.padded} — was this "
+                f"buffer produced under a different plan / shard_size?")
+        out[b.key] = buf[:b.size]
+    return out
+
+
+def repad_buckets(plan: BucketPlan,
+                  bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`unpad_buckets` under ``plan``: zero-pad each true
+    ``(L, ...)`` buffer to the plan's padded size."""
+    out = {}
+    for b in plan.buckets:
+        buf = torch.as_tensor(bufs[b.key])
+        if buf.shape[0] != b.size:
+            raise ValueError(
+                f"bucket {b.key!r}: buffer holds {buf.shape[0]} slices but "
+                f"the plan stacks {b.size} — unpad under the writing plan "
+                f"before repadding under this one")
+        if b.padded > b.size:
+            pad = torch.zeros((b.padded - b.size,) + tuple(buf.shape[1:]),
+                              dtype=buf.dtype, device=buf.device)
+            buf = torch.cat([buf, pad], dim=0)
+        out[b.key] = buf
+    return out
+
+
+def shard_count(bucket: Bucket, l_loc: int) -> int:
+    """Number of ZeRO shards implied by a local momentum buffer of ``l_loc``
+    slices: 1 (the full padded buffer) or ``padded_size / l_loc``. Any other
+    ``l_loc`` is a mismatched buffer (state restored for another shard size,
+    or a plan with another ``pad_multiple``) and raises."""
+    psize = bucket.padded
+    if l_loc < 1 or psize % l_loc:
+        raise ValueError(
+            f"bucket {bucket.key!r}: momentum buffer holds {l_loc} slices "
+            f"but the bucket stacks {bucket.size} (padded to {psize}); "
+            f"expected the full padded buffer or an exact 1/N shard with "
+            f"{psize} % l_loc == 0 — was the optimizer state restored from "
+            f"a different mesh or built with a different shard_size?")
+    return psize // l_loc
 
 
 def fused_rownorm_update(plan: BucketPlan,
@@ -228,3 +400,52 @@ def _apply_one(g, v, w, scale, weight_decay, beta, eps):
     the apply kernel on CUDA tensors, its plain version on CPU tensors."""
     return kops.rmnp_bucket_update_apply(g, v, w, scale, weight_decay,
                                          beta=beta, eps=eps)
+
+
+def bucket_update_apply(bucket: Bucket, g: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, *, scale, weight_decay: float,
+                        beta: float, eps: float, shard_axis=None):
+    """Single-pass RMNP update of one stacked bucket, ZeRO-1 aware. ``g``
+    and ``w`` are the full ``(padded L, d_in, d_out)`` operands; ``v`` is
+    the full momentum or this rank's ``(padded L / N, ...)`` shard. On a
+    shard the kernel runs over the rank's slices and ``shard_axis`` (a
+    :class:`repro_torch.distributed.comm.Comm`) all-gathers the updated
+    weight slices. Returns ``(w_new full, v_new in v's layout)``."""
+    l_loc = v.shape[0]
+    n_shards = shard_count(bucket, l_loc)
+    if g.shape[0] != bucket.padded or w.shape[0] != bucket.padded:
+        raise ValueError(
+            f"bucket {bucket.key!r}: gradient/weight operands have "
+            f"{g.shape[0]}/{w.shape[0]} slices, expected the padded bucket "
+            f"size {bucket.padded}")
+    if n_shards > 1:
+        if shard_axis is None:
+            raise ValueError(
+                f"bucket {bucket.key!r}: momentum holds {l_loc} of "
+                f"{bucket.padded} slices but no shard_axis was given")
+        lo = shard_axis.rank * l_loc
+        g, w = g[lo:lo + l_loc], w[lo:lo + l_loc]
+    v_new, w_new = _apply_one(g, v, w, scale, weight_decay, beta, eps)
+    if n_shards > 1:
+        w_new = shard_axis.all_gather(w_new)
+    return w_new, v_new
+
+
+def bucket_update_apply_sharded(bucket: Bucket, g_shard: torch.Tensor,
+                                v: torch.Tensor, w_shard: torch.Tensor, *,
+                                scale, weight_decay: float, beta: float,
+                                eps: float, shard_axis):
+    """ZeRO-2 single-pass RMNP update of one stacked bucket: the gradient
+    arrives reduced and sharded (this rank's ``(padded L / N, d_in, d_out)``
+    mean-gradient shard), ``v`` and ``w_shard`` are the matching shards. The
+    kernel runs shard in, shard out, and only the updated weight slices are
+    all-gathered. Returns ``(w_new full padded bucket, v_new shard)``."""
+    l_loc = v.shape[0]
+    shard_count(bucket, l_loc)
+    if g_shard.shape[0] != l_loc or w_shard.shape[0] != l_loc:
+        raise ValueError(
+            f"bucket {bucket.key!r}: gradient/weight shards have "
+            f"{g_shard.shape[0]}/{w_shard.shape[0]} slices but the momentum "
+            f"shard has {l_loc}")
+    v_new, w_new = _apply_one(g_shard, v, w_shard, scale, weight_decay, beta, eps)
+    return shard_axis.all_gather(w_new), v_new

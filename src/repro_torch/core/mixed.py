@@ -94,6 +94,8 @@ def mixed_optimizer(
     fused: bool = False,
     momentum_dtype: str = "float32",
     fused_apply: bool = False,
+    shard_axis=None,
+    shard_size: int = 1,
 ) -> Optimizer:
     """Build the paper's mixed optimizer: any registered matrix update rule
     (``rules.rule_names()``: rmnp, muon, normuon, muown, nora) on matrix
@@ -105,7 +107,13 @@ def mixed_optimizer(
     exist only in the bucketed layout, so they imply ``fused=True``.
     ``fused_apply=True`` (implies ``fused``) exposes ``update_apply``, the
     single-pass path. ``momentum_dtype`` sets the fused matrix-momentum
-    storage type (math is fp32).
+    storage type (math is fp32). ``shard_axis`` (a
+    ``repro_torch.distributed.comm.Comm``) is the group the stacked matrix
+    momentum may be ZeRO-sharded over and implies ``fused_apply``;
+    ``shard_size`` (the group's size) pads bucket ``L`` to a multiple so
+    uneven buckets shard too, and with it ``Optimizer.update_apply_sharded``
+    takes reduce-scattered mean-gradient shards (AdamW leaves still read
+    their mean grads from the per-leaf tree).
 
     ``use_kernel`` is accepted for the JAX package's signature and selects
     nothing: the port has one path per device, and every RMNP update and
@@ -113,10 +121,14 @@ def mixed_optimizer(
     the Hopper kernels on CUDA tensors and runs their plain versions on CPU
     tensors."""
     del use_kernel
+    from repro_torch.core.engine import check_shard_args
     if matrix_kind not in rule_names() + ("adamw",):
         raise ValueError(
             f"unknown matrix optimizer {matrix_kind!r}; expected one of "
             f"{', '.join(rule_names() + ('adamw',))}")
+    check_shard_args(shard_axis, shard_size)
+    if shard_axis is not None:
+        fused_apply = True  # sharded state needs the single-pass path
     if fused_apply:
         fused = True
     if matrix_kind not in ("rmnp", "muon", "adamw"):
@@ -133,7 +145,8 @@ def mixed_optimizer(
         return _fused_mixed(
             rule, lr_matrix, lr_adamw, is_mat=_is_mat,
             weight_decay=weight_decay, b1=b1, b2=b2, adam_eps=adam_eps,
-            momentum_dtype=momentum_dtype, fused_apply=fused_apply)
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply,
+            shard_axis=shard_axis, shard_size=shard_size)
 
     def init(params):
         momentum = map_with_path(
@@ -187,12 +200,14 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
                  lr_adamw: Schedule, *, is_mat,
                  weight_decay: float, b1: float, b2: float,
                  adam_eps: float, momentum_dtype: str,
-                 fused_apply: bool = False) -> Optimizer:
+                 fused_apply: bool = False, shard_axis=None,
+                 shard_size: int = 1) -> Optimizer:
     """Mixed optimizer with the matrix partition on the bucketed engine under
     ``rule``; AdamW leaves stay per-leaf."""
     from repro_torch.core.engine import BucketedEngine, _device_of
 
     eng = BucketedEngine(rule, lr_matrix, momentum_dtype=momentum_dtype,
+                         shard_axis=shard_axis, shard_size=shard_size,
                          predicate=is_mat)
 
     def init(params):
@@ -255,6 +270,38 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
         return new_params, FusedMixedState(momentum=momentum, nu=nu,
                                            buckets=v_b, slots=s_b)
 
+    def update_apply_bucket(bucket, g_shard, v_shard, w_shard, step,
+                            clip_scale=None, *, slots=None, async_op=False):
+        """One matrix bucket's whole ZeRO-2 chain (see ``Optimizer``)."""
+        return eng.bucket_apply_sharded(bucket, g_shard, v_shard, slots or {},
+                                        w_shard, step, clip_scale, async_op)
+
+    def update_apply_sharded(g_shards, grads, state, params, step,
+                             clip_scale=None, overlap=False):
+        """ZeRO-2 single-pass apply: matrix buckets take this rank's
+        reduce-scattered ``(padded L / N, d_in, d_out)`` fp32 mean-gradient
+        shards from ``g_shards`` (their leaves in ``grads`` are ignored);
+        AdamW leaves read their mean grads from ``grads``, already
+        clip-scaled, and update whole on every rank. ``clip_scale`` folds the
+        global-norm clip into each bucket's chain; only the updated weight
+        slices are all-gathered."""
+        plan = eng.plan(params)
+        new_params, momentum, nu = adam_sweep(
+            grads, state, params, step,
+            emit=lambda u, p: p if u is None else p + u.to(p.dtype))
+        out = eng.sharded_apply(plan, g_shards, state.buckets, state.slots,
+                                params, step, clip_scale, overlap)
+        if out is None:
+            return new_params, FusedMixedState(momentum=momentum, nu=nu,
+                                               buckets={}, slots={})
+        w_b, v_b, s_b = out
+        new_params = bucketing.scatter(plan, w_b, new_params, cast=True)
+        return new_params, FusedMixedState(momentum=momentum, nu=nu,
+                                           buckets=v_b, slots=s_b)
+
+    zero2 = shard_axis is not None
     return Optimizer(init=init, update=update,
                      update_apply=update_apply if fused_apply else None,
-                     bucket_plan=eng.plan)
+                     update_apply_sharded=update_apply_sharded if zero2 else None,
+                     update_apply_bucket=update_apply_bucket if zero2 else None,
+                     bucket_plan=eng.plan, shard_size=shard_size)

@@ -34,8 +34,14 @@ def newton_schulz(v: torch.Tensor, steps: int = 5, eps: float = 1e-7,
     transpose = x.shape[-2] > x.shape[-1]
     if transpose:
         x = x.transpose(-1, -2)
+    # each matrix's Frobenius norm by its own reduction: a batched one may
+    # split a slice's sum by how many slices the stack holds, and a ZeRO
+    # shard of the stack must give each slice the bits the whole stack does
+    lead = x.shape[:-2]
+    norm = torch.stack([torch.linalg.vector_norm(s)
+                        for s in x.reshape(-1, *x.shape[-2:])]).reshape(*lead, 1, 1)
     # contiguous, so that the kernels' loads of X run along its rows
-    x = (x / (torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True) + eps)).contiguous()
+    x = (x / (norm + eps)).contiguous()
     for _ in range(steps):
         x = kops.ns_step(x, a, b, c)
     if transpose:
@@ -49,13 +55,18 @@ class MuonState(NamedTuple):
 
 def muon(lr: Schedule, beta: float = 0.95, weight_decay: float = 0.1,
          ns_steps: int = 5, use_kernel: bool = False, fused: bool = False,
-         momentum_dtype: str = "float32", fused_apply: bool = False) -> Optimizer:
+         momentum_dtype: str = "float32", fused_apply: bool = False,
+         shard_axis=None, shard_size: int = 1) -> Optimizer:
     """Muon for pure-matrix trees. The flag cascade mirrors ``rmnp()``:
     ``fused=True`` shape-buckets the leaves so Newton-Schulz batches over each
-    bucket's stacked ``L`` axis; ``fused_apply`` (implies ``fused``) exposes
-    ``Optimizer.update_apply``. The ZeRO arguments of the JAX signature come
-    with the data-parallel slice. ``use_kernel`` selects nothing."""
+    bucket's stacked ``L`` axis; ``fused_apply`` (implied by ``shard_axis``)
+    exposes ``Optimizer.update_apply``; ``shard_axis``/``shard_size`` unlock
+    the ZeRO-1/2 entry points. ``use_kernel`` selects nothing."""
     del use_kernel
+    from repro_torch.core.engine import check_shard_args
+    check_shard_args(shard_axis, shard_size)
+    if shard_axis is not None:
+        fused_apply = True
     if fused_apply:
         fused = True
     if fused:
@@ -63,7 +74,8 @@ def muon(lr: Schedule, beta: float = 0.95, weight_decay: float = 0.1,
         from repro_torch.core.rules import MuonRule
         return matrix_optimizer(
             MuonRule(beta=beta, weight_decay=weight_decay, ns_steps=ns_steps), lr,
-            momentum_dtype=momentum_dtype, fused_apply=fused_apply)
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply,
+            shard_axis=shard_axis, shard_size=shard_size)
 
     def init(params):
         return MuonState(momentum=tree_map(

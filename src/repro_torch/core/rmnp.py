@@ -40,18 +40,25 @@ class RmnpState(NamedTuple):
 
 def rmnp(lr: Schedule, beta: float = 0.95, weight_decay: float = 0.1,
          eps: float = 1e-8, fused: bool = False,
-         momentum_dtype: str = "float32", fused_apply: bool = False) -> Optimizer:
+         momentum_dtype: str = "float32", fused_apply: bool = False,
+         shard_axis=None, shard_size: int = 1) -> Optimizer:
     """RMNP for pure-matrix trees. ``fused=True`` shape-buckets the leaves
     (core/bucketing.py); ``fused_apply=True`` (implies ``fused``) exposes
-    ``Optimizer.update_apply``, the single-pass update. Every leaf or bucket
-    goes through ``kernels/ops.py``: the kernels on CUDA tensors, their
-    plain versions on CPU tensors."""
-    if fused_apply or fused:
+    ``Optimizer.update_apply``, the single-pass update. ``shard_axis`` (a
+    ``repro_torch.distributed.comm.Comm``, implies ``fused_apply``) unlocks
+    the ZeRO-1/2 entry points; ``shard_size`` pads every bucket's ``L`` to a
+    multiple so uneven buckets shard. Every leaf or bucket goes through
+    ``kernels/ops.py``: the kernels on CUDA tensors, their plain versions on
+    CPU tensors."""
+    from repro_torch.core.engine import check_shard_args
+    check_shard_args(shard_axis, shard_size)
+    if fused_apply or fused or shard_axis is not None:
         from repro_torch.core.engine import matrix_optimizer
         from repro_torch.core.rules import RmnpRule
         return matrix_optimizer(
             RmnpRule(beta=beta, weight_decay=weight_decay, eps=eps), lr,
-            momentum_dtype=momentum_dtype, fused_apply=fused_apply)
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply,
+            shard_axis=shard_axis, shard_size=shard_size)
 
     def init(params):
         return RmnpState(momentum=tree_map(

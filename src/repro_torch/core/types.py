@@ -37,8 +37,27 @@ class Optimizer:
     # state); the weight update is folded into the per-bucket kernel, so no
     # updates tree exists. None means two-pass update + apply_updates.
     update_apply: Optional[Callable[..., Any]] = None
+    # ZeRO-2 fused apply: (g_shards, grads, state, params, step,
+    # clip_scale=None, overlap=False) -> (new_params, state). ``g_shards``
+    # maps bucket key -> this rank's (padded L / N, d_in, d_out) fp32
+    # mean-gradient shard; matrix leaves of ``grads`` are ignored, the rest
+    # must already be mean-reduced and clip-scaled (``clip_scale`` applies
+    # to the matrix shards only, folded into each bucket's chain).
+    # ``overlap`` issues every bucket's weight all-gather before waiting on
+    # any. Exposed by the fused-apply optimizers built with shard_axis.
+    update_apply_sharded: Optional[Callable[..., Any]] = None
+    # per-bucket ZeRO-2 entry point: (bucket, g_shard, v_shard, w_shard,
+    # step, clip_scale=None, *, slots=None, async_op=False) -> (w_new full
+    # padded bucket, v_new shard, slots_new shard); ``w_shard`` is this
+    # rank's chunk of the weights (the JAX package passes every rank's
+    # chunks and indexes its own). With ``async_op`` the first element is
+    # a pending all-gather (``.wait()`` gives the bucket).
+    update_apply_bucket: Optional[Callable[..., Any]] = None
     # params -> repro_torch.core.bucketing.BucketPlan of the matrix partition
     bucket_plan: Optional[Callable[[PyTree], Any]] = None
+    # the pad multiple of every bucket's stacked L (the intended ZeRO shard
+    # count); the dp step checks it against the group's size up front
+    shard_size: int = 1
 
 
 def _child_keys(tree) -> List[str]:

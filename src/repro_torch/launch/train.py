@@ -1,15 +1,18 @@
-"""Training driver of the port (mirror of ``repro.launch.train``), single
-process, one device.
+"""Training driver of the port (mirror of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small --full \\
         --optimizer rmnp --engine single-pass --use-kernel --steps 3 \\
         --batch 8 --seq 1024
+    # ZeRO-2 data parallel, one process per rank (NCCL; gloo with --device cpu)
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+        --arch gpt2-small --zero2 [--no-compress] [--accum A] [--overlap on]
 
-Wires config -> synthetic data -> mixed optimizer -> train step ->
-checkpoint manager (resume on restart) -> metrics log, with the non-finite
-guard and its anomaly ladder, fault injection and the hang watchdog. It runs
-on ``cuda`` unless ``device="cpu"`` (``--device cpu``) is passed. ``zero2``
-raises and names its ROADMAP item.
+Wires config -> synthetic data -> mixed optimizer -> train step (or the
+data-parallel step, ``train/dp_step.py``) -> checkpoint manager (resume on
+restart, an elastic reshard when the group size changed) -> metrics log,
+with the non-finite guard and its anomaly ladder, fault injection and the
+hang watchdog. It runs on ``cuda`` unless ``device="cpu"`` (``--device
+cpu``) is passed.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.core import (cosine_with_warmup, global_dominance, make_optimiz
                               momentum_for_diagnostics, optimizer_names)
 from repro_torch.core.types import tree_paths
 from repro_torch.data.pipeline import make_stream
-from repro_torch.distributed import elastic
+from repro_torch.distributed import compression, elastic, sharding
 from repro_torch.distributed.monitor import AnomalyMonitor, HangGuard
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import init_params
@@ -98,48 +101,105 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     a gradient; an injected fault is disarmed on rewind. ``clip_norm <= 0``
     disables clipping.
 
-    ``zero2`` raises (ROADMAP Queue 1, item 6); ``compress`` and ``overlap``
-    belong to it and are accepted for the JAX driver's signature."""
-    del compress, overlap
+    **ZeRO-2.** ``zero2`` (implies ``fused_apply``) trains with the
+    data-parallel step on every process of the group
+    (``repro_torch.distributed.comm.init_comm``: ``torchrun``'s, or one rank
+    on its own): ``batch`` is the global batch, each rank trains on its
+    rows, and the stacked matrix momentum and gradient buckets are sharded
+    over the ranks (``compress`` picks the int8 error-feedback wire over the
+    exact fp32 one; ``overlap`` the pipelined schedule, None resolving with
+    ``train.dp_step.resolve_overlap``). Every rank writes its shard of each
+    checkpoint; a checkpoint written by another number of ranks is
+    resharded on resume (``distributed/elastic.py``). Only rank 0 prints and
+    writes ``log_file`` and ``dump_params``."""
+    comm = None
     if zero2:
-        raise NotImplementedError(
-            "zero2 is not ported yet (ROADMAP Queue 1, item 6: ZeRO-2 data parallel)")
+        from repro_torch.distributed.comm import init_comm
+        comm = init_comm(device)
+        device = comm.device
+    n_dev = comm.world if comm is not None else 1
+    main_rank = comm is None or comm.rank == 0
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     fault_spec = faults.parse_fault(inject_fault) if inject_fault else None
-    if fault_spec is not None:
+    if fault_spec is not None and main_rank:
         print(f"[train] fault injection armed: {fault_spec.describe()}", flush=True)
 
-    def build_opt(lr_scale: float = 1.0):
+    def build_opt(shard_size: int, lr_scale: float = 1.0):
         return make_optimizer(optimizer, dict(
             lr_matrix=cosine_with_warmup(lr_matrix * lr_scale, steps),
             lr_adamw=cosine_with_warmup(lr_adamw * lr_scale, steps),
             matrix_embed=matrix_embed, use_kernel=use_kernel, fused=fused,
-            momentum_dtype=momentum_dtype, fused_apply=fused_apply))
+            momentum_dtype=momentum_dtype, fused_apply=fused_apply or zero2,
+            shard_axis=comm, shard_size=shard_size))
 
     def build_step(opt_, fault):
-        return make_train_step(cfg, opt_, num_microbatches=accum,
-                               clip_norm=clip_norm, guard=guard, fault=fault,
-                               remat="none" if reduced else "full")
+        remat = "none" if reduced else "full"
+        if zero2:
+            from repro_torch.train.dp_step import make_dp_train_step
+            return make_dp_train_step(cfg, opt_, comm, shard_state=True, zero2=True,
+                                      compress=compress, accum=accum, overlap=overlap,
+                                      clip_norm=clip_norm, guard=guard, fault=fault,
+                                      remat=remat)
+        single = make_train_step(cfg, opt_, num_microbatches=accum,
+                                 clip_norm=clip_norm, guard=guard, fault=fault,
+                                 remat=remat)
 
-    opt = build_opt()
-    params = init_params(cfg, seed=seed, device=device)
-    opt_state = opt.init(params)
+        def single_step(p, o, c, b, t):
+            p, o, m = single(p, o, b, t)
+            return p, o, c, m
+        return single_step
+
+    def fresh_state(opt_):
+        params_ = init_params(cfg, seed=seed, device=device)
+        if zero2:
+            from repro_torch.train.dp_step import init_dp_state
+            return (params_,) + init_dp_state(opt_, params_, comm, shard_state=True)
+        return params_, opt_.init(params_), None
+
+    def saved(p, o, c):
+        """The tree a checkpoint holds (each rank's part of it under ZeRO-2)."""
+        if not zero2:
+            return p, o
+        return (p, sharding.checkpoint_view(o, opt.bucket_plan(p), comm),
+                compression.checkpoint_view(c, comm))
+
+    def unpack(state):
+        return tuple(state) if zero2 else tuple(state) + (None,)
+
+    opt = build_opt(n_dev)
+    params, opt_state, comp_state = fresh_state(opt)
     start_step, data_step = 0, 0
-    layout = elastic.state_layout(opt, params, mesh_size=1, rule=optimizer,
-                                  opt_state=opt_state)
+    layout = elastic.state_layout(opt, params, mesh_size=n_dev, rule=optimizer,
+                                  compress=compress and zero2, opt_state=opt_state)
 
-    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    mgr = CheckpointManager(ckpt_dir, comm=comm) if ckpt_dir else None
     latest = mgr.latest_step() if mgr is not None else None
     if latest is not None:
-        elastic.check_restorable(mgr.read_layout(latest), layout)
-        restored = mgr.restore_latest((params, opt_state))
-        if restored is None:
-            raise RuntimeError(f"no committed checkpoint in {ckpt_dir} is readable; "
-                               f"refusing to start over in a directory that has some")
-        (params, opt_state), start_step, data_step = restored
-        print(f"[train] resumed from step {start_step}", flush=True)
+        old_layout = mgr.read_layout(latest)
+        if not elastic.check_restorable(old_layout, layout):
+            old_n = int(old_layout["shard_size"])
+            if not zero2:
+                raise elastic.LayoutMismatchError(
+                    f"checkpoint step {latest} holds a {old_n}-way sharded "
+                    f"state; resume it with zero2 (--zero2)")
+            (params, opt_state, comp_state), data_step = elastic.restore_resharded(
+                mgr, latest, params, opt_state, comp_state, opt_new=opt,
+                opt_old=build_opt(old_n), comm=comm)
+            start_step = latest
+            if main_rank:
+                print(f"[train] resumed from step {latest} (elastic reshard "
+                      f"{old_n}-way -> {n_dev}-way)", flush=True)
+        else:
+            restored = mgr.restore_latest(saved(params, opt_state, comp_state))
+            if restored is None:
+                raise RuntimeError(f"no committed checkpoint in {ckpt_dir} is readable; "
+                                   f"refusing to start over in a directory that has some")
+            state, start_step, data_step = restored
+            params, opt_state, comp_state = unpack(state)
+            if main_rank:
+                print(f"[train] resumed from step {start_step}", flush=True)
 
     stream = make_stream(cfg, seq, batch, seed=seed, start_step=data_step)
     step_fn = build_step(opt, fault_spec)
@@ -165,7 +225,9 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
         monitor = AnomalyMonitor(spike_k=anomaly_spike_k,
                                  skip_budget=anomaly_skip_budget,
                                  rewind_budget=anomaly_rewind_budget,
-                                 leaf_names=pipeline.guard_flag_names(params))
+                                 leaf_names=pipeline.guard_flag_names(
+                                     params, opt.bucket_plan(params) if zero2 else None,
+                                     n_dev))
     lr_scale = 1.0
     pending_good: list = []      # checkpoint steps awaiting the health window
     bad_data_steps: set = set()  # data positions of skipped steps (replay)
@@ -184,14 +246,14 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
         if hang_guard is not None:
             hang_guard.arm()
             t_step = time.time()
-        params, opt_state, metrics = step_fn(
-            params, opt_state, batch_to_device(next(stream), device), step)
+        params, opt_state, comp_state, metrics = step_fn(
+            params, opt_state, comp_state, batch_to_device(next(stream), device), step)
         if hang_guard is not None:
             # the host snapshot comes first: the emergency save reads only it
             if mgr is not None:
-                mgr.snapshot(step + 1, (params, opt_state), data_step=stream.step,
-                             layout=layout)
-            if device != "cpu":
+                mgr.snapshot(step + 1, saved(params, opt_state, comp_state),
+                             data_step=stream.step, layout=layout)
+            if torch.device(device).type != "cpu":
                 torch.cuda.synchronize()
             hang_guard.record(step, time.time() - t_step)
         action = None
@@ -205,30 +267,37 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
             if action == "skip":
                 leaves = ", ".join(monitor.bad_leaves(gflags)) or "<loss non-finite>"
                 bad_data_steps.add(stream.step - 1)
-                print(f"[train] guard: step {step} SKIPPED bitwise (non-finite: "
-                      f"{leaves}; {monitor.consecutive_skips}/{anomaly_skip_budget} "
-                      f"consecutive)", flush=True)
+                if main_rank:
+                    print(f"[train] guard: step {step} SKIPPED bitwise (non-finite: "
+                          f"{leaves}; {monitor.consecutive_skips}/{anomaly_skip_budget} "
+                          f"consecutive)", flush=True)
             elif action == "rewind":
                 lr_scale *= anomaly_lr_backoff
-                opt = build_opt(lr_scale)
+                opt = build_opt(n_dev, lr_scale)
+                if mgr is not None:
+                    mgr.wait()
+                    if comm is not None:
+                        comm.barrier()  # rank 0's last GOOD marker has landed
                 good = mgr.latest_good_step() if mgr is not None else None
                 if good is not None:
-                    mgr.wait()
-                    (params, opt_state), data_step = mgr.restore(good, (params, opt_state))
+                    state, data_step = mgr.restore(
+                        good, saved(params, opt_state, comp_state))
+                    params, opt_state, comp_state = unpack(state)
                     rewind_to = good
                 else:  # no good checkpoint yet: restart from init
-                    params = init_params(cfg, seed=seed, device=device)
-                    opt_state = opt.init(params)
+                    params, opt_state, comp_state = fresh_state(opt)
                     rewind_to, data_step = 0, 0
                 if fault_spec is not None:
-                    print("[train] rewind: disarming the injected fault "
-                          "(transient-fault model)", flush=True)
+                    if main_rank:
+                        print("[train] rewind: disarming the injected fault "
+                              "(transient-fault model)", flush=True)
                     fault_spec = None
                 step_fn = build_step(opt, fault_spec)
                 stream = make_stream(cfg, seq, batch, seed=seed, start_step=data_step)
-                print(f"[train] anomaly ladder: rewind #{monitor.rewinds} to step "
-                      f"{rewind_to} (lr x{lr_scale:g}, data step {data_step}; "
-                      f"{monitor.post_mortem()})", flush=True)
+                if main_rank:
+                    print(f"[train] anomaly ladder: rewind #{monitor.rewinds} to step "
+                          f"{rewind_to} (lr x{lr_scale:g}, data step {data_step}; "
+                          f"{monitor.post_mortem()})", flush=True)
                 history.append({"step": step, "action": action, "rewind_to": rewind_to,
                                 "lr_scale": lr_scale, "data_step": data_step})
                 step = rewind_to
@@ -246,16 +315,20 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
                 m["action"] = action
                 m["nonfinite"] = monitor.bad_leaves(gflags)
             if dominance_every and step % dominance_every == 0 and optimizer != "adamw":
+                whole = (sharding.gather_state(opt_state, opt.bucket_plan(params), comm)
+                         if zero2 else opt_state)
                 dom = global_dominance(momentum_for_diagnostics(
-                    opt_state, params, matrix_embed=matrix_embed))
+                    whole, params, matrix_embed=matrix_embed))
                 m.update({k: float(v) for k, v in dom.items()})
             history.append(m)
-            print(f"[train] step={step} loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.3f} clip={m['clip_rate']:.0f}"
-                  + (f" r_avg={m['r_avg']:.2f}" if "r_avg" in m else "")
-                  + f" launches={m['launches']}", flush=True)
+            if main_rank:
+                print(f"[train] step={step} loss={m['loss']:.4f} "
+                      f"gnorm={m['grad_norm']:.3f} clip={m['clip_rate']:.0f}"
+                      + (f" r_avg={m['r_avg']:.2f}" if "r_avg" in m else "")
+                      + f" launches={m['launches']}", flush=True)
         if mgr is not None and ckpt_every and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, (params, opt_state), data_step=stream.step, layout=layout)
+            mgr.save(step + 1, saved(params, opt_state, comp_state),
+                     data_step=stream.step, layout=layout)
             if monitor is not None:
                 pending_good.append(step + 1)
         if monitor is not None and pending_good:
@@ -263,8 +336,9 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
             for s in [s for s in pending_good if step + 1 - s >= anomaly_health_window]:
                 mgr.mark_good(s)
                 pending_good.remove(s)
-                print(f"[train] checkpoint step {s} promoted to last-known-good",
-                      flush=True)
+                if main_rank:
+                    print(f"[train] checkpoint step {s} promoted to last-known-good",
+                          flush=True)
         if kill_at and step + 1 == kill_at:
             print(f"[train] fault injection: SIGKILL at step {step + 1}", flush=True)
             os.kill(os.getpid(), signal.SIGKILL)
@@ -272,15 +346,15 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     if hang_guard is not None:
         hang_guard.stop()
     if mgr is not None and end_step == steps:
-        mgr.save(steps, (params, opt_state), data_step=stream.step, block=True,
-                 layout=layout)
+        mgr.save(steps, saved(params, opt_state, comp_state), data_step=stream.step,
+                 block=True, layout=layout)
         mgr.wait()
     elif mgr is not None:
         mgr.wait()  # crash simulation: the last periodic checkpoint survives
-    if log_file:
+    if log_file and main_rank:
         Path(log_file).parent.mkdir(parents=True, exist_ok=True)
         Path(log_file).write_text(json.dumps(history, indent=1))
-    if dump_params:
+    if dump_params and main_rank:
         Path(dump_params).parent.mkdir(parents=True, exist_ok=True)
         np.savez(dump_params, **{p: v.float().cpu().numpy()
                                  for p, v in tree_paths(params)})
@@ -324,12 +398,17 @@ def main(argv=None):
     ap.add_argument("--fused-apply", action="store_true",
                     help="DEPRECATED alias for --engine single-pass")
     ap.add_argument("--zero2", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1, item 6)")
-    ap.add_argument("--no-compress", action="store_true", help="with --zero2")
+                    help="ZeRO-2 data parallel over the process group (torchrun's, "
+                         "or one rank): momentum and gradient buckets sharded, "
+                         "--batch is the global batch")
+    ap.add_argument("--no-compress", action="store_true",
+                    help="with --zero2: the exact fp32 wire instead of int8 "
+                         "error feedback")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatch gradient-accumulation factor")
     ap.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
-                    help="with --zero2")
+                    help="with --zero2: the pipelined schedule (per-bucket "
+                         "collectives in flight together) or the serialized one")
     ap.add_argument("--no-matrix-embed", action="store_true",
                     help="AdamW on LM-head/embeddings (paper App D.4 ablation)")
     ap.add_argument("--stop-at", type=int, default=0,
@@ -352,9 +431,10 @@ def main(argv=None):
                          "buffer bit for bit unchanged) and the anomaly ladder "
                          "(skip -> rewind to last-known-good -> abort)")
     ap.add_argument("--inject-fault", default="",
-                    help="kind:leaf:step[:microbatch], kind nan|inf, leaf a "
-                         "gradient-leaf path ('*' = first), a trailing '+' on "
-                         "step makes it sticky; e.g. nan:*:6+")
+                    help="kind:leaf:step[:microbatch], kind nan|inf (leaf a "
+                         "gradient-leaf path, '*' = first) or bitflip (leaf a "
+                         "bucket key, the int8 wire of --zero2); a trailing '+' "
+                         "on step makes it sticky; e.g. nan:*:6+")
     ap.add_argument("--anomaly-spike-k", type=float, default=6.0,
                     help="loss-spike threshold of the anomaly ladder (EWMA sigmas)")
     ap.add_argument("--anomaly-skip-budget", type=int, default=3,

@@ -13,16 +13,26 @@ string (``launch/train.py --inject-fault``):
     nan:*:6+                       NaN into the first leaf, every step >= 6
                                    (sticky: the input that walks the
                                    rewind ladder to abort)
-    bitflip:768x768:4              the int8 wire's fault (ZeRO-2 only)
+    bitflip:768x768:4              flip the top exponent bit of the first
+                                   fp32 block scale rank 0 sends for bucket
+                                   768x768 at step 4 (the int8 wire of ZeRO-2)
 
 A trailing ``+`` on the step makes the fault sticky. The driver disarms an
 injected fault on rewind, so a sticky fault models a transient that a rewind
 clears, while the abort rung covers anomalies that keep firing.
+
+A bit-flip targets a *scale*, not an int8 sample: a flipped sample is bounded
+by its block's scale and stays finite, invisible to a finite-ness guard,
+while exponent bit 30 of a normal scale makes dequantization overflow to
+inf, the class the guard must catch. A block whose scale is 0.0 flips to
+2.0 and still dequantizes to 0: aim at a bucket with live gradients.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.core.types import PyTree, map_with_path, tree_paths
 
@@ -111,14 +121,24 @@ def apply_grad_fault(spec: Optional[FaultSpec], grads: PyTree, step,
     return map_with_path(poison, grads)
 
 
-def wire_fault_for(spec: Optional[FaultSpec], bucket_key: str, step,
-                   axis_name: str):
-    """The int8 reduce-scatter's bit-flip hook. The port has no int8 wire
-    yet, so any bitflip fault raises; ``None`` (no fault, or a gradient
-    fault) returns ``None`` as in the JAX package."""
-    del step, axis_name
-    if spec is None or spec.kind != "bitflip":
+def wire_fault_for(spec: Optional[FaultSpec], bucket_key: str, step, comm):
+    """The ``wire_fault`` hook of ``compressed_reduce_scatter_leaf``: None
+    unless ``spec`` is a bitflip aimed at ``bucket_key``, else a ``(q,
+    scale) -> (q, scale)`` callable that flips bit 30 (the top exponent bit)
+    of the first outgoing fp32 block scale when this is rank 0 of ``comm``
+    and the step matches. It runs after the sender has taken its residual,
+    so the corruption is on the wire: the sender's error feedback stays
+    honest and only the receiver of that chunk sees it."""
+    if spec is None or spec.kind != "bitflip" or spec.leaf != bucket_key:
         return None
-    raise NotImplementedError(
-        f"bitflip fault on bucket {bucket_key!r}: the int8 wire is not ported "
-        f"yet (ROADMAP Queue 1, item 6: ZeRO-2 data parallel)")
+    hit = _hit(spec, int(step)) and comm.rank == 0
+
+    def corrupt(q, scale):
+        if not hit:
+            return q, scale
+        flat = scale.reshape(-1).clone()
+        bits = flat[:1].view(torch.int32) ^ (1 << 30)
+        flat[:1] = bits.view(torch.float32)
+        return q, flat.reshape(scale.shape)
+
+    return corrupt

@@ -15,23 +15,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mixed import clip_by_global_norm
-from repro_torch.core.types import Optimizer, apply_updates, map_with_path, tree_paths
-from repro_torch.models.model import loss_fn, torch_dtype
-from repro_torch.train import faults
+from repro_torch.core.types import Optimizer, apply_updates, map_with_path
 from repro_torch.train import pipeline
-
-
-def split_microbatches(batch, accum: int):
-    """(B, ...) tensors -> ``accum`` microbatches of B / accum rows."""
-    out = []
-    for name, x in batch.items():
-        if x.shape[0] % accum:
-            raise ValueError(f"accum={accum} does not divide the batch {x.shape[0]}")
-        for i, part in enumerate(torch.chunk(x, accum, dim=0)):
-            if len(out) <= i:
-                out.append({})
-            out[i][name] = part
-    return out
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
@@ -46,30 +31,19 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
     ``guard_flags`` (one per gradient leaf, tree order). The verdict stays
     on the device. ``fault`` (``repro_torch.train.faults.FaultSpec``)
     poisons a gradient for the resilience checks, per microbatch; a
-    ``bitflip`` fault belongs to the int8 wire of ZeRO-2 and raises."""
-    if fault is not None:
-        faults.wire_fault_for(fault, fault.leaf, 0, "data")
+    ``bitflip`` fault belongs to the int8 wire of the ZeRO-2 step
+    (``train/dp_step.py``) and leaves this step's gradients alone, as in the
+    JAX package."""
 
     def grads_of(params, batch, step, mb_idx=0):
-        leaves = {path: t.detach().requires_grad_(True)
-                  for path, t in tree_paths(params)}
-        live = map_with_path(lambda path, _t: leaves[path], params)
-        loss, metrics = loss_fn(cfg, live, batch, remat=remat)
-        paths = list(leaves)
-        grads = dict(zip(paths, torch.autograd.grad(loss, [leaves[p] for p in paths]),
-                         strict=True))
-        grads = faults.apply_grad_fault(fault, grads, step, mb_idx)
-        if grad_dtype:
-            dt = torch_dtype(grad_dtype)
-            grads = {p: g.to(dt) for p, g in grads.items()}
-        grads = map_with_path(lambda path, _t: grads[path], params)
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return pipeline.grads_of(cfg, params, batch, remat, fault, step, mb_idx,
+                                 grad_dtype)
 
     def train_step(params, opt_state, batch, step):
         prev = (params, opt_state)
         if num_microbatches > 1:
             acc, ms = None, []
-            for mb_idx, mb in enumerate(split_microbatches(batch, num_microbatches)):
+            for mb_idx, mb in enumerate(pipeline.split_microbatches(batch, num_microbatches)):
                 g, m = grads_of(params, mb, step, mb_idx)
                 if acc is None:
                     acc = map_with_path(

@@ -313,10 +313,11 @@ def test_plan_layout_equals_jax_and_a_shard_size_change_is_refused():
     layout = elastic.state_layout(opt, params, mesh_size=1, rule="rmnp",
                                   opt_state=opt.init(params))
     assert json.dumps(layout, sort_keys=True) == json.dumps(jlayout, sort_keys=True)
-    elastic.check_restorable(None, layout)
-    elastic.check_restorable(jlayout, layout)
-    with pytest.raises(elastic.LayoutMismatchError, match="Queue 1, item 6"):
-        elastic.check_restorable(dict(jlayout, shard_size=4, mesh_size=4), layout)
+    assert elastic.check_restorable(None, layout)
+    assert elastic.check_restorable(jlayout, layout)
+    # another shard size is refused as a plain restore and goes to the
+    # elastic reshard (restore_resharded); only another layout raises
+    assert not elastic.check_restorable(dict(jlayout, shard_size=4, mesh_size=4), layout)
     with pytest.raises(elastic.LayoutMismatchError, match="rule"):
         elastic.check_restorable(dict(jlayout, shard_size=4, rule="muon"), layout)
 

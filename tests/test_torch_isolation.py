@@ -40,6 +40,10 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/distributed/monitor.py",
                      "src/repro_torch/distributed/elastic.py",
                      "src/repro_torch/train/faults.py", "src/repro_torch/train/pipeline.py",
+                     "src/repro_torch/train/dp_step.py",
+                     "src/repro_torch/distributed/comm.py",
+                     "src/repro_torch/distributed/compression.py",
+                     "src/repro_torch/distributed/sharding.py",
                      "tools/step_repeat.py"):
         assert expected in names
 

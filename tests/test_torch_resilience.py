@@ -25,6 +25,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -113,10 +114,19 @@ def test_grad_fault_fires_only_at_its_step_and_names_the_leaves():
     with pytest.raises(ValueError, match="a/w"):
         faults.apply_grad_fault(faults.parse_fault("nan:no/such/leaf:0"), grads, 0)
     assert faults.apply_grad_fault(None, grads, 0) is grads
-    assert faults.wire_fault_for(None, "k", 0, "data") is None
-    assert faults.wire_fault_for(spec, "k", 0, "data") is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        faults.wire_fault_for(faults.parse_fault("bitflip:k:0"), "k", 0, "data")
+    rank0, rank1 = SimpleNamespace(rank=0), SimpleNamespace(rank=1)
+    assert faults.wire_fault_for(None, "k", 0, rank0) is None
+    assert faults.wire_fault_for(spec, "k", 0, rank0) is None
+    flip = faults.parse_fault("bitflip:k:2")
+    assert faults.wire_fault_for(flip, "other", 2, rank0) is None
+    q, scale = torch.ones(2, 512, dtype=torch.int8), torch.full((2, 1), 0.5)
+    for step, comm, fires in ((2, rank0, True), (2, rank1, False), (1, rank0, False)):
+        q2, s2 = faults.wire_fault_for(flip, "k", step, comm)(q, scale)
+        assert q2 is q and torch.equal(scale, torch.full((2, 1), 0.5))  # input untouched
+        want = scale.clone()
+        if fires:  # bit 30 of the first scale, rank 0's outgoing wire only
+            want.view(torch.int32)[0, 0] ^= 1 << 30
+        assert torch.equal(s2.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

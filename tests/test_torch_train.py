@@ -112,9 +112,21 @@ def test_cli_runs_the_engines_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     ("--zero2", "Queue 1, item 6"), ("--inject-fault=bitflip:768x768:1", "Queue 1, item 6")])
-def test_unported_flags_raise_and_name_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_mod.main(["--arch", "gpt2-small", "--steps", "1", "--device", "cpu", flag])
+def test_unported_flags_raise_and_name_their_item(flag, item, capsys):
+    """ZeRO-2 (item 6) is ported: ``--zero2`` trains on a group of one gloo
+    rank, and the int8 wire's bit-flip fault arms on it; neither names the
+    item any more."""
+    import torch.distributed as dist
+    try:
+        train_mod.main(["--arch", "gpt2-small", "--steps", "2", "--batch", "2",
+                        "--seq", "16", "--log-every", "1", "--device", "cpu",
+                        "--zero2", flag])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert out.count("[train] step=") == 2 and item not in out
+    assert "launches={'rmnp_precondition': 0, 'rmnp_apply': 0" in out
 
 
 @pytest.mark.parametrize("flags", [
@@ -137,13 +149,21 @@ def test_resilience_flags_run_on_the_cpu(flags, tmp_path, capsys):
 
 def test_guard_and_fault_in_the_step_raise():
     """The guard and gradient faults are ported; the int8 wire's bit-flip
-    fault raises and names ZeRO-2's item."""
+    fault belongs to the ZeRO-2 step and, as in the JAX package, leaves the
+    single-device step's bits alone."""
+    from repro_torch.models import init_params
     from repro_torch.train.faults import parse_fault
     cfg = get_config("gpt2-small").reduced()
     opt = make_optimizer("rmnp", dict(lr_matrix=1e-3))
     make_train_step(cfg, opt, guard=True, fault=parse_fault("nan:*:1"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        make_train_step(cfg, opt, guard=True, fault=parse_fault("bitflip:768x768:1"))
+    params = init_params(cfg, seed=3, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_stream(cfg, 16, 2, seed=3).sample(0).items()}
+    outs = [make_train_step(cfg, opt, guard=True, fault=fault)(
+        params, opt.init(params), batch, 1)[0]
+        for fault in (None, parse_fault("bitflip:64x64:1"))]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_paths(outs[0]), tree_paths(outs[1]), strict=True))
 
 
 def test_entry_points_default_to_the_card():
