@@ -202,11 +202,12 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 _REGISTRY = {}
 
 # Architectures the JAX package defines whose families the port does not run
-# yet (MLA, MoE, SSM, frontends): ROADMAP Queue 1, item 9.
+# yet: MLA (deepseek-v2-lite-16b, minicpm3-4b), MoE (olmoe-1b-7b, and
+# deepseek's and jamba's FFNs), SSM (jamba-v0.1-52b, xlstm-350m) and the
+# frontends (musicgen-large, paligemma-3b): ROADMAP Queue 1, item 9.
 NOT_PORTED = (
     "deepseek-v2-lite-16b", "jamba-v0.1-52b", "minicpm3-4b", "musicgen-large",
-    "olmoe-1b-7b", "paligemma-3b", "phi3-mini-3.8b", "qwen3-4b",
-    "xlstm-350m", "yi-9b",
+    "olmoe-1b-7b", "paligemma-3b", "xlstm-350m",
 )
 
 
@@ -216,7 +217,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _load():
-    from repro_torch.configs import gpt2, llama_small  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gpt2, llama_small, phi3_mini_3_8b, qwen3_4b, yi_9b)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -224,7 +226,8 @@ def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1, item 9: "
-            f"non-dense model families); ported: {', '.join(list_configs())}")
+            f"MLA, MoE, SSM and frontend families); ported: "
+            f"{', '.join(list_configs())}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; ported: "
                        f"{', '.join(list_configs())}")

@@ -6,7 +6,8 @@
 // q (B,S,H,hd), k/v (B,S,K,hd) with H % K == 0, kv head h / (H/K) read in
 // place; fp32 online softmax; masked scores are -1e30 after the 1/sqrt(hd)
 // scale; l is summed from the unrounded fp32 p; out = acc / (l + 1e-30) in
-// bf16. Any S: the ragged edge is masked, not padded. hd is 16, 32 or 64.
+// bf16. Any S: the ragged edge is masked, not padded. hd is 16, 32, 64 or
+// 128 (qwen3-4b's and yi-9b's).
 //
 // What bounds it on this card. At the main path's shape (B=8, S=1024,
 // H=12, hd=64, causal) the function reads 37.7 MB of q/k/v and writes 12.6
@@ -21,8 +22,11 @@
 // tensor maps are 4-D over (hd, heads, S, B), so the query head and the kv
 // head are coordinates (no repeat or transpose is materialised) and the
 // hardware's zero fill past S serves the ragged edge. Tiles are swizzled in
-// shared memory (128 B for hd 64, 64 B for hd 32, 32 B for hd 16); the
-// wgmma descriptors name the same swizzle. Each consumer computes
+// shared memory (128 B for hd 64 and 128, 64 B for hd 32, 32 B for hd 16);
+// the wgmma descriptors name the same swizzle. A swizzle span holds at most
+// 64 bf16 values, and TMA's box is at most one span wide, so an hd-128 tile
+// is two column halves of 64, each its own swizzled sub-tile loaded by its
+// own box (coordinate 0 or 64 along hd). Each consumer computes
 // S = Q.K^T with wgmma (Q and K K-major from shared memory, fp32
 // accumulators; bf16 x bf16 products are exact in fp32), applies the scale
 // and the masks (the causal mask only on tiles that cross the diagonal, the
@@ -47,6 +51,16 @@
 // second, so P never goes to shared memory; V is the MN-major B operand
 // (the transpose bit). The split makes the kernel's own operation floor
 // 2 x 12.9 = 25.8 GFLOP, 0.026 ms at the bf16 peak.
+//
+// hd 128 (qwen3-4b's prefill: B=8, S=1024, H=32, K=8, causal) does
+// 4*B*H*hd*S(S+1)/2 = 68.8 GFLOP (0.070 ms at the bf16 peak; 137.5 with P
+// in three parts, 0.139 ms) and moves 168 MB (0.050 ms): the tensor cores
+// bound it. Per consumer thread it holds acc[64], S's fragment s[32], P's
+// three parts (48 registers) and a P.V tile sum of 32 (one atom of V) against a
+// cap of 168 registers a thread: the block's 9 warps leave 3 on one of the
+// SM's four sub-partitions, whose 16384 registers give 170 a thread (the
+// card refuses a launch at 175). ptxas spills 108 bytes a thread; the
+// report is printed by phase B of chip_smoke.py.
 //
 // The two consumer warpgroups take turns at issuing their products
 // (named barriers), so one's softmax overlaps the other's products.
@@ -108,12 +122,21 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&part
 
 // Shared-memory matrix descriptor of a wgmma operand: start address, leading
 // and stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64
-// B, 3: 32 B). A row of hd bf16 values is exactly one swizzle span, so the
-// layout repeats every 8 rows: K-major operands (Q, K) step 8 rows by SBO
-// and ignore LBO; the MN-major V steps 8 keys by SBO, and its N (= hd) is
-// one swizzle atom, so LBO is never followed either.
+// B, 3: 32 B). A tile is stored as HD / SPAN sub-tiles of SPAN columns, each
+// row of a sub-tile exactly one swizzle span (SPAN = hd up to 64, 64 for
+// hd 128), so a sub-tile's layout repeats every 8 rows. K-major operands
+// (Q, K) step 8 rows by SBO and ignore LBO; a k-step of 16 columns adds 32
+// bytes inside a sub-tile, and the step into the next sub-tile adds the
+// sub-tile's bytes. The MN-major V steps 8 keys by SBO; no P.V product's N
+// spans more than one atom (hd 128 runs two 64-column products, one per
+// atom), so LBO is not followed.
 template <int HD>
 struct Swizzle;
+template <>
+struct Swizzle<128> {
+  static constexpr uint64_t desc = 1;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_128B;
+};
 template <>
 struct Swizzle<64> {
   static constexpr uint64_t desc = 1;
@@ -199,16 +222,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4],
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  if constexpr (HD == 16) wgmma_rs_n16(d, a, db, scale_d);
-  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db, scale_d);
+  static_assert(N == 16 || N == 32 || N == 64, "a P.V product spans one atom of V");
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
   else wgmma_rs_n64(d, a, db, scale_d);
 }
 
 template <int HD>
 struct Layout {
+  static constexpr int span = HD < 64 ? HD : 64;  // columns of a sub-tile
+  static constexpr int nsub = HD / span;           // sub-tiles of a tile
+  static constexpr uint32_t row = span * 2;        // bytes of a sub-tile row
+  static constexpr int q_sub = BQ * span * 2;      // bytes of a Q sub-tile
+  static constexpr int tile_sub = BK * span * 2;   // bytes of a K or V sub-tile
   static constexpr int q_bytes = BQ * HD * 2;
   static constexpr int tile_bytes = BK * HD * 2;
   static constexpr int k_off = q_bytes;
@@ -262,16 +291,22 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   const int warp = threadIdx.x / 32;
   if (warp >= CONSUMERS / 32) {
     // producer warp: one lane keeps the ring full
+    // each tile as its sub-tiles, one box of span columns each
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, L::q_bytes);
-      tma_load_4d(q_s, &qmap, q_full, h, q0, b);
+      for (int c = 0; c < L::nsub; ++c)
+        tma_load_4d(q_s + c * L::q_sub, &qmap, q_full, c * L::span, h, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % NSTAGE;
         if (t >= NSTAGE) mbar_wait(empty_bar(st), ((t / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(k_full(st), L::tile_bytes);
-        tma_load_4d(k_s + st * L::tile_bytes, &kmap, k_full(st), kh, t * BK, b);
+        for (int c = 0; c < L::nsub; ++c)
+          tma_load_4d(k_s + st * L::tile_bytes + c * L::tile_sub, &kmap, k_full(st),
+                      c * L::span, kh, t * BK, b);
         mbar_expect_tx(v_full(st), L::tile_bytes);
-        tma_load_4d(v_s + st * L::tile_bytes, &vmap, v_full(st), kh, t * BK, b);
+        for (int c = 0; c < L::nsub; ++c)
+          tma_load_4d(v_s + st * L::tile_bytes + c * L::tile_sub, &vmap, v_full(st),
+                      c * L::span, kh, t * BK, b);
       }
     }
     return;
@@ -289,8 +324,14 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   const int row_b = row_a + 8;
   const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
 
-  constexpr uint32_t ROW = HD * 2;  // bytes per row of every tile
+  constexpr uint32_t ROW = L::row;  // bytes per row of every sub-tile
   const uint64_t q_desc = make_desc<HD>(q_s + 64 * wg * ROW, 16, 8 * ROW);
+  // the descriptor offset (16-byte units) of k-step kk of 16 columns in a
+  // K-major tile whose sub-tiles are sub_bytes apart
+  auto kstep = [](int kk, int sub_bytes) {
+    constexpr int per_sub = L::span / 16;
+    return static_cast<uint64_t>(((kk / per_sub) * sub_bytes + (kk % per_sub) * 32) >> 4);
+  };
 
   float acc[HD / 2];
 #pragma unroll
@@ -320,7 +361,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     turn_wait(wg);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n64(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, q_desc + kstep(kk, L::q_sub), k_desc + kstep(kk, L::tile_sub), kk);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait_all();
@@ -389,32 +431,43 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     // accumulator's size, so no product is added into the running sum of
     // earlier tiles and the small parts meet a small accumulator. V is the
     // MN-major B operand; a k-step of 16 keys is 16 of its rows.
+    // At hd 128 the columns go in two products, one per atom of V, each
+    // finished and added before the next is issued, so only half the tile
+    // sum is live at once (one m64n128 product over both atoms spilled twice
+    // as much and ran 2-3 % slower, PERF.md).
     mbar_wait(v_full(st), ph);
-    const uint64_t v_desc = make_desc<HD>(v_s + st * L::tile_bytes, BK * ROW, 8 * ROW);
-    float pv[HD / 2];
+    constexpr int PV_N = HD <= 64 ? HD : 64;
+    const uint64_t v_desc = make_desc<HD>(v_s + st * L::tile_bytes, L::tile_sub, 8 * ROW);
 #pragma unroll
     for (int i = 0; i < PARTS; ++i) fence_regs(p[i]);
     turn_wait(wg);
-    wgmma_fence();
 #pragma unroll
-    for (int i = PARTS - 1; i >= 0; --i) {
+    for (int c = 0; c < HD / PV_N; ++c) {
+      float pv[PV_N / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<HD>(pv, p[i][kk], v_desc + ((16 * kk * ROW) >> 4), i < PARTS - 1 || kk > 0);
-    }
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait_all();
-    fence_regs(pv);
-    mbar_arrive(empty_bar(st));
+      for (int i = PARTS - 1; i >= 0; --i) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<PV_N>(pv, p[i][kk],
+                         v_desc + ((c * L::tile_sub + 16 * kk * ROW) >> 4),
+                         i < PARTS - 1 || kk > 0);
+      }
+      wgmma_commit();
+      if (c == HD / PV_N - 1) turn_pass(wg);
+      wgmma_wait_all();
+      fence_regs(pv);
+      if (c == HD / PV_N - 1) mbar_arrive(empty_bar(st));
 
-    // the running sum in fp32 on the CUDA cores: acc = acc * corr + pv
+      // the running sum in fp32 on the CUDA cores: acc = acc * corr + pv
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      acc[4 * j + 0] = fmaf(acc[4 * j + 0], corr_a, pv[4 * j + 0]);
-      acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
-      acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
-      acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+      for (int j = 0; j < PV_N / 8; ++j) {
+        const int a = 4 * (c * PV_N / 8 + j);
+        acc[a + 0] = fmaf(acc[a + 0], corr_a, pv[4 * j + 0]);
+        acc[a + 1] = fmaf(acc[a + 1], corr_a, pv[4 * j + 1]);
+        acc[a + 2] = fmaf(acc[a + 2], corr_b, pv[4 * j + 2]);
+        acc[a + 3] = fmaf(acc[a + 3], corr_b, pv[4 * j + 3]);
+      }
     }
   }
 
@@ -442,14 +495,15 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 }
 
 // a 4-D map over (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16
-// tensor; the box is (hd, 1, rows, 1), past S the hardware fills zeros
+// tensor; the box is (span, 1, rows, 1), one sub-tile, past S the hardware
+// fills zeros
 template <int HD>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int S, int B,
                 int rows) {
   const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)heads * HD * 2,
                                  (cuuint64_t)S * heads * HD * 2};
-  const cuuint32_t box[4] = {HD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {Layout<HD>::span, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<HD>::tma,
@@ -482,7 +536,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
 }  // namespace
 
 // bf16 q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd), all contiguous and
-// 16-byte aligned; hd 16, 32 or 64 (fp32 is csrc/flash_attention_fwd_tf32.cu).
+// 16-byte aligned; hd 16, 32, 64 or 128 (fp32 is csrc/flash_attention_fwd_tf32.cu).
 // Returns the cudaError_t of the launch, or TENSOR_MAP_ERROR + a CUresult (0
 // on success); the caller raises on anything else.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
@@ -493,6 +547,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int 
     case 16: return launch_tc<16>(q, k, v, o, B, S, H, K, causal, scale, st);
     case 32: return launch_tc<32>(q, k, v, o, B, S, H, K, causal, scale, st);
     case 64: return launch_tc<64>(q, k, v, o, B, S, H, K, causal, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, B, S, H, K, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

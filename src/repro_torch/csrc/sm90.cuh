@@ -100,14 +100,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ----------------------------------------------------------------- TMA ---
 
-// one TMA load of a box at coordinates (0, c1, c2, c3) of a 4-D map,
+// one TMA load of a box at coordinates (c0, c1, c2, c3) of a 4-D map,
 // completing on bar
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c1, int c2, int c3) {
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
 

@@ -25,7 +25,9 @@ from repro_torch.kernels.ref import chunked_attention_ref
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-HEAD_DIMS = (16, 32, 64)  # the kernels' instantiations
+# each type's kernel instantiations: the bf16 kernel splits an hd-128 tile
+# into two 64-column halves; the fp32 kernel has no hd-128 build
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (16, 32, 64)}
 # each type's library, C entry and error string; both entries take
 # (q, k, v, out, B, S, H, K, hd, causal, scale, stream)
 _LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string"),
@@ -69,8 +71,9 @@ def _check(q, k, v):
                          f"got k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % k.shape[2]:
         raise ValueError(f"query heads {H} not a multiple of kv heads {k.shape[2]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not built; the kernel takes {HEAD_DIMS}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {hd} not built for {q.dtype}; the kernel takes "
+                         f"{HEAD_DIMS[q.dtype]}")
     # both kernels read rows from each tensor's base address in 16-byte
     # pieces (TMA for bf16, vector loads for fp32), so the base must be
     # 16-byte aligned; a contiguous view into a larger tensor need not be

@@ -1,12 +1,11 @@
 """Transformer layer primitives of the port, dense half (mirror of
-``repro.models.layers``): RMSNorm, RoPE, GQA attention (dense, chunked and
-flash-kernel paths) and the SwiGLU FFN.
+``repro.models.layers``): RMSNorm, RoPE, GQA attention (dense, chunked,
+flash-kernel and KV-cache decode paths) and the SwiGLU FFN.
 
 Shape conventions: activations (B, S, D); per-head tensors (B, S, H, hd); all
 matmul weights stored ``(..., d_in, d_out)`` and applied as ``x @ W``. The
 JAX package's ``logical(...)`` sharding annotations are identities here.
-MLA attention and decode come with later slices (ROADMAP Queue 1, items 8
-and 9).
+MLA attention comes with a later slice (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ class ParamSpec:
     axes: Tuple           # logical axis names, len == len(shape)
     init: str = "fan_in"  # fan_in | normal | zeros | ones
     scale: float = 1.0
-    dtype: Optional[str] = None  # None => model dtype
+    dtype: Optional[str] = None  # None => model dtype (caches too)
 
 
 def materialize(spec: ParamSpec, generator: torch.Generator, dtype: torch.dtype,
@@ -208,6 +207,23 @@ def attention(q, k, v, causal=True, q_offset=0, impl: str = "auto",
     return _dense_attention(q, k, v, causal, q_offset)
 
 
+def decode_attention(q, k_cache, v_cache, pos: int):
+    """q: (B,1,H,hd); caches (B,S,K,hd); attend to positions <= pos. Scores
+    in fp32, masked to -1e30 past ``pos``, probabilities cast to the cache's
+    type before the P.V product (fp32 sums), as the JAX package does."""
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    S = k_cache.shape[1]
+    qf = q.reshape(B, K, G, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qf.float(), k_cache.float()) / (hd ** 0.5)
+    mask = torch.arange(S, device=q.device) <= pos
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs.float(), v_cache.float())
+    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
@@ -227,12 +243,23 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str):
-    """Self-attention over the whole sequence (``train`` mode). Returns y."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet (ROADMAP Queue 1, "
-            f"item 8: serving)")
+def gqa_cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    kv_seq = "long_seq" if batch == 1 else "kv_seq"
+    return {
+        "k": ParamSpec((batch, seq, K, hd), ("batch", kv_seq, "kv_heads", None), "zeros"),
+        "v": ParamSpec((batch, seq, K, hd), ("batch", kv_seq, "kv_heads", None), "zeros"),
+    }
+
+
+def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None):
+    """mode: train | prefill | decode. Returns (y, new_cache).
+
+    prefill: causal self-attention over the prompt; new_cache holds its k
+    and v after qk-norm and RoPE, in ``x.dtype``. decode: x is one token
+    (S = 1); k and v are written into ``cache`` at ``pos`` in place (the
+    cache tensors are consumed and come back as new_cache), then the token
+    attends to positions <= pos. train: new_cache is None."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm"], cfg.rms_eps)
@@ -244,9 +271,23 @@ def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str):
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
-                    chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+
+    new_cache = None
+    if mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        if not 0 <= pos <= kc.shape[1] - S:
+            raise ValueError(f"decode position {pos} outside the cache's "
+                             f"{kc.shape[1]} positions")
+        kc[:, pos:pos + S] = k.to(kc.dtype)
+        vc[:, pos:pos + S] = v.to(vc.dtype)
+        out = decode_attention(q, kc, vc, pos)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                        chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+        if mode == "prefill":
+            new_cache = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units;
 the unit's parameters are stacked ``(n_units, ...)`` exactly as in the JAX
-package, so tree paths, leaf shapes and optimizer buckets match. The forward
-walks the stack with a Python loop over ``torch.unbind`` slices.
+package, so tree paths, leaf shapes and optimizer buckets match, and so is
+the KV cache (``stack/layer_j/{k,v}`` of shape ``(n_units, B, S, K, hd)``).
+The forward walks the stack with a Python loop over ``torch.unbind`` slices.
 """
 from __future__ import annotations
 
@@ -54,6 +55,14 @@ def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict[str, Any]:
     return specs
 
 
+def _cache_specs(cfg: ModelConfig, mixer: str, batch: int, seq: int):
+    if mixer != "gqa":
+        raise NotImplementedError(
+            f"the {mixer!r} cache is not ported yet (ROADMAP Queue 1, item 9: "
+            f"MLA, MoE, SSM and frontend families)")
+    return L.gqa_cache_specs(cfg, batch, seq)
+
+
 def _stack_specs(specs, n_units: int):
     if isinstance(specs, dict):
         return {k: _stack_specs(v, n_units) for k, v in specs.items()}
@@ -82,6 +91,27 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
+def build_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
+    q, p, n = plan_stack(cfg.pattern)
+    specs: Dict[str, Any] = {}
+    for i in range(q):
+        mixer, _ = cfg.pattern[i]
+        specs[f"prefix_{i}"] = _cache_specs(cfg, mixer, batch, seq)
+    if n:
+        unit = {f"layer_{j}": _cache_specs(cfg, cfg.pattern[q + j][0], batch, seq)
+                for j in range(p)}
+        specs["stack"] = _stack_specs(unit, n)
+    return specs
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> Dict[str, Any]:
+    """A zeroed decode cache of ``seq`` positions, in the model's type."""
+    return map_with_path(
+        lambda _path, sp: torch.zeros(sp.shape, dtype=torch_dtype(sp.dtype or cfg.dtype),
+                                      device=device),
+        build_cache_specs(cfg, batch, seq))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random parameters from ``seed``, drawn leaf by leaf in tree order from
     one ``torch.Generator`` on ``device``."""
@@ -107,60 +137,102 @@ def _spec_paths(specs, prefix=()):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, ffn, p, x, positions, mode):
-    x = x + L.gqa_apply(cfg, p["mixer"], x, positions, mode)
+def _apply_layer(cfg, ffn, p, x, positions, mode, cache=None, pos=None):
+    out, new_cache = L.gqa_apply(cfg, p["mixer"], x, positions, mode, cache, pos)
+    x = x + out
     if ffn == "dense":
         x = x + L.ffn_apply(cfg, p["ffn"], x)
-    return x
+    return x, new_cache
+
+
+def lm_head(cfg: ModelConfig, params) -> torch.Tensor:
+    """The (d, padded_vocab) output projection: the embedding's transpose
+    when tied."""
+    return params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            mode: str = "train", remat: str = "full", return_hidden: bool = False):
-    """mode: train. Returns (logits, None, aux); with ``return_hidden`` the
-    first element is the final-norm hidden state. ``remat="full"`` keeps
-    only each unit's input and recomputes the unit in the backward
-    (``torch.utils.checkpoint``), which changes no number."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"forward mode {mode!r} is not ported yet (ROADMAP Queue 1, item 8: "
-            f"serving)")
+            mode: str = "train", cache=None, pos=None, remat: str = "full",
+            return_hidden: bool = False):
+    """mode: train | prefill | decode. Returns (logits, new_cache, aux); with
+    ``return_hidden`` the first element is the final-norm hidden state.
+
+    prefill returns the prompt's cache, stacked as ``build_cache_specs``
+    lays it out for S = the prompt's length. decode takes one token a row
+    (``batch["tokens"]`` of shape (B, 1)) at position ``pos`` (an int) and a
+    cache of ``init_cache``'s layout, writes each layer's k and v into it
+    at ``pos`` in place and returns it: the cache passed in is consumed, as
+    the JAX package's decode step consumes its donated cache. train and
+    prefill ignore ``cache``. ``remat="full"`` keeps only each unit's input
+    and recomputes the unit in the backward (``torch.utils.checkpoint``),
+    which changes no number."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown forward mode {mode!r}")
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs a cache (init_cache, filled by prefill)")
     q, p, n = plan_stack(cfg.pattern)
     tokens = batch["tokens"].long()
     B, S = tokens.shape
     x = params["embed"]["tokens"][tokens]
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
+    if mode == "decode":
+        positions = torch.full((B, S), int(pos), dtype=torch.int32, device=tokens.device)
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: Dict[str, Any] = {}
 
     for i in range(q):
         _, ffn = cfg.pattern[i]
-        x = _apply_layer(cfg, ffn, params[f"prefix_{i}"], x, positions, mode)
+        c = cache.get(f"prefix_{i}") if mode == "decode" else None
+        x, nc = _apply_layer(cfg, ffn, params[f"prefix_{i}"], x, positions, mode, c, pos)
+        if nc is not None:
+            new_cache[f"prefix_{i}"] = nc
 
     if n:
         unit_kinds = [cfg.pattern[q + j] for j in range(p)]
         stacked = tree_paths(params["stack"])
         slices = {path: torch.unbind(t, 0) for path, t in stacked}
+        stack_cache = cache["stack"] if mode == "decode" else None
 
         def apply_unit(x_in, u):
             unit = map_with_path(lambda path, _t: slices[path][u], params["stack"])
+            # unit u's cache slices are views: a write lands in the stack
+            unit_cache = (map_with_path(lambda _path, t: t[u], stack_cache)
+                          if stack_cache is not None else None)
+            ncs = {}
             for j, (_, ffn) in enumerate(unit_kinds):
-                x_in = _apply_layer(cfg, ffn, unit[f"layer_{j}"], x_in,
-                                    positions, mode)
-            return x_in
+                cj = unit_cache[f"layer_{j}"] if unit_cache is not None else None
+                x_in, nc = _apply_layer(cfg, ffn, unit[f"layer_{j}"], x_in, positions,
+                                        mode, cj, pos)
+                if nc is not None:
+                    ncs[f"layer_{j}"] = nc
+            return x_in, ncs
 
         for u in range(n):
-            if remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(apply_unit, x, u, use_reentrant=False)
-            else:
-                x = apply_unit(x, u)
+            if mode == "train" and remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(lambda x_in, u: apply_unit(x_in, u)[0], x, u,
+                               use_reentrant=False)
+                continue
+            x, ncs = apply_unit(x, u)
+            if mode == "prefill":
+                # each unit's prompt cache goes into its slot of one stacked
+                # tensor per leaf, allocated at the first unit
+                if u == 0:
+                    stack_cache = map_with_path(
+                        lambda _path, t: t.new_empty((n,) + tuple(t.shape)), ncs)
+                map_with_path(lambda _path, dst, src: dst[u].copy_(src),
+                              stack_cache, ncs)
+        if stack_cache is not None:
+            new_cache["stack"] = stack_cache
 
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    out_cache = new_cache if new_cache else None
     if return_hidden:
-        return x, None, aux
-    head = params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, None, aux
+        return x, out_cache, aux
+    return x @ lm_head(cfg, params), out_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +255,7 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: str = "full"):
     backward), so the full (B, S, V) fp32 logits never exist there."""
     hidden, _, aux = forward(cfg, params, batch, "train", remat=remat,
                              return_hidden=True)
-    head = params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+    head = lm_head(cfg, params)
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     labels_c = torch.clamp(labels, min=0)

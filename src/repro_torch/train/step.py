@@ -1,4 +1,6 @@
-"""Training step of the port (mirror of ``repro.train.step.make_train_step``).
+"""Training, serving and evaluation steps of the port (mirror of
+``repro.train.step``: ``make_train_step``, ``make_serve_step``,
+``make_prefill_step`` and ``eval_step``).
 
 ``make_train_step`` builds ``(params, opt_state, batch, step) -> (params,
 opt_state, metrics)`` with optional microbatch gradient accumulation (fp32
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mixed import clip_by_global_norm
 from repro_torch.core.types import Optimizer, apply_updates, map_with_path
+from repro_torch.models.model import forward, lm_head, loss_fn
 from repro_torch.train import pipeline
 
 
@@ -79,3 +82,40 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (params, cache, tokens (B,1), pos) -> (next_token
+    (B,1) int32, logits (B,1,padded_vocab), cache). The cache passed in is
+    updated in place and returned (``forward``'s decode mode); the greedy
+    token is the argmax over the real vocabulary, padding excluded."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        logits, new_cache, _ = forward(cfg, params, {"tokens": tokens}, "decode",
+                                       cache=cache, pos=pos)
+        next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1).to(torch.int32)
+        return next_tok[:, None], logits, new_cache
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Prompt ingestion: (params, batch) -> (last-token logits (B,
+    padded_vocab), prompt cache). The LM head is applied to the last
+    position only, so the (B, S, padded_vocab) logits are never formed; each
+    logit is the same dot product as in the full forward, summed in the
+    order the matmul picks for its shape."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        hidden, cache, _ = forward(cfg, params, batch, "prefill", return_hidden=True)
+        return hidden[:, -1] @ lm_head(cfg, params), cache
+
+    return prefill_step
+
+
+@torch.no_grad()
+def eval_step(cfg: ModelConfig, params, batch):
+    _, metrics = loss_fn(cfg, params, batch, remat="none")
+    return metrics

@@ -98,10 +98,13 @@ def _inputs(B, S, H, K, hd, seed):
 
 
 # (B, S, H, K, hd, causal): ragged S, on and just past the key tile's edge,
-# causal and not, and the narrow head dims with G = 4
+# causal and not, the narrow head dims with G = 4, and hd 128 (qwen3-4b's:
+# two 64-column halves of each tile, P.V over 128 columns) with G = 4
 CASES = [(1, 1000, 4, 1, 64, True), (1, 1000, 4, 1, 64, False),
          (1, 65, 4, 1, 64, True), (2, 129, 8, 2, 64, False),
-         (2, 77, 8, 2, 16, True), (1, 130, 8, 2, 32, False)]
+         (2, 77, 8, 2, 16, True), (1, 130, 8, 2, 32, False),
+         (1, 1000, 4, 1, 128, True), (1, 1000, 4, 1, 128, False),
+         (2, 129, 8, 2, 128, True)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}".format(

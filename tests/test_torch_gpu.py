@@ -193,7 +193,8 @@ def test_rmnp_kernel_rejects_what_it_does_not_take(cuda):
 
 # (name, B, S, H, K, hd, dtype, causal): both types run on the tensor
 # cores; the main path's shape causal and not, GQA with a ragged S, hd 32
-# and 16 with G = 4, and ragged S around the key tiles, in each type
+# and 16 with G = 4, and ragged S around the key tiles, in each type; bf16
+# also at hd 128 (qwen3-4b's heads, G = 4)
 ATTN = [("gpt2_small", 8, 1024, 12, 12, 64, torch.bfloat16, True),
         ("gpt2_small_noncausal", 8, 1024, 12, 12, 64, torch.bfloat16, False),
         ("gqa_ragged", 2, 1000, 8, 2, 64, torch.bfloat16, True),
@@ -204,6 +205,9 @@ ATTN = [("gpt2_small", 8, 1024, 12, 12, 64, torch.bfloat16, True),
         ("hd16_g4", 1, 77, 8, 2, 16, torch.bfloat16, True),
         ("hd16_g4_s1000", 2, 1000, 8, 2, 16, torch.bfloat16, True)]
 ATTN += [(f"s{S}", 2, S, 8, 2, 64, torch.bfloat16, True) for S in (1, 63, 65, 129)]
+ATTN += [("hd128_g4", 2, 1024, 32, 8, 128, torch.bfloat16, True),
+         ("hd128_g4_ragged_noncausal", 2, 1000, 8, 2, 128, torch.bfloat16, False),
+         ("hd128_s65", 2, 65, 8, 2, 128, torch.bfloat16, True)]
 ATTN += [("gpt2_small_fp32", 8, 1024, 12, 12, 64, torch.float32, True),
          ("gpt2_small_fp32_noncausal", 8, 1024, 12, 12, 64, torch.float32, False),
          ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, torch.float32, False),
@@ -363,9 +367,13 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_fwd_kernel(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_fwd_kernel(q[:, :, :3].contiguous(), k, v)
-    q128, k128, v128 = _qkv(1, 64, 2, 2, 128, torch.bfloat16)
+    # hd 128 is built for bf16 only, and hd 96 for neither type
+    q128, k128, v128 = _qkv(1, 64, 2, 2, 128, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd_kernel(q128, k128, v128)
+    q96, k96, v96 = _qkv(1, 64, 2, 2, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd_kernel(q96, k96, v96)
 
 
 # (L, M, N, K, B transposed, C given, alpha, beta): the Newton-Schulz launch
@@ -599,3 +607,28 @@ def test_guard_on_the_card_skips_the_poisoned_step_bitwise(cuda):
         if t != 2:
             params, state, _ = step_fn(params, state, batch, t)
     assert _same_bits((params, state), (p_g, s_g))
+
+
+def test_reduced_qwen3_serving_on_the_card_matches_the_cpu(cuda):
+    """Prefill (the fp32 flash kernel, one launch a layer) and 6 decode
+    steps of reduced qwen3 with GQA, from one CPU init: the card's greedy
+    tokens are the CPU's and every logit agrees to 1e-4 of the largest
+    (fp32 matmuls without TF32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    cfg = get_config("qwen3-4b").reduced(n_heads=8, n_kv_heads=2, head_dim=16,
+                                         attn_impl="pallas")
+    init = init_params(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    reset_launches()
+    card = generate(cfg, tree_map(lambda t: t.to("cuda"), init), prompts.to("cuda"), 7,
+                    keep_logits=True)
+    assert LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+    cpu = generate(cfg, init, prompts, 7, keep_logits=True)
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    for got, want in zip(card["logits"], cpu["logits"], strict=True):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert card["peak_bytes"] > 0 and len(card["decode_ms"]) == 6

@@ -44,7 +44,9 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/distributed/comm.py",
                      "src/repro_torch/distributed/compression.py",
                      "src/repro_torch/distributed/sharding.py",
-                     "tools/step_repeat.py"):
+                     "src/repro_torch/launch/serve.py",
+                     "src/repro_torch/configs/qwen3_4b.py",
+                     "tools/step_repeat.py", "tools/flash_hd128_variants.py"):
         assert expected in names
 
 
