@@ -8,7 +8,9 @@ Phases:
          started together, from the sources in this checkout;
   A      the RMNP kernel (csrc/rmnp_update.cu; apply and precondition, one
          line each) against its plain versions at the four gpt2-small
-         bucket shapes and llama-130m's five (2048x768 at split K = 6),
+         bucket shapes, llama-130m's five (2048x768 at split K = 6) and
+         the 13 of deepseek-v2-lite-16b cut to 3 layers (the expert
+         stacks 2048x2816 and 1408x2048 at L = 128 among them),
          fp32 and bf16 momentum, bf16 weights (the main
          path's), and for the apply kernel also fp32 weights, whose update
          w_new - w is held against the plain version's at its own
@@ -25,11 +27,16 @@ Phases:
          129}, each fp32 case also against a float64 softmax; bf16 also at
          hd 128: qwen3-4b's prefill shape (B=8 S=1024 H=32 K=8) causal and
          not, the ragged GQA shape causal and not, and S in {1, 63, 65,
-         129}; two launches must give the same bits; 40 seeds of a
+         129}; bf16 also at MLA's q/k 192, v 128 with v a strided column
+         slice: deepseek-v2-lite's prefill shape (B=8 S=1024 H=K=16) causal
+         and not, a ragged S causal and not, and S in {1, 63, 65, 129},
+         each also against a contiguous copy of v bit for bit; two
+         launches must give the same bits; 40 seeds of a
          non-causal S=1000 GQA head must all hold the limit in each type
-         (20 more at hd 128 in bf16); the ptxas report of both kernels is
-         printed, and cuobjdump must find HGMMA in each instantiation of
-         each (bf16 hd 16-128, fp32 hd 16-64); an fp32 row's bound is
+         (20 more at hd 128 and 20 at (192, 128) in bf16); the ptxas
+         report of both kernels is printed, and cuobjdump must find HGMMA
+         in each instantiation of each (bf16 (hd, hdv) (16, 16) to
+         (128, 128) and (192, 128), fp32 hd 16-64); an fp32 row's bound is
          that of its 3xTF32 products on the tensor cores, the FFMA bound is
          recorded beside it, and a bf16 row's kernel floor with P.V as three
          products beside its bound; F.scaled_dot_product_attention is timed
@@ -69,7 +76,10 @@ Phases:
          the same steps with the plain versions on the CPU; reduced qwen3
          (GQA, H=8 K=2 hd=16, fp32, the fp32 flash kernel in the prefill)
          served for a prefill and 8 decode steps, card against CPU: the
-         same greedy tokens, logits within 1e-4 of the largest;
+         same greedy tokens, logits within 1e-4 of the largest; reduced
+         deepseek-v2-lite-16b and minicpm3-4b (MLA, MoE; fp32, the fp32
+         flash kernel) card against CPU: loss and aux, every gradient,
+         the MoE routing, served tokens and logits;
   S      serving qwen3-4b at full width (bf16, seed 0, B=8, T=1024, 128 new
          tokens, S_max=1152) through repro_torch.launch.serve.serve and the
          step functions: S1 the prefill with attn_impl="pallas" (the bf16
@@ -80,6 +90,22 @@ Phases:
          within S_LOGIT_TOL, and decoding at pos + 1 outside it; S3 prefill
          ms in each mode, decode ms a step over 127 steps (median, min,
          max), tokens per second and peak device memory;
+  M1     deepseek-v2-lite-16b cut to its first 3 layers (the dense prefix
+         and 2 MoE units) at full width, trained with single-pass RMNP
+         (B=8, S=1024, bf16, seed 0): 3 timed steps, 13 apply launches
+         each, tokens/s and peak memory; a second run equals the first bit
+         for bit after 2 steps; the per-leaf engine equals the single-pass
+         one bit for bit on the expert stacks;
+  M2     serving deepseek-v2-lite-16b at full width and depth (bf16, seed
+         0, B=8, T=1024, 128 new tokens, S_max=1152) through
+         launch/serve.serve with the flash prefill (27 launches of the
+         (192, 128) kernel, counted): init time and peak, prefill ms with
+         flash and dense attention, decode ms a step, tokens per second,
+         the serving peak; at capacity factor E / K (nothing dropped) the
+         flash prefill against dense and decode against a teacher-forced
+         dense forward within M_LOGIT_TOL, each control (non-causal;
+         pos + 1) at least 4x outside, and the share of routings on
+         which the flash and dense prefills agree;
   R      checkpointing and the non-finite guard on llama-130m at full width
          (B=8, S=1024, bf16, single-pass RMNP, 6 steps of
          repro_torch.launch.train.train, 5 apply launches a step):
@@ -122,6 +148,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -140,6 +167,13 @@ BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768)]
 # bucket does; the untied head and the embedding are buckets of one)
 LLAMA_BUCKETS = [(48, 768, 768), (12, 768, 4096), (12, 2048, 768), (1, 768, 32000),
                  (1, 32000, 768)]
+# deepseek-v2-lite-16b cut to its first 3 layers (phase M1): 13 buckets, the
+# expert stacks at L = 2 units x 64 experts, the dense prefix's FFN, the
+# untied head and the embedding (1,670,119,424 matrix elements)
+DS_BUCKETS = [(3, 512, 4096), (128, 1408, 2048), (2, 2048, 64), (3, 2048, 576),
+              (3, 2048, 2048), (128, 2048, 2816), (3, 2048, 3072), (2, 2048, 5632),
+              (1, 2048, 21888), (1, 2048, 102400), (2, 2816, 2048), (1, 10944, 2048),
+              (1, 102400, 2048)]
 # Phase C3, flash against dense attention in bf16 at full width: the loss,
 # and the final hidden state by relative Frobenius distance. The dense path
 # rounds its probabilities to bf16 and the kernel keeps them in fp32, so the
@@ -314,10 +348,13 @@ def phase_rmnp():
     rows, bitwise = {name: [] for name in kernels}, []
     summary = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0,
                       "plain_ms": 0.0, "bound_ms": 0.0,
-                      "llama": {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                "max_abs_err": 0.0}} for name in kernels}
+                      **{other: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                 "max_abs_err": 0.0} for other in ("llama", "deepseek")}}
+               for name in kernels}
+    others = {"llama-130m": "llama", "deepseek-v2-lite-16b-3L": "deepseek"}
     for model, shape in ([("gpt2-small", b) for b in BUCKETS]
-                         + [("llama-130m", b) for b in LLAMA_BUCKETS]):
+                         + [("llama-130m", b) for b in LLAMA_BUCKETS]
+                         + [("deepseek-v2-lite-16b-3L", b) for b in DS_BUCKETS]):
         layout = rm.split(*shape[1:])
         path = "one-read" if layout.one_read else "two-sweep"
         check(layout.one_read, f"rmnp {shape}: split {layout} takes the two-sweep path")
@@ -370,8 +407,8 @@ def phase_rmnp():
                       f"{rec['plain_ms']:.4f} ms; K={layout.K} R={layout.R} C={layout.C} "
                       f"threads={layout.threads}, {path}, {clusters} clusters at once",
                       flush=True)
-                if (vdt, wdt) == combos[0] and model == "llama-130m":
-                    s = summary[name]["llama"]
+                if (vdt, wdt) == combos[0] and model in others:
+                    s = summary[name][others[model]]
                     s["max_abs_err"] = max(s["max_abs_err"], err)
                     for k in ("ms", "plain_ms", "bound_ms"):
                         s[k] += rec["kernel_ms" if k == "ms" else k]
@@ -433,9 +470,11 @@ def rmnp_bitwise(shape, gen, beta, eps):
     return rec
 
 
-def attention_flops(B, S, H, hd, causal=True):
+def attention_flops(B, S, H, hd, causal=True, hdv=None, pv_parts=1):
+    """Q.K^T over hd and P.V over hdv (``pv_parts`` products, as the bf16
+    kernel's three parts of P) for each (query, key) pair attended."""
     pairs = S * (S + 1) // 2 if causal else S * S  # causal: the lower triangle
-    return 4 * B * H * hd * pairs
+    return 2 * B * H * pairs * (hd + pv_parts * (hdv or hd))
 
 
 def template_args(mangled):
@@ -490,17 +529,18 @@ def hgmma_counts(library):
     return counts
 
 
-def attention_bounds(B, S, H, K, hd, dtype, causal):
+def attention_bounds(B, S, H, K, hd, dtype, causal, hdv=None):
     """(bound_ms, bound_by, ffma_ms or None): q/k/v read once and the output
     written once over the memory rate, against the FLOP at the peak of the
     units the kernel runs them on: bf16 on the tensor cores; fp32 as three
     TF32 products per fp32 product on the tensor cores (3xTF32). For fp32
     also the same with the FLOP at the CUDA cores' FFMA rate, for the
-    record only."""
+    record only. ``hdv``: v's and the output's head dim, if not hd."""
     import torch
+    hdv = hdv or hd
     size = 2 if dtype == torch.bfloat16 else 4
-    t_bytes = (2 * B * S * H * hd + 2 * B * S * K * hd) * size / HBM_BYTES_PER_S * 1e3
-    flops = attention_flops(B, S, H, hd, causal)
+    t_bytes = (B * S * H * (hd + hdv) + B * S * K * (hd + hdv)) * size / HBM_BYTES_PER_S * 1e3
+    flops = attention_flops(B, S, H, hd, causal, hdv)
     t_ops = (flops / BF16_FLOPS if size == 2 else 3 * flops / TF32_FLOPS) * 1e3
     ffma = None if size == 2 else max(flops / FP32_FLOPS * 1e3, t_bytes)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ffma
@@ -520,9 +560,16 @@ def exact_attention(q, k, v, causal):
     return (torch.softmax(s, -1) @ vd).transpose(1, 2)
 
 
-def attention_inputs(gen, B, S, H, K, hd, dtype):
+def attention_inputs(gen, B, S, H, K, hd, dtype, hdv=None):
+    """q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hdv). With hdv != hd, v is MLA's
+    layout: the last hdv columns of a (B,S,K,hd_nope + hdv) tensor whose
+    first columns are k's nope part (hd_nope = hdv here), a strided view."""
     import torch
-    return [torch.randn(B, S, h, hd, generator=gen, device="cuda").to(dtype) for h in (H, K, K)]
+    q, k = (torch.randn(B, S, h, hd, generator=gen, device="cuda").to(dtype) for h in (H, K))
+    if hdv is None or hdv == hd:
+        return [q, k, torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)]
+    kv = torch.randn(B, S, K, 2 * hdv, generator=gen, device="cuda").to(dtype)
+    return [q, k, kv[..., hdv:]]
 
 
 def phase_attention():
@@ -532,7 +579,7 @@ def phase_attention():
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
-    # (name, B, S, H, K, hd, dtype, causal, timed): in each type the main
+    # (name, B, S, H, K, hd, dtype, causal, timed[, hdv]): in each type the main
     # path's shape causal and not, GQA with a ragged S causal and not, hd 32
     # and 16 with G = 4, and ragged S around the 64-key tile and the 128-row
     # query tile; timed: bf16 at the main shape causal and not and at the
@@ -552,6 +599,15 @@ def phase_attention():
               ("gqa_ragged_hd128", 2, 1000, 8, 2, 128, bf16, True, False),
               ("gqa_ragged_hd128_noncausal", 2, 1000, 8, 2, 128, bf16, False, False)]
     cases += [(f"s{S}_hd128", 2, S, 8, 2, 128, bf16, True, False) for S in (1, 63, 65, 129)]
+    # bf16 at MLA's head dims, q/k 192 and v 128 (v a strided column slice,
+    # as MLA's): deepseek-v2-lite's prefill shape causal (timed, row 3 at
+    # (192, 128)) and not, a ragged S causal and not, S around the tiles' edges
+    cases += [("deepseek_mla", 8, 1024, 16, 16, 192, bf16, True, True, 128),
+              ("deepseek_mla_noncausal", 8, 1024, 16, 16, 192, bf16, False, False, 128),
+              ("ragged_mla", 2, 1000, 16, 16, 192, bf16, True, False, 128),
+              ("ragged_mla_noncausal", 2, 1000, 16, 16, 192, bf16, False, False, 128)]
+    cases += [(f"s{S}_mla", 2, S, 16, 16, 192, bf16, True, False, 128)
+              for S in (1, 63, 65, 129)]
     cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
               ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
               ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
@@ -567,20 +623,26 @@ def phase_attention():
     # differ by one bf16 step, at most 2^-7 of the element.
     rtol = {bf16: 2.0 ** -7, fp32: 1e-5}
     rows, inputs = [], {}
-    for name, B, S, H, K, hd, dt, causal, timed in cases:
-        q, k, v = attention_inputs(gen, B, S, H, K, hd, dt)
+    for name, B, S, H, K, hd, dt, causal, timed, *rest in cases:
+        hdv = rest[0] if rest else hd
+        q, k, v = attention_inputs(gen, B, S, H, K, hd, dt, hdv)
         inputs[name] = (q, k, v, causal)
         out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
         ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                            block_q=min(512, S), block_k=min(512, S))
         torch.cuda.synchronize()
         e, ratio = elementwise_err(out, ref, rtol[dt])
-        check(out.shape == q.shape and torch.isfinite(out.float()).all().item(),
+        check(out.shape == (B, S, H, hdv) and torch.isfinite(out.float()).all().item(),
               f"attention {name}: bad output")
         check(ratio <= 1.0, f"attention {name}: max_abs_err {e}, worst ratio {ratio} > 1")
-        rec = {"case": name, "B": B, "S": S, "H": H, "K": K, "hd": hd,
+        rec = {"case": name, "B": B, "S": S, "H": H, "K": K, "hd": hd, "hdv": hdv,
                "dtype": str(dt).split(".")[1], "causal": causal, "max_abs_err": e,
                "worst_ratio": ratio}
+        if hdv != hd:  # the strided v, the kernel's input, against a contiguous copy
+            rec["v_strides"] = list(v.stride())
+            again = fa.flash_attention_fwd_kernel(q, k, v.contiguous(), causal=causal)
+            check(torch.equal(again, out), f"attention {name}: a contiguous v changes bits")
+            del again
         if dt == fp32:
             # also against a float64 softmax, so that a miss is assigned to
             # the kernel or to the plain version
@@ -597,29 +659,32 @@ def phase_attention():
             rec.update(
                 kernel_ms=time_ms(lambda: fa.flash_attention_fwd_kernel(q, k, v, causal=causal)),
                 plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
-                    q, k, v, causal=causal, block_q=min(512, S), block_k=min(512, S)), iters=3),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=K != H)))
+                    q, k, v, causal=causal, block_q=min(512, S), block_k=min(512, S)), iters=3))
+            try:  # the yardstick; SDPA may take no hdv != hd on this build
+                rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=K != H))
+            except RuntimeError as err:
+                rec["library_ms"], rec["library_error"] = None, str(err)[:200]
             del qt, kt, vt
-            bound, by, ffma = attention_bounds(B, S, H, K, hd, dt, causal)
+            bound, by, ffma = attention_bounds(B, S, H, K, hd, dt, causal, hdv)
             rec.update(bound_ms=bound, bound_by=by)
             if ffma is not None:
                 rec["bound_ffma_ms"] = ffma
             else:
                 # the kernel's own floor: P.V as three bf16 products
-                rec["flops"] = attention_flops(B, S, H, hd, causal)
-                rec["flops_three_part"] = 2 * rec["flops"]
+                rec["flops"] = attention_flops(B, S, H, hd, causal, hdv)
+                rec["flops_three_part"] = attention_flops(B, S, H, hd, causal, hdv, pv_parts=3)
                 rec["bound_three_part_ms"] = max(bound,
                                                  rec["flops_three_part"] / BF16_FLOPS * 1e3)
-            rec["tflops"] = attention_flops(B, S, H, hd, causal) / rec["kernel_ms"] / 1e9
+            rec["tflops"] = attention_flops(B, S, H, hd, causal, hdv) / rec["kernel_ms"] / 1e9
             print(f"attention {name}: {rec['kernel_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
                   + (f", FFMA bound {ffma:.4f} ms" if ffma is not None else "")
-                  + f", SDPA {rec['library_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms",
+                  + f", SDPA {rec['library_ms']} ms, plain {rec['plain_ms']:.4f} ms",
                   flush=True)
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
-    for name in ("main", "main_fp32", "qwen3_hd128"):
+    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla"):
         q, k, v, causal = inputs[name]
         a = fa.flash_attention_fwd_kernel(q, k, v)
         b = fa.flash_attention_fwd_kernel(q, k, v)
@@ -635,11 +700,11 @@ def phase_attention():
     # elements (PERF.md, PR 17), so a reading against it measures the plain
     # version; the kernel's reading against the plain version is reported
     # beside it.
-    def seeds_over_limit(dt, n=40, hd=64):
+    def seeds_over_limit(dt, n=40, hd=64, hdv=None, kv_heads=1):
         over, worst, ratios = 0, 0.0, []
         g = torch.Generator(device="cuda").manual_seed(3)
         for _ in range(n):
-            q, k, v = attention_inputs(g, 1, 1000, 4, 1, hd, dt)
+            q, k, v = attention_inputs(g, 1, 1000, 4, kv_heads, hd, dt, hdv)
             got = fa.flash_attention_fwd_kernel(q, k, v, causal=False)
             want = fa.flash_attention_fwd_plain(q, k, v, causal=False)
             if dt == fp32:
@@ -659,7 +724,8 @@ def phase_attention():
         return out
 
     stress = {"bf16": seeds_over_limit(bf16), "fp32": seeds_over_limit(fp32),
-              "bf16_hd128": seeds_over_limit(bf16, n=20, hd=128)}
+              "bf16_hd128": seeds_over_limit(bf16, n=20, hd=128),
+              "bf16_hd192_hdv128": seeds_over_limit(bf16, n=20, hd=192, hdv=128, kv_heads=4)}
     check(all(r["over_limit"] == 0 for r in stress.values()),
           f"attention: the non-causal seed sweep missed the limit {stress}")
     ptxas, hgmma = {}, {}
@@ -668,10 +734,12 @@ def phase_attention():
         lines = ptxas_lines(build.PTXAS_REPORTS.get(lib, ""), kernel, "hd")
         counts = hgmma_counts(build.library_path(lib))
         ours = {n: c for n, c in counts.items() if n.startswith(kernel)}
-        check(len(ours) == len(fa.HEAD_DIMS[dt]) and all(c > 0 for c in ours.values())
-              and all(f"{kernel}_{hd}" in ours for hd in fa.HEAD_DIMS[dt]),
+        # the bf16 kernel is a template over (hd, hdv), the fp32 one over hd
+        keys = [f"{hd}_{hdv}" if dt == bf16 else f"{hd}" for hd, hdv in fa.HEAD_DIM_PAIRS[dt]]
+        check(len(ours) == len(keys) and all(c > 0 for c in ours.values())
+              and all(f"{kernel}_{key}" in ours for key in keys),
               f"attention: HGMMA missing from {kernel}'s SASS: {counts}")
-        check(all(f"hd{hd}" in lines for hd in fa.HEAD_DIMS[dt]),
+        check(all(f"hd{key}" in lines for key in keys),
               f"attention: no ptxas line for each of {kernel}'s head dims: {lines}")
         for key, line in lines.items():
             print(f"ptxas {kernel} {key}: {line}", flush=True)
@@ -1397,7 +1465,8 @@ def phase_small():
     CPU. fp32 matmuls on the card run without TF32, and the losses and
     parameters agree to 1e-4 relative after 3 steps (Newton-Schulz keeps a
     relative difference near its size, see NS_REL_TOL). Then reduced qwen3
-    serving, card against CPU."""
+    serving, and reduced deepseek-v2-lite-16b and minicpm3-4b (MLA, MoE)
+    loss, gradients and serving, card against CPU."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import cosine_with_warmup, make_optimizer
@@ -1467,6 +1536,55 @@ def phase_small():
                                   "tokens_cuda": served["cuda"]["tokens"].tolist()})
     check(same, "reduced qwen3 serving: greedy tokens differ between the card and the CPU")
     check(rel <= 1e-4, f"reduced qwen3 serving: logits {rel} of the largest apart")
+
+    # reduced deepseek-v2-lite-16b (MLA, a dense prefix layer, MoE units
+    # with a shared expert) and minicpm3-4b (MLA with the q-LoRA branch) in
+    # fp32 with attn_impl="pallas" (the fp32 kernel at the reduced MLA's head
+    # dim 16): one loss and every gradient, and served tokens, card against
+    # CPU from one CPU init; the same 1e-4 bounds, and the MoE routing must
+    # match (fp32 router probabilities, no near tie at these draws)
+    from repro_torch.models import moe
+    from repro_torch.models.model import loss_fn
+    for arch in ("deepseek-v2-lite-16b", "minicpm3-4b"):
+        cfg = get_config(arch).reduced(attn_impl="pallas")
+        init = init_params(cfg, seed=0, device="cpu")
+        batch = make_stream(cfg, 64, 4, seed=0).sample(0)
+        prompts = torch.randint(0, cfg.vocab, (4, 32),
+                                generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params = tree_map(lambda t, d=device: t.to(d).requires_grad_(True), init)
+            routes = []
+            with routing(moe, record=routes):
+                reset_launches()
+                loss, metrics = loss_fn(cfg, params, batch_to_device(batch, device),
+                                        remat="none")
+                grads = torch.autograd.grad(loss, [t for _, t in tree_paths(params)])
+            routes = [r.cpu() for r in routes]
+            launches = LAUNCHES["flash_attention_fwd"]
+            with torch.no_grad():
+                served = generate(cfg, tree_map(lambda t: t.detach(), params),
+                                  prompts.to(device), 9, keep_logits=True)
+            runs[device] = (float(loss.detach()), float(metrics["aux"].detach()),
+                            [g.float().cpu() for g in grads], served, routes, launches)
+        (lc, ac, gc, sc, rc, nc), (lp, ap, gp, sp, rp, _) = runs["cuda"], runs["cpu"]
+        g_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(gc, gp, strict=True))
+        same = torch.equal(sc["tokens"].cpu(), sp["tokens"])
+        rel = max(max_err(a.cpu(), b) / float(b.abs().max())
+                  for a, b in zip(sc["logits"], sp["logits"], strict=True))
+        routes_equal = len(rc) == len(rp) and all(torch.equal(a, b) for a, b in zip(rc, rp))
+        emit(f"D_{arch}_vs_cpu", {"loss_cuda": lc, "loss_cpu": lp, "aux_cuda": ac,
+                                  "aux_cpu": ap, "grad_rel_err": g_err,
+                                  "tokens_equal": same, "logits_rel_err": rel,
+                                  "routing_equal": routes_equal, "moe_layers": len(rc),
+                                  "flash_launches_loss": nc})
+        check(nc == cfg.num_layers, f"{arch}: flash launches {nc}, want {cfg.num_layers}")
+        check(abs(lc - lp) <= 1e-4 * abs(lp) and abs(ac - ap) <= 1e-4 * max(abs(ap), 1e-30),
+              f"{arch}: loss cuda {lc} cpu {lp}, aux {ac} {ap}")
+        check(g_err <= 1e-4, f"{arch}: gradients {g_err} of the largest apart")
+        check(routes_equal, f"{arch}: MoE routing differs between the card and the CPU")
+        check(same and rel <= 1e-4, f"{arch} serving: tokens equal {same}, logits {rel}")
 
 
 def phase_serve():
@@ -1646,6 +1764,385 @@ S_ARCH, S_BATCH, S_PROMPT, S_TOKENS, S_FORCED = "qwen3-4b", 8, 1024, 128, 16
 S_LOGIT_TOL = 5e-2
 # Phase D's reduced qwen3 keeps GQA (plain .reduced() gives H = K = 4)
 D_QWEN3 = dict(n_heads=8, n_kv_heads=2, head_dim=16, attn_impl="pallas")
+
+
+M_ARCH = "deepseek-v2-lite-16b"
+# Phase M1: the 3-layer cut (the dense prefix and 2 MoE units) at full width
+M1_LAYERS, M1_BATCH, M1_SEQ, M1_STEPS = 3, 8, 1024, 3
+# Phase M2: the whole model served in bf16, as phase S serves qwen3-4b
+M_BATCH, M_PROMPT, M_TOKENS, M_FORCED = 8, 1024, 128, 16
+# M2 compares logits (the real vocabulary) by their relative Frobenius
+# distance, as S1/S2 do: flash against dense prefill, and decode against a
+# teacher-forced dense forward, at capacity factor E / K (nothing dropped)
+# and with the reference run's expert choices replayed into the other, so
+# that each pair differs by bf16 rounding carried through 27 layers, as
+# qwen3-4b's 36 do (2.0e-2 and 1.9e-2 there, PERF.md). The tolerance is S's,
+# and each control (a non-causal prefill; decoding at pos + 1) must land at
+# least 4x outside it. With free routing a tie in the top-6 flips either way
+# and a flipped expert moves its token by about 1/K of the routed output;
+# those distances and the share of routings that agree are reported only.
+M_LOGIT_TOL = 5e-2
+M_CONTROL_FACTOR = 4.0
+
+
+def m1_config():
+    """deepseek-v2-lite-16b cut to its first M1_LAYERS layers, full width."""
+    from repro_torch.configs import get_config
+    base = get_config(M_ARCH)
+    return dataclasses.replace(base, num_layers=M1_LAYERS, pattern=base.pattern[:M1_LAYERS])
+
+
+def phase_mla_train():
+    """M1: single-pass RMNP training of deepseek-v2-lite-16b cut to 3 layers
+    at full width (B=8, S=1024, bf16, seed 0): 3 timed steps with 13 apply
+    launches each, tokens/s and peak memory; a second run from the same seed
+    equals the first bit for bit after 2 steps; the per-leaf engine equals
+    the single-pass one bit for bit on the expert stacks."""
+    import torch
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.core.types import tree_paths
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_train_step
+
+    cfg = m1_config()
+    n_buckets = len(DS_BUCKETS)
+
+    def run(steps, timed):
+        opt = make_optimizer("rmnp", dict(
+            lr_matrix=cosine_with_warmup(2e-3, M1_STEPS),
+            lr_adamw=cosine_with_warmup(1e-3, M1_STEPS), fused=True, fused_apply=True))
+        params = init_params(cfg, seed=0, device="cuda")
+        state = opt.init(params)
+        step_fn = make_train_step(cfg, opt, remat="full")
+        stream = make_stream(cfg, M1_SEQ, M1_BATCH, seed=0)
+        out = {"losses": [], "aux": [], "step_s": [], "launches": [], "after_2": None}
+        for step in range(steps):
+            batch = batch_to_device(next(stream), "cuda")
+            before = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch, step)
+            out["losses"].append(float(metrics["loss"]))  # a host read ends the step
+            out["step_s"].append(time.perf_counter() - t0)
+            out["aux"].append(float(metrics["aux"]))
+            out["launches"].append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            if step == 1:
+                out["after_2"] = host_copy((params, state.buckets))
+        out["buckets"] = {k: list(b.shape) for k, b in state.buckets.items()}
+        out["params"] = sum(t.numel() for _, t in tree_paths(params))
+        del params, state
+        torch.cuda.empty_cache()
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    first = run(M1_STEPS, True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = LAUNCHES["rmnp_apply"]
+    second = run(2, False)
+    diff = differing(first["after_2"], second["after_2"])
+    steady = first["step_s"][1:]
+    tokens = M1_BATCH * M1_SEQ
+    check(sorted(first["buckets"]) == sorted(f"{a}x{b}" for _, a, b in DS_BUCKETS),
+          f"M1 buckets {first['buckets']}")
+    check(all(math.isfinite(x) for x in first["losses"]), f"M1 losses {first['losses']}")
+    check(all(a > 0 for a in first["aux"]), f"M1: the aux losses {first['aux']}")
+    check([s["rmnp_apply"] for s in first["launches"]] == [n_buckets] * M1_STEPS,
+          f"M1 apply launches per step {first['launches']}")
+
+    # the per-leaf engine against the single-pass one on the expert stacks:
+    # one step from the same weights and gradients, bit for bit, in fp32
+    # (in bf16 the two-pass form rounds the update to bf16 before adding
+    # it, the apply kernel rounds w + update once: they differ by design)
+    params = init_params(cfg, seed=0, device="cuda")
+    stacks = {p: t.float() for p, t in tree_paths(params) if t.ndim == 4}
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = {p: 1e-3 * torch.randn(t.shape, generator=gen, device="cuda")
+             for p, t in stacks.items()}
+    outs = {}
+    for engine, kw in (("per-leaf", dict(fused=False, fused_apply=False)),
+                       ("single-pass", dict(fused=True, fused_apply=True))):
+        opt = make_optimizer("rmnp", dict(lr_matrix=cosine_with_warmup(2e-3, 3), **kw))
+        state = opt.init(stacks)
+        if opt.update_apply is not None:
+            new, state = opt.update_apply(grads, state, stacks, 1)
+        else:
+            from repro_torch.core import apply_updates
+            updates, state = opt.update(grads, state, stacks, 1)
+            new = apply_updates(stacks, updates)
+        outs[engine] = host_copy(new)
+        del new, state
+    engines_diff = differing(outs["per-leaf"], outs["single-pass"])
+    del stacks, grads, outs
+    torch.cuda.empty_cache()
+    card = card_name()
+    record = {
+        "card": card, "config": f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE "
+        f"units), full width", "params": first["params"], "batch": M1_BATCH, "seq": M1_SEQ,
+        "losses": first["losses"], "aux": first["aux"], "step_s": first["step_s"],
+        "tokens_per_s": tokens / statistics.median(steady), "peak_mem_gb": peak,
+        "launches_per_step": first["launches"], "buckets": first["buckets"],
+        "bitwise_equal_after_2_steps": not diff, "differing": diff[:20],
+        "losses_second_run": second["losses"],
+        "per_leaf_equals_single_pass_on_expert_stacks": not engines_diff,
+        "engines_differing": engines_diff}
+    emit("M1_train_deepseek_3_layers", record)
+    print(f"M1 ({card}): steps {[round(x, 4) for x in first['step_s']]} s, "
+          f"{record['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB, "
+          f"{n_buckets} apply launches a step, two runs equal: {not diff}", flush=True)
+    check(not diff, f"M1: two runs from one seed differ after 2 steps in {diff[:5]}")
+    check(not engines_diff, f"M1: per-leaf and single-pass differ on {engines_diff}")
+    return {"rmnp_apply": launches, "step_s": statistics.median(steady)}
+
+
+@contextlib.contextmanager
+def routing(moe, record=None, replay=None):
+    """Patch the MoE router for the block: ``record`` (a list) receives each
+    call's expert ids; ``replay`` (an iterator of expert ids) replaces each
+    call's choice, the gates then taken from this run's own probabilities
+    at those experts and renormalized, as ``moe._route`` does."""
+    import torch
+    route = moe._route
+
+    def patched(cfg_, p, xf):
+        gates, ids, aux = route(cfg_, p, xf)
+        if replay is not None:
+            ids = next(replay)
+            probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+            gates = torch.gather(probs, -1, ids)
+            gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+        if record is not None:
+            record.append(ids)
+        return gates, ids, aux
+    moe._route = patched
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def routing_agreement(a, b, n_experts):
+    """The share of (token, layer, k) routings on which two runs agree:
+    as sets (an expert chosen by both for the token) and by rank k."""
+    import torch
+    same_set = same_rank = total = 0
+    for x, y in zip(a, b, strict=True):
+        hx = torch.nn.functional.one_hot(x, n_experts).sum(-2)
+        hy = torch.nn.functional.one_hot(y, n_experts).sum(-2)
+        same_set += int(torch.minimum(hx, hy).sum())
+        same_rank += int((x == y).sum())
+        total += x.numel()
+    return {"as_sets": same_set / total, "by_rank": same_rank / total, "routings": total,
+            "per_layer_as_sets": [float(torch.minimum(
+                torch.nn.functional.one_hot(x, n_experts).sum(-2),
+                torch.nn.functional.one_hot(y, n_experts).sum(-2)).sum()) / x.numel()
+                for x, y in zip(a, b, strict=True)]}
+
+
+def phase_mla_serve():
+    """M2: serving deepseek-v2-lite-16b at full width and depth (bf16, seed 0,
+    B=8, T=1024, 128 new tokens, S_max=1152) through launch/serve.serve: the
+    timed run at the config's capacity factor (flash prefill, 27 launches
+    counted), prefill ms with flash and with dense attention, decode ms a
+    step, tokens/s, init time and peak, serving peak; then at capacity
+    factor E / K, with the reference run's routing replayed, the flash
+    prefill against the dense one with a non-causal control, and decode
+    against a teacher-forced dense forward with decoding at pos + 1 as the
+    control; with free routing the same distances and the share of
+    routings on which the flash and dense prefills agree, reported."""
+    import torch
+    from repro_torch.core.types import tree_paths
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate, place_cache, serve
+    from repro_torch.models import init_params, layers, moe
+    from repro_torch.models.model import forward, init_cache, lm_head
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    from repro_torch.configs import get_config
+
+    base = get_config(M_ARCH)
+    # the 38.4 GB of fp32 noise of the expert stack needs one free block:
+    # earlier phases' reference cycles (autograd graphs) are collected and
+    # the allocator's cache returned first
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(base, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for _, t in tree_paths(params))
+    check(n_params == 15_706_484_224, f"M2: {n_params} parameters")
+    prompts = torch.randint(0, base.vocab, (M_BATCH, M_PROMPT), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    real = slice(0, base.vocab)
+
+    def rel(a, b):
+        a, b = a[..., real].float(), b[..., real].float()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    # the timed run: a short warm-up, then the served batch, which keeps no
+    # logits, so its peak (generate resets it after init) is serving's own
+    serve(M_ARCH, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=4,
+          attn_impl="pallas", params=params, prompts=prompts)
+    torch.cuda.empty_cache()
+    reset_launches()
+    res = serve(M_ARCH, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=M_TOKENS,
+                attn_impl="pallas", params=params, prompts=prompts)
+    serve_launches = LAUNCHES["flash_attention_fwd"]
+    check(serve_launches == base.num_layers,
+          f"M2: {serve_launches} flash launches in a served batch, want {base.num_layers}")
+    seqs = res["tokens"]
+    check(seqs.shape == (M_BATCH, M_TOKENS) and int(seqs.min()) >= 0
+          and int(seqs.max()) < base.vocab, f"M2: generated tokens {seqs.shape}")
+
+    # prefill ms per attention mode at the config's capacity factor
+    batch = {"tokens": prompts}
+    prefill_ms = {}
+    for run in ("pallas", "dense"):
+        step = make_prefill_step(dataclasses.replace(base, attn_impl=run))
+        prefill_ms[run] = per_call_ms(lambda st=step: st(params, batch), iters=5, warmup=1)
+        torch.cuda.empty_cache()
+
+    # The checks, at capacity factor E / K (nothing dropped). A near tie in
+    # the router's top-6 falls either way under bf16 rounding, and a flipped
+    # expert changes that token's output by about 1/K of its routed part
+    # (the experts are independent random functions), so two runs that round
+    # differently drift apart through the layers by more than qwen3's dense
+    # layers do. Each comparison is therefore made twice: with free routing
+    # (reported, with the share of routings that agree) and with the
+    # routing of the reference run replayed into the other (gated), which
+    # leaves only the attention's and the stack's own rounding between them.
+    m = base.moe
+    nodrop = dataclasses.replace(base, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    dense_attention = layers.attention
+
+    def prefill(run, record=None, replay=None):
+        cfg = dataclasses.replace(nodrop, attn_impl="dense" if run == "control" else run)
+        with routing(moe, record, replay):
+            if run == "control":
+                layers.attention = lambda q, k, v, causal=True, **kw: dense_attention(
+                    q, k, v, False, **kw)
+            try:
+                reset_launches()
+                last = make_prefill_step(cfg)(params, batch)[0]
+            finally:
+                layers.attention = dense_attention
+        return last, LAUNCHES["flash_attention_fwd"]
+
+    dense_routes, flash_routes = [], []
+    last, launches = {}, {}
+    last["dense"], launches["dense"] = prefill("dense", record=dense_routes)
+    last["pallas_free"], launches["pallas"] = prefill("pallas", record=flash_routes)
+    last["pallas"], _ = prefill("pallas", replay=iter(dense_routes))
+    last["control"], launches["control"] = prefill("control", replay=iter(dense_routes))
+    torch.cuda.empty_cache()
+    check(launches == {"pallas": base.num_layers, "dense": 0, "control": 0},
+          f"M2: flash launches per prefill {launches}")
+    s1, s1_control = rel(last["pallas"], last["dense"]), rel(last["control"], last["dense"])
+    s1_free = rel(last["pallas_free"], last["dense"])
+    agree = routing_agreement(flash_routes, dense_routes, m.num_experts)
+    del flash_routes, last
+
+    # decode against a teacher-forced dense forward over the prompt and the
+    # first M_FORCED generated tokens (a served batch at capacity factor
+    # E / K makes them): the same step functions as serving, once with free
+    # routing and once with the forced forward's routing replayed, and the
+    # control decoding one position late
+    checked = generate(dataclasses.replace(nodrop, attn_impl="pallas"), params, prompts,
+                       M_FORCED + 1, keep_logits=True)
+    cseqs = checked["tokens"]
+    free_got = torch.stack(checked["logits"][1:M_FORCED + 1], dim=1)
+    del checked
+    dense_cfg = dataclasses.replace(nodrop, attn_impl="dense")
+    forced = torch.cat([prompts, cseqs[:, :M_FORCED].long()], dim=1)
+    forced_routes = []
+    with torch.no_grad(), routing(moe, record=forced_routes):
+        hidden = forward(dense_cfg, params, {"tokens": forced}, "train", return_hidden=True)[0]
+        want = hidden[:, M_PROMPT:M_PROMPT + M_FORCED] @ lm_head(base, params)
+    del hidden
+    s2_free = rel(free_got, want)
+    del free_got
+    # the forced routing per token position: (B, T + F, K) a layer
+    by_pos = [r.reshape(M_BATCH, M_PROMPT + M_FORCED, -1) for r in forced_routes]
+    del forced_routes
+    serve_step = make_serve_step(dense_cfg)
+
+    def forced_decode(shift):
+        prompt_ids = [r[:, :M_PROMPT].reshape(1, M_BATCH * M_PROMPT, -1) for r in by_pos]
+        with routing(moe, replay=iter(prompt_ids)):
+            _, pc = make_prefill_step(dense_cfg)(params, batch)
+        cache = place_cache(init_cache(dense_cfg, M_BATCH, M_PROMPT + M_FORCED + 2,
+                                       device="cuda"), pc)
+        del pc
+        out = []
+        for i in range(M_FORCED):
+            step_ids = [r[:, M_PROMPT + i][None] for r in by_pos]
+            with routing(moe, replay=iter(step_ids)):
+                _, lg, cache = serve_step(params, cache, cseqs[:, i:i + 1],
+                                          M_PROMPT + i + shift)
+            out.append(lg[:, 0])
+        return torch.stack(out, dim=1)
+
+    s2, s2_control = rel(forced_decode(0), want), rel(forced_decode(1), want)
+    del want, by_pos
+    torch.cuda.empty_cache()
+
+    decode = res["decode_ms"]
+
+    def summary(xs):
+        return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+    card = card_name()
+    record = {
+        "card": card, "config": M_ARCH, "params": n_params, "batch": M_BATCH,
+        "prompt_len": M_PROMPT, "new_tokens": M_TOKENS, "init_s": init_s,
+        "held_before_init_gb": held_gb, "init_peak_gb": init_peak, "flash_launches_per_prefill": serve_launches,
+        "prefill_ms": {run: summary(ms) for run, ms in prefill_ms.items()},
+        "prefill_samples_ms": prefill_ms, "served_prefill_ms": res["prefill_ms"],
+        "place_ms": res["place_ms"], "decode_ms_per_step": summary(decode),
+        "decode_steps": len(decode), "decode_samples_ms": decode,
+        "decode_tokens_per_s": res["decode_tokens_per_s"], "tokens_per_s": res["tokens_per_s"],
+        "wall_s": res["wall_s"], "serving_peak_gb": res["peak_bytes"] / 2**30,
+        "tokens_head": seqs[:, :8].tolist(), "checks_capacity_factor": nodrop.moe.capacity_factor,
+        "logits_rel_flash_vs_dense": s1, "logits_rel_control_noncausal": s1_control,
+        "logits_rel_decode_vs_forced": s2, "logits_rel_control_pos_plus_1": s2_control,
+        "free_routing_logits_rel_flash_vs_dense": s1_free,
+        "free_routing_logits_rel_decode_vs_forced": s2_free,
+        "tolerance": M_LOGIT_TOL, "control_factor": M_CONTROL_FACTOR,
+        "routing_agreement_flash_vs_dense": agree}
+    emit("M2_serve_deepseek_v2_lite", record)
+    for run, ms in prefill_ms.items():
+        sm = summary(ms)
+        print(f"M2 ({card}): prefill {run} {sm['median']:.2f} ms ({sm['min']:.2f}-"
+              f"{sm['max']:.2f})", flush=True)
+    d = summary(decode)
+    print(f"M2 ({card}): decode {d['median']:.3f} ms a step ({d['min']:.3f}-{d['max']:.3f}, "
+          f"{len(decode)} steps), {res['decode_tokens_per_s']:.1f} decode tokens/s; init "
+          f"{init_s:.1f} s, init peak {init_peak:.2f} GiB, serving peak "
+          f"{record['serving_peak_gb']:.2f} GiB", flush=True)
+    print(f"M2 (routing replayed): flash vs dense {s1:.3e} (control {s1_control:.3e}); "
+          f"decode vs forced {s2:.3e} (control {s2_control:.3e}); tolerance {M_LOGIT_TOL}",
+          flush=True)
+    print(f"M2 (free routing): flash vs dense {s1_free:.3e}, decode vs forced {s2_free:.3e}; "
+          f"routings agreeing {agree['as_sets']:.5f} as sets, {agree['by_rank']:.5f} by rank, "
+          f"of {agree['routings']}", flush=True)
+    check(s1 <= M_LOGIT_TOL, f"M2: flash prefill logits {s1} from dense > {M_LOGIT_TOL}")
+    check(s2 <= M_LOGIT_TOL, f"M2: decode logits {s2} from the forced forward > {M_LOGIT_TOL}")
+    for name, c in (("non-causal prefill", s1_control), ("decoding at pos + 1", s2_control)):
+        check(c >= M_CONTROL_FACTOR * M_LOGIT_TOL,
+              f"M2: the control ({name}) is only {c} away, less than "
+              f"{M_CONTROL_FACTOR}x the tolerance {M_LOGIT_TOL}")
+    del params, res, cseqs
+    torch.cuda.empty_cache()
+    return serve_launches
 
 
 def card_name():
@@ -1938,6 +2435,8 @@ def main():
     launches.update(phase_muon())
     phase_small()
     serve_launches = phase_serve()
+    m2_launches = phase_mla_serve()
+    m1 = phase_mla_train()
     llama_launches = phase_resilience()
     zero_launches = phase_zero()
 
@@ -1949,7 +2448,12 @@ def main():
          "replaces": "src/repro/kernels/rmnp_update.py:129",
          "launches": launches["rmnp_apply"], **rmnp["rmnp_apply"], "bound_by": "bytes",
          "library_ms": None, "launches_llama_130m_R1": llama_launches["rmnp_apply"],
-         "launches_Z1": zero_launches["rmnp_apply"]},
+         "launches_Z1": zero_launches["rmnp_apply"],
+         # deepseek-v2-lite-16b cut to 3 layers: its 13 buckets summed (phase
+         # A, fp32 g and v, bf16 w) and the apply launches of M1's 3 steps
+         "deepseek_3_layers": rmnp["rmnp_apply"]["deepseek"],
+         "launches_M1": m1["rmnp_apply"],
+         "M1_optimizer_share": rmnp["rmnp_apply"]["deepseek"]["ms"] / 1e3 / m1["step_s"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
@@ -1968,6 +2472,15 @@ def main():
              "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
              "worst_ratio")},
          "launches_S": serve_launches,
+         # MLA's (192, 128) at deepseek-v2-lite's prefill shape (B=8, S=1024,
+         # H=K=16, causal, v a strided view), 27 launches a served prefill in M2
+         "hd192_hdv128": {**{k: attn_cases["deepseek_mla"][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
+             "worst_ratio")},
+             "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get("hd192_128"),
+             "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get("fa_fwd_tc_192_128")},
+         "launches_M2": m2_launches,
          # the fp32 kernel (csrc/flash_attention_fwd_tf32.cu): launches on
          # C3f, and per timed shape its time, plain and SDPA times and its
          # 3xTF32 bound

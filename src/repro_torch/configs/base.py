@@ -202,13 +202,10 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 _REGISTRY = {}
 
 # Architectures the JAX package defines whose families the port does not run
-# yet: MLA (deepseek-v2-lite-16b, minicpm3-4b), MoE (olmoe-1b-7b, and
-# deepseek's and jamba's FFNs), SSM (jamba-v0.1-52b, xlstm-350m) and the
-# frontends (musicgen-large, paligemma-3b): ROADMAP Queue 1, item 9.
-NOT_PORTED = (
-    "deepseek-v2-lite-16b", "jamba-v0.1-52b", "minicpm3-4b", "musicgen-large",
-    "olmoe-1b-7b", "paligemma-3b", "xlstm-350m",
-)
+# yet: the SSM mixers (xlstm-350m, and jamba-v0.1-52b, whose MoE FFN is
+# ported but whose mamba layers are not) and the modality frontends
+# (musicgen-large, paligemma-3b): ROADMAP Queue 1, item 9.
+NOT_PORTED = ("jamba-v0.1-52b", "musicgen-large", "paligemma-3b", "xlstm-350m")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -218,7 +215,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _load():
     from repro_torch.configs import (  # noqa: F401
-        gpt2, llama_small, phi3_mini_3_8b, qwen3_4b, yi_9b)
+        deepseek_v2_lite_16b, gpt2, llama_small, minicpm3_4b, olmoe_1b_7b,
+        phi3_mini_3_8b, qwen3_4b, yi_9b)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -226,7 +224,7 @@ def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1, item 9: "
-            f"MLA, MoE, SSM and frontend families); ported: "
+            f"the SSM and frontend families); ported: "
             f"{', '.join(list_configs())}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; ported: "

@@ -3,11 +3,15 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fwd_kernel
 // (entry flash_attention_fwd) for bf16 q, k, v; fp32 runs on the tensor
 // cores too, as 3xTF32, in csrc/flash_attention_fwd_tf32.cu. Same function:
-// q (B,S,H,hd), k/v (B,S,K,hd) with H % K == 0, kv head h / (H/K) read in
-// place; fp32 online softmax; masked scores are -1e30 after the 1/sqrt(hd)
-// scale; l is summed from the unrounded fp32 p; out = acc / (l + 1e-30) in
-// bf16. Any S: the ragged edge is masked, not padded. hd is 16, 32, 64 or
-// 128 (qwen3-4b's and yi-9b's).
+// q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hdv) with H % K == 0, kv head
+// h / (H/K) read in place; fp32 online softmax; masked scores are -1e30
+// after the 1/sqrt(hd) scale; l is summed from the unrounded fp32 p; out
+// (B,S,H,hdv) = acc / (l + 1e-30) in bf16. Any S: the ragged edge is masked,
+// not padded. (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128)
+// (qwen3-4b's and yi-9b's) or (192, 128): MLA's q/k at nope 128 + rope 64
+// against its v at 128 (deepseek-v2-lite). v may be a strided view (MLA's v
+// is a column slice of the latent's up-projection): its head, row and batch
+// strides go into its tensor map.
 //
 // What bounds it on this card. At the main path's shape (B=8, S=1024,
 // H=12, hd=64, causal) the function reads 37.7 MB of q/k/v and writes 12.6
@@ -22,12 +26,12 @@
 // tensor maps are 4-D over (hd, heads, S, B), so the query head and the kv
 // head are coordinates (no repeat or transpose is materialised) and the
 // hardware's zero fill past S serves the ragged edge. Tiles are swizzled in
-// shared memory (128 B for hd 64 and 128, 64 B for hd 32, 32 B for hd 16);
+// shared memory (128 B for hd 64 and up, 64 B for hd 32, 32 B for hd 16);
 // the wgmma descriptors name the same swizzle. A swizzle span holds at most
 // 64 bf16 values, and TMA's box is at most one span wide, so an hd-128 tile
 // is two column halves of 64, each its own swizzled sub-tile loaded by its
-// own box (coordinate 0 or 64 along hd). Each consumer computes
-// S = Q.K^T with wgmma (Q and K K-major from shared memory, fp32
+// own box (coordinate 0 or 64 along hd), and an hd-192 tile three. Each
+// consumer computes S = Q.K^T with wgmma (Q and K K-major from shared memory, fp32
 // accumulators; bf16 x bf16 products are exact in fp32), applies the scale
 // and the masks (the causal mask only on tiles that cross the diagonal, the
 // key mask only past S), and runs the online softmax in registers, with
@@ -61,6 +65,14 @@
 // SM's four sub-partitions, whose 16384 registers give 170 a thread (the
 // card refuses a launch at 175). ptxas spills 108 bytes a thread; the
 // report is printed by phase B of chip_smoke.py.
+//
+// (192, 128) (deepseek-v2-lite's prefill: B=8, S=1024, H=K=16, causal)
+// moves 167.8 MB (0.050 ms) and does 43.0 GFLOP, 25.8 of them in Q.K^T
+// (0.043 ms at the bf16 peak; 77.4 GFLOP, 0.078 ms, with P in three parts):
+// bytes bound it. Q.K^T runs 12 k-steps over three 64-column sub-tiles; the
+// O accumulator, P and the P.V products follow hdv = 128 exactly as the
+// hd-128 build, so its registers are that build's. Q takes 48 KB of shared
+// memory, a K stage 24 KB and a V stage 16 KB: 128 KB with two stages.
 //
 // The two consumer warpgroups take turns at issuing their products
 // (named barriers), so one's softmax overlaps the other's products.
@@ -122,21 +134,16 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&part
 
 // Shared-memory matrix descriptor of a wgmma operand: start address, leading
 // and stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64
-// B, 3: 32 B). A tile is stored as HD / SPAN sub-tiles of SPAN columns, each
-// row of a sub-tile exactly one swizzle span (SPAN = hd up to 64, 64 for
-// hd 128), so a sub-tile's layout repeats every 8 rows. K-major operands
-// (Q, K) step 8 rows by SBO and ignore LBO; a k-step of 16 columns adds 32
-// bytes inside a sub-tile, and the step into the next sub-tile adds the
-// sub-tile's bytes. The MN-major V steps 8 keys by SBO; no P.V product's N
-// spans more than one atom (hd 128 runs two 64-column products, one per
-// atom), so LBO is not followed.
-template <int HD>
+// B, 3: 32 B), chosen by the span. A tile of HD columns is stored as HD /
+// SPAN sub-tiles of SPAN columns, each row of a sub-tile exactly one swizzle
+// span (SPAN = hd up to 64, else 64), so a sub-tile's layout repeats every 8
+// rows. K-major operands (Q, K) step 8 rows by SBO and ignore LBO; a k-step
+// of 16 columns adds 32 bytes inside a sub-tile, and the step into the next
+// sub-tile adds the sub-tile's bytes. The MN-major V steps 8 keys by SBO; no
+// P.V product's N spans more than one atom (hdv 128 runs two 64-column
+// products, one per atom), so LBO is not followed.
+template <int SPAN>
 struct Swizzle;
-template <>
-struct Swizzle<128> {
-  static constexpr uint64_t desc = 1;
-  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_128B;
-};
 template <>
 struct Swizzle<64> {
   static constexpr uint64_t desc = 1;
@@ -153,9 +160,9 @@ struct Swizzle<16> {
   static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
-template <int HD>
+template <int SPAN>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return sm90::make_desc(addr, lbo, sbo, Swizzle<HD>::desc);
+  return sm90::make_desc(addr, lbo, sbo, Swizzle<SPAN>::desc);
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
@@ -231,29 +238,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n64(d, a, db, scale_d);
 }
 
+// the columns of one operand's tile: HD / span sub-tiles of span columns
 template <int HD>
-struct Layout {
+struct Cols {
   static constexpr int span = HD < 64 ? HD : 64;  // columns of a sub-tile
   static constexpr int nsub = HD / span;           // sub-tiles of a tile
   static constexpr uint32_t row = span * 2;        // bytes of a sub-tile row
-  static constexpr int q_sub = BQ * span * 2;      // bytes of a Q sub-tile
-  static constexpr int tile_sub = BK * span * 2;   // bytes of a K or V sub-tile
-  static constexpr int q_bytes = BQ * HD * 2;
-  static constexpr int tile_bytes = BK * HD * 2;
+  static_assert(HD % span == 0 && HD % 16 == 0, "whole sub-tiles of whole k-steps");
+};
+
+// Q and K have HDQ columns, V and the output HDV
+template <int HDQ, int HDV>
+struct Layout {
+  using QK = Cols<HDQ>;
+  using V = Cols<HDV>;
+  static constexpr int q_sub = BQ * QK::span * 2;  // bytes of a Q sub-tile
+  static constexpr int k_sub = BK * QK::span * 2;  // bytes of a K sub-tile
+  static constexpr int v_sub = BK * V::span * 2;   // bytes of a V sub-tile
+  static constexpr int q_bytes = BQ * HDQ * 2;
+  static constexpr int k_bytes = BK * HDQ * 2;     // a K stage
+  static constexpr int v_bytes = BK * HDV * 2;     // a V stage
   static constexpr int k_off = q_bytes;
-  static constexpr int v_off = k_off + NSTAGE * tile_bytes;
-  static constexpr int bar_off = v_off + NSTAGE * tile_bytes;
+  static constexpr int v_off = k_off + NSTAGE * k_bytes;
+  static constexpr int bar_off = v_off + NSTAGE * v_bytes;
   // q_full, k_full[NSTAGE], v_full[NSTAGE], empty[NSTAGE]
   static constexpr int bytes = bar_off + (1 + 3 * NSTAGE) * 8;
   static constexpr int alloc = bytes + 1024;  // room to align the base to 1024
 };
 
-template <int HD>
+template <int HDQ, int HDV>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int S, int H, int KH,
           int B, int nq, int causal, float scale_log2) {
-  using L = Layout<HD>;
+  using L = Layout<HDQ, HDV>;
+  using QK = typename L::QK;
+  using V = typename L::V;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles start on a 1024-byte boundary, where the swizzle pattern
   // of TMA and of the wgmma descriptors lines up
@@ -294,19 +314,19 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     // each tile as its sub-tiles, one box of span columns each
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, L::q_bytes);
-      for (int c = 0; c < L::nsub; ++c)
-        tma_load_4d(q_s + c * L::q_sub, &qmap, q_full, c * L::span, h, q0, b);
+      for (int c = 0; c < QK::nsub; ++c)
+        tma_load_4d(q_s + c * L::q_sub, &qmap, q_full, c * QK::span, h, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % NSTAGE;
         if (t >= NSTAGE) mbar_wait(empty_bar(st), ((t / NSTAGE) & 1) ^ 1);
-        mbar_expect_tx(k_full(st), L::tile_bytes);
-        for (int c = 0; c < L::nsub; ++c)
-          tma_load_4d(k_s + st * L::tile_bytes + c * L::tile_sub, &kmap, k_full(st),
-                      c * L::span, kh, t * BK, b);
-        mbar_expect_tx(v_full(st), L::tile_bytes);
-        for (int c = 0; c < L::nsub; ++c)
-          tma_load_4d(v_s + st * L::tile_bytes + c * L::tile_sub, &vmap, v_full(st),
-                      c * L::span, kh, t * BK, b);
+        mbar_expect_tx(k_full(st), L::k_bytes);
+        for (int c = 0; c < QK::nsub; ++c)
+          tma_load_4d(k_s + st * L::k_bytes + c * L::k_sub, &kmap, k_full(st),
+                      c * QK::span, kh, t * BK, b);
+        mbar_expect_tx(v_full(st), L::v_bytes);
+        for (int c = 0; c < V::nsub; ++c)
+          tma_load_4d(v_s + st * L::v_bytes + c * L::v_sub, &vmap, v_full(st),
+                      c * V::span, kh, t * BK, b);
       }
     }
     return;
@@ -324,18 +344,19 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   const int row_b = row_a + 8;
   const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
 
-  constexpr uint32_t ROW = L::row;  // bytes per row of every sub-tile
-  const uint64_t q_desc = make_desc<HD>(q_s + 64 * wg * ROW, 16, 8 * ROW);
+  constexpr uint32_t ROW = QK::row;  // bytes per row of a Q or K sub-tile
+  constexpr uint32_t VROW = V::row;  // bytes per row of a V sub-tile
+  const uint64_t q_desc = make_desc<QK::span>(q_s + 64 * wg * ROW, 16, 8 * ROW);
   // the descriptor offset (16-byte units) of k-step kk of 16 columns in a
   // K-major tile whose sub-tiles are sub_bytes apart
   auto kstep = [](int kk, int sub_bytes) {
-    constexpr int per_sub = L::span / 16;
+    constexpr int per_sub = QK::span / 16;
     return static_cast<uint64_t>(((kk / per_sub) * sub_bytes + (kk % per_sub) * 32) >> 4);
   };
 
-  float acc[HD / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
   float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this thread's share
 
   mbar_wait(q_full, 0);
@@ -357,12 +378,12 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 
     // S = Q . K^T over hd in steps of 16 (32 bytes along the swizzled row)
     float s[BK / 2];
-    const uint64_t k_desc = make_desc<HD>(k_s + st * L::tile_bytes, 16, 8 * ROW);
+    const uint64_t k_desc = make_desc<QK::span>(k_s + st * L::k_bytes, 16, 8 * ROW);
     turn_wait(wg);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, q_desc + kstep(kk, L::q_sub), k_desc + kstep(kk, L::tile_sub), kk);
+    for (int kk = 0; kk < HDQ / 16; ++kk)
+      wgmma_ss_n64(s, q_desc + kstep(kk, L::q_sub), k_desc + kstep(kk, L::k_sub), kk);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait_all();
@@ -431,18 +452,18 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     // accumulator's size, so no product is added into the running sum of
     // earlier tiles and the small parts meet a small accumulator. V is the
     // MN-major B operand; a k-step of 16 keys is 16 of its rows.
-    // At hd 128 the columns go in two products, one per atom of V, each
+    // At hdv 128 the columns go in two products, one per atom of V, each
     // finished and added before the next is issued, so only half the tile
     // sum is live at once (one m64n128 product over both atoms spilled twice
     // as much and ran 2-3 % slower, PERF.md).
     mbar_wait(v_full(st), ph);
-    constexpr int PV_N = HD <= 64 ? HD : 64;
-    const uint64_t v_desc = make_desc<HD>(v_s + st * L::tile_bytes, L::tile_sub, 8 * ROW);
+    constexpr int PV_N = HDV <= 64 ? HDV : 64;
+    const uint64_t v_desc = make_desc<V::span>(v_s + st * L::v_bytes, L::v_sub, 8 * VROW);
 #pragma unroll
     for (int i = 0; i < PARTS; ++i) fence_regs(p[i]);
     turn_wait(wg);
 #pragma unroll
-    for (int c = 0; c < HD / PV_N; ++c) {
+    for (int c = 0; c < HDV / PV_N; ++c) {
       float pv[PV_N / 2];
       wgmma_fence();
 #pragma unroll
@@ -450,14 +471,14 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_rs<PV_N>(pv, p[i][kk],
-                         v_desc + ((c * L::tile_sub + 16 * kk * ROW) >> 4),
+                         v_desc + ((c * L::v_sub + 16 * kk * VROW) >> 4),
                          i < PARTS - 1 || kk > 0);
       }
       wgmma_commit();
-      if (c == HD / PV_N - 1) turn_pass(wg);
+      if (c == HDV / PV_N - 1) turn_pass(wg);
       wgmma_wait_all();
       fence_regs(pv);
-      if (c == HD / PV_N - 1) mbar_arrive(empty_bar(st));
+      if (c == HDV / PV_N - 1) mbar_arrive(empty_bar(st));
 
       // the running sum in fp32 on the CUDA cores: acc = acc * corr + pv
 #pragma unroll
@@ -485,71 +506,82 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     const int row = half ? row_b : row_a;
     if (row >= S) continue;
     const float den = half ? den_b : den_a;
-    bf16* orow = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HD + 2 * t4;
+    bf16* orow = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HDV + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HDV / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
     }
   }
 }
 
-// a 4-D map over (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16
-// tensor; the box is (span, 1, rows, 1), one sub-tile, past S the hardware
-// fills zeros
+// a 4-D map over (hd, heads, S, B) of a (B, S, heads, hd) bf16 tensor whose
+// head, row and batch strides (elements) are hs, ss and bs; the box is
+// (span, 1, rows, 1), one sub-tile, past S the hardware fills zeros
 template <int HD>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int S, int B,
-                int rows) {
+                int rows, int64_t hs, int64_t ss, int64_t bs) {
   const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)S * heads * HD * 2};
-  const cuuint32_t box[4] = {Layout<HD>::span, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)hs * 2, (cuuint64_t)ss * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {Cols<HD>::span, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<HD>::tma,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<Cols<HD>::span>::tma,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD>
+template <int HDQ, int HDV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-              int causal, float scale, cudaStream_t stream) {
+              int64_t vhs, int64_t vss, int64_t vbs, int causal, float scale,
+              cudaStream_t stream) {
   EncodeTiled fn;
   cudaError_t err = encode_fn(&fn);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  CUresult rc = encode<HD>(fn, &qm, q, H, S, B, BQ);
-  if (rc == CUDA_SUCCESS) rc = encode<HD>(fn, &km, k, KH, S, B, BK);
-  if (rc == CUDA_SUCCESS) rc = encode<HD>(fn, &vm, v, KH, S, B, BK);
+  CUresult rc = encode<HDQ>(fn, &qm, q, H, S, B, BQ, HDQ, (int64_t)H * HDQ,
+                            (int64_t)S * H * HDQ);
+  if (rc == CUDA_SUCCESS)
+    rc = encode<HDQ>(fn, &km, k, KH, S, B, BK, HDQ, (int64_t)KH * HDQ, (int64_t)S * KH * HDQ);
+  if (rc == CUDA_SUCCESS) rc = encode<HDV>(fn, &vm, v, KH, S, B, BK, vhs, vss, vbs);
   if (rc != CUDA_SUCCESS) return TENSOR_MAP_ERROR + rc;
-  using L = Layout<HD>;
-  err = cudaFuncSetAttribute(fa_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using L = Layout<HDQ, HDV>;
+  err = cudaFuncSetAttribute(fa_fwd_tc<HDQ, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::alloc);
   if (err != cudaSuccess) return err;
   const int nq = (S + BQ - 1) / BQ;
   const int64_t blocks = static_cast<int64_t>(nq) * H * B;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  fa_fwd_tc<HD><<<static_cast<unsigned>(blocks), THREADS, L::alloc, stream>>>(
+  fa_fwd_tc<HDQ, HDV><<<static_cast<unsigned>(blocks), THREADS, L::alloc, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), S, H, KH, B, nq, causal, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd), all contiguous and
-// 16-byte aligned; hd 16, 32, 64 or 128 (fp32 is csrc/flash_attention_fwd_tf32.cu).
-// Returns the cudaError_t of the launch, or TENSOR_MAP_ERROR + a CUresult (0
-// on success); the caller raises on anything else.
+// bf16 q (B,S,H,hd) and k (B,S,K,hd), contiguous; v (B,S,K,hdv) with unit
+// stride along hdv and head, row and batch strides vhs, vss, vbs (elements,
+// multiples of 8); o (B,S,H,hdv) contiguous; every base 16-byte aligned.
+// (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128) or (192, 128); fp32
+// is csrc/flash_attention_fwd_tf32.cu. Returns the cudaError_t of the launch,
+// or TENSOR_MAP_ERROR + a CUresult (0 on success); the caller raises on
+// anything else, an unbuilt (hd, hdv) included.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int H, int K, int hd, int causal, float scale, void* stream) {
+                      int H, int K, int hd, int hdv, long long vhs, long long vss,
+                      long long vbs, int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  if (vhs % 8 || vss % 8 || vbs % 8) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, S, H, K, causal, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, B, S, H, K, causal, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, B, S, H, K, causal, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, B, S, H, K, causal, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (hd == 16 && hdv == 16)
+    return launch_tc<16, 16>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 32 && hdv == 32)
+    return launch_tc<32, 32>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 64 && hdv == 64)
+    return launch_tc<64, 64>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 128 && hdv == 128)
+    return launch_tc<128, 128>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 192 && hdv == 128)
+    return launch_tc<192, 128>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_error_string(int err) {

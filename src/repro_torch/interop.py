@@ -4,10 +4,11 @@
 the port with the JAX package starts from state exported there as nested
 dicts of numpy arrays (``np.asarray`` on each leaf; a NamedTuple state as
 its ``_asdict()``). Paths stay identical and the layout stays ``(d_in,
-d_out)``: nothing is transposed. A bf16 array arrives as
-``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so its bits go
-through a ``uint16`` view and ``Tensor.view(torch.bfloat16)``, never through
-float32.
+d_out)``: nothing is transposed, and an MoE expert stack keeps its
+``(n_units, E, d_in, d_out)`` layout, so RMNP reduces over ``d_in``. A
+bf16 array arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+rejects, so its bits go through a ``uint16`` view and
+``Tensor.view(torch.bfloat16)``, never through float32.
 """
 from __future__ import annotations
 

@@ -25,13 +25,23 @@ from repro_torch.kernels.ref import chunked_attention_ref
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-# each type's kernel instantiations: the bf16 kernel splits an hd-128 tile
-# into two 64-column halves; the fp32 kernel has no hd-128 build
-HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (16, 32, 64)}
-# each type's library, C entry and error string; both entries take
-# (q, k, v, out, B, S, H, K, hd, causal, scale, stream)
-_LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string"),
-         torch.float32: ("flash_attention_fwd_tf32", "fa_fwd_tf32", "fa_tf32_error_string")}
+# each type's kernel instantiations as (hd, hdv), the q/k and the v head
+# dims: the bf16 kernel splits an hd-128 tile into two 64-column halves and
+# an hd-192 one into three, and takes MLA's (192, 128) (deepseek-v2-lite);
+# the fp32 kernel has no hd-128 build and no hdv != hd
+HEAD_DIM_PAIRS = {torch.bfloat16: ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)),
+                  torch.float32: ((16, 16), (32, 32), (64, 64))}
+# the C entries: bf16 (q, k, v, out, B, S, H, K, hd, hdv, v's head, row and
+# batch strides, causal, scale, stream); fp32 (q, k, v, out, B, S, H, K,
+# hd, causal, scale, stream)
+BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_FP32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_void_p])
+# each type's library, C entry, error string and argument types
+_LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string", BF16_ARGTYPES),
+         torch.float32: ("flash_attention_fwd_tf32", "fa_fwd_tf32", "fa_tf32_error_string",
+                         _FP32_ARGTYPES)}
 
 _FN = {}
 
@@ -39,11 +49,10 @@ _FN = {}
 def _kernel(dtype):
     if dtype not in _FN:
         from repro_torch.kernels.build import load_library
-        name, entry, error = _LIBS[dtype]
+        name, entry, error, argtypes = _LIBS[dtype]
         lib = load_library(name)
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err_str = getattr(lib, error)
         err_str.argtypes = [ctypes.c_int]
@@ -61,19 +70,28 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be (B, S, heads, hd); got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k and v must share dtype and device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _LIBS:
         raise TypeError(f"unsupported dtype {q.dtype}")
+    # q and k contiguous; the bf16 kernel reads v through a tensor map that
+    # takes its head, row and batch strides (16-byte multiples), so a column
+    # slice such as MLA's v is read in place
+    bf16 = q.dtype == torch.bfloat16
+    for name, t in (("q", q), ("k", k)) + (() if bf16 else (("v", v),)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if bf16 and (v.stride(3) != 1 or any(st % 8 for st in v.stride()[:3])):
+        raise ValueError(f"v must have unit stride along hdv and its other strides in "
+                         f"multiples of 8 elements; got strides {v.stride()}")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
-        raise ValueError(f"k/v must be (B, S, K, hd) matching q {tuple(q.shape)}; "
-                         f"got k {tuple(k.shape)}, v {tuple(v.shape)}")
+    hdv = v.shape[3]
+    if k.shape[:2] != (B, S) or k.shape[3] != hd or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"k must be (B, S, K, hd) and v (B, S, K, hdv) matching q "
+                         f"{tuple(q.shape)}; got k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % k.shape[2]:
         raise ValueError(f"query heads {H} not a multiple of kv heads {k.shape[2]}")
-    if hd not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"head dim {hd} not built for {q.dtype}; the kernel takes "
-                         f"{HEAD_DIMS[q.dtype]}")
+    if (hd, hdv) not in HEAD_DIM_PAIRS[q.dtype]:
+        raise ValueError(f"head dims (hd, hdv) = ({hd}, {hdv}) not built for {q.dtype}; "
+                         f"the kernel takes {HEAD_DIM_PAIRS[q.dtype]}")
     # both kernels read rows from each tensor's base address in 16-byte
     # pieces (TMA for bf16, vector loads for fp32), so the base must be
     # 16-byte aligned; a contiguous view into a larger tensor need not be
@@ -84,17 +102,27 @@ def _check(q, k, v):
 
 
 def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
-    """The CUDA kernel. q (B,S,H,hd); k, v (B,S,K,hd) -> (B,S,H,hd) in q's
-    type, both types on the tensor cores: bf16 with P in three bf16 parts,
-    fp32 as 3xTF32. Raises on anything the kernel does not take."""
+    """The CUDA kernel. q (B,S,H,hd); k (B,S,K,hd), v (B,S,K,hdv) ->
+    (B,S,H,hdv) in q's type, scaled by 1/sqrt(hd); both types on the tensor
+    cores: bf16 with P in three bf16 parts, fp32 as 3xTF32. Raises on
+    anything the kernel does not take, an unbuilt (hd, hdv) included."""
+    if q.dtype == torch.float32 and v.is_cuda:
+        # the fp32 kernel reads v's rows at hdv's stride: a column slice
+        # (MLA's v) is copied into place first
+        v = v.contiguous()
     _check(q, k, v)
     B, S, H, hd = q.shape
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, v.shape[3]))
     fn, err_str = _kernel(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / (hd ** 0.5)
+    if q.dtype == torch.bfloat16:  # v's head, row and batch strides
+        args = (B, S, H, k.shape[2], hd, v.shape[3], v.stride(2), v.stride(1), v.stride(0),
+                int(causal), scale)
+    else:
+        args = (B, S, H, k.shape[2], hd, int(causal), scale)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-                 k.shape[2], hd, int(causal), 1.0 / (hd ** 0.5), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args, stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")

@@ -9,6 +9,9 @@ step from the cache.
     # on the card, full width (bf16)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --full \\
         --batch 8 --prompt-len 1024 --tokens 128
+    # MLA and MoE: deepseek-v2-lite-16b (the flash prefill at q/k 192, v 128)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --full --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
 
 Weights are random, drawn from ``--seed`` on the device; the prompts are
 synthetic tokens drawn from ``--seed + 1``. It runs on ``cuda`` unless
@@ -32,7 +35,9 @@ from repro_torch.train.step import make_prefill_step, make_serve_step
 
 def place(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Write ``src`` into the leading corner of ``dst`` (the prompt's
-    positions ``[0, T)`` of a longer cache) and return ``dst``."""
+    positions ``[0, T)`` of a longer cache) and return ``dst``: GQA's 4-D
+    k and v, MLA's 3-D latent ``ckv`` and ``k_rope``, with the unit axis in
+    front for the stack and without it for a prefix layer."""
     dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
     return dst
 

@@ -1,11 +1,10 @@
-"""Transformer layer primitives of the port, dense half (mirror of
-``repro.models.layers``): RMSNorm, RoPE, GQA attention (dense, chunked,
-flash-kernel and KV-cache decode paths) and the SwiGLU FFN.
+"""Transformer layer primitives of the port (mirror of
+``repro.models.layers``): RMSNorm, RoPE, GQA and MLA attention (dense,
+chunked, flash-kernel and KV-cache decode paths) and the SwiGLU FFN.
 
 Shape conventions: activations (B, S, D); per-head tensors (B, S, H, hd); all
 matmul weights stored ``(..., d_in, d_out)`` and applied as ``x @ W``. The
 JAX package's ``logical(...)`` sharding annotations are identities here.
-MLA attention comes with a later slice (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -42,11 +41,14 @@ def materialize(spec: ParamSpec, generator: torch.Generator, dtype: torch.dtype,
     noise = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
     if spec.init == "normal":
-        return (spec.scale * noise).to(dtype)
-    # fan_in: last-2 dim is d_in
-    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-    std = spec.scale / (fan_in ** 0.5)
-    return (std * noise).to(dtype)
+        std = spec.scale
+    else:  # fan_in: last-2 dim is d_in
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale / (fan_in ** 0.5)
+    # scaled in place: the same fp32 products as ``std * noise`` without a
+    # second fp32 copy of the leaf (deepseek-v2-lite's expert stack is 9.6 G
+    # elements, 38.4 GB in fp32)
+    return noise.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +290,104 @@ def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None
         if mode == "prefill":
             new_cache = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention layer (DeepSeek-V2 style; the cache holds the compressed latent)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.n_heads
+    m: MLAConfig = cfg.mla
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    specs = {"norm": ParamSpec((d,), ("embed",), "ones")}
+    if m.q_lora_rank:
+        specs["wq_a"] = ParamSpec((d, m.q_lora_rank), ("d_in", "lora"))
+        specs["q_a_norm"] = ParamSpec((m.q_lora_rank,), (None,), "ones")
+        specs["wq_b"] = ParamSpec((m.q_lora_rank, H * qk_dim), ("lora", "heads"))
+    else:
+        specs["wq"] = ParamSpec((d, H * qk_dim), ("d_in", "heads"))
+    specs["wkv_a"] = ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("d_in", "lora"))
+    specs["kv_a_norm"] = ParamSpec((m.kv_lora_rank,), (None,), "ones")
+    specs["wkv_b"] = ParamSpec(
+        (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), ("lora", "heads"))
+    specs["wo"] = ParamSpec((H * m.v_head_dim, d), ("heads", "d_in"))
+    return specs
+
+
+def mla_cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    m = cfg.mla
+    kv_seq = "long_seq" if batch == 1 else "kv_seq"
+    return {
+        "ckv": ParamSpec((batch, seq, m.kv_lora_rank), ("batch", kv_seq, "lora"), "zeros"),
+        "k_rope": ParamSpec((batch, seq, m.qk_rope_head_dim), ("batch", kv_seq, None), "zeros"),
+    }
+
+
+def _mla_qkv(cfg, p, h, positions):
+    """(q_nope, q_rope, ckv, k_rope): the per-head query split at the RoPE
+    part, and the normalised latent with its one shared RoPE key."""
+    B, S, _ = h.shape
+    m = cfg.mla
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        q = rms_norm(h @ p["wq_a"], p["q_a_norm"], cfg.rms_eps) @ p["wq_b"]
+    else:
+        q = h @ p["wq"]
+    q = q.reshape(B, S, cfg.n_heads, qk_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, k_rope = torch.split(h @ p["wkv_a"], [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    ckv = rms_norm(ckv, p["kv_a_norm"], cfg.rms_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expand_kv(cfg, p, ckv, k_rope):
+    """The latent (B, S, r) and RoPE key (B, S, rope) -> per-head k (B, S, H,
+    nope + rope), contiguous, and v (B, S, H, v_head_dim), a strided view
+    into the up-projection's output (the flash kernel reads it in place)."""
+    B, S, _ = ckv.shape
+    H = cfg.n_heads
+    m = cfg.mla
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def mla_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None):
+    """mode: train | prefill | decode. Returns (y, new_cache).
+
+    prefill: causal self-attention over the prompt (q/k head dim nope +
+    rope, v head dim ``v_head_dim``); new_cache holds the latent ``ckv``
+    and ``k_rope`` in ``x.dtype``. decode: x is one token; ``ckv`` and
+    ``k_rope`` are written into ``cache`` at ``pos`` in place and the whole
+    cache is expanded to per-head k and v, as in the JAX package."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    h = rms_norm(x, p["norm"], cfg.rms_eps)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, h, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+
+    new_cache = None
+    if mode == "decode":
+        ckv_c, kr_c = cache["ckv"], cache["k_rope"]
+        if not 0 <= pos <= ckv_c.shape[1] - S:
+            raise ValueError(f"decode position {pos} outside the cache's "
+                             f"{ckv_c.shape[1]} positions")
+        ckv_c[:, pos:pos + S] = ckv.to(ckv_c.dtype)
+        kr_c[:, pos:pos + S] = k_rope.to(kr_c.dtype)
+        k, v = _mla_expand_kv(cfg, p, ckv_c, kr_c)
+        out = decode_attention(q, k, v, pos)
+        new_cache = {"ckv": ckv_c, "k_rope": kr_c}
+    else:
+        k, v = _mla_expand_kv(cfg, p, ckv, k_rope)
+        out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                        chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+        if mode == "prefill":
+            new_cache = {"ckv": ckv.to(x.dtype), "k_rope": k_rope.to(x.dtype)}
+    return out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

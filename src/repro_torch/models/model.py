@@ -1,10 +1,14 @@
-"""Model assembly of the port, dense families (mirror of ``repro.models.model``).
+"""Model assembly of the port (mirror of ``repro.models.model``): GQA and
+MLA mixers, dense and MoE FFNs.
 
-A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units;
-the unit's parameters are stacked ``(n_units, ...)`` exactly as in the JAX
-package, so tree paths, leaf shapes and optimizer buckets match, and so is
-the KV cache (``stack/layer_j/{k,v}`` of shape ``(n_units, B, S, K, hd)``).
-The forward walks the stack with a Python loop over ``torch.unbind`` slices.
+A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units
+(deepseek-v2-lite: one dense-FFN prefix layer and 26 MoE units); the unit's
+parameters are stacked ``(n_units, ...)`` exactly as in the JAX package, so
+tree paths, leaf shapes and optimizer buckets match, and so is the decode
+cache (GQA: ``stack/layer_j/{k,v}`` of shape ``(n_units, B, S, K, hd)``;
+MLA: ``stack/layer_j/{ckv,k_rope}`` of shape ``(n_units, B, S, r)``). The
+forward walks the stack with a Python loop over ``torch.unbind`` slices and
+sums the MoE layers' auxiliary losses in layer order.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import map_with_path, tree_paths
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -44,23 +49,33 @@ def plan_stack(pattern) -> Tuple[int, int, int]:
     return best
 
 
-def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict[str, Any]:
-    if mixer != "gqa" or ffn not in ("dense", "none"):
+MIXERS = {
+    "gqa": (L.gqa_specs, L.gqa_apply, L.gqa_cache_specs),
+    "mla": (L.mla_specs, L.mla_apply, L.mla_cache_specs),
+}
+
+
+def _mixer(mixer: str):
+    if mixer not in MIXERS:
         raise NotImplementedError(
-            f"layer ({mixer}, {ffn}) is not ported yet (ROADMAP Queue 1, "
-            f"item 9: non-dense model families)")
-    specs = {"mixer": L.gqa_specs(cfg)}
+            f"the {mixer!r} mixer is not ported yet (ROADMAP Queue 1, item 9: "
+            f"the SSM and frontend families)")
+    return MIXERS[mixer]
+
+
+def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict[str, Any]:
+    if ffn not in ("dense", "moe", "none"):
+        raise ValueError(f"unknown FFN kind {ffn!r}")
+    specs = {"mixer": _mixer(mixer)[0](cfg)}
     if ffn == "dense":
         specs["ffn"] = L.ffn_specs(cfg)
+    elif ffn == "moe":
+        specs["ffn"] = M.moe_specs(cfg)
     return specs
 
 
 def _cache_specs(cfg: ModelConfig, mixer: str, batch: int, seq: int):
-    if mixer != "gqa":
-        raise NotImplementedError(
-            f"the {mixer!r} cache is not ported yet (ROADMAP Queue 1, item 9: "
-            f"MLA, MoE, SSM and frontend families)")
-    return L.gqa_cache_specs(cfg, batch, seq)
+    return _mixer(mixer)[2](cfg, batch, seq)
 
 
 def _stack_specs(specs, n_units: int):
@@ -137,12 +152,18 @@ def _spec_paths(specs, prefix=()):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, ffn, p, x, positions, mode, cache=None, pos=None):
-    out, new_cache = L.gqa_apply(cfg, p["mixer"], x, positions, mode, cache, pos)
+def _apply_layer(cfg, mixer, ffn, p, x, positions, mode, cache=None, pos=None):
+    """One layer: (x, new_cache, aux), aux the MoE FFN's auxiliary loss
+    (None for other FFNs)."""
+    out, new_cache = _mixer(mixer)[1](cfg, p["mixer"], x, positions, mode, cache, pos)
     x = x + out
+    aux = None
     if ffn == "dense":
         x = x + L.ffn_apply(cfg, p["ffn"], x)
-    return x, new_cache
+    elif ffn == "moe":
+        y, aux = M.moe_apply(cfg, p["ffn"], x)
+        x = x + y
+    return x, new_cache, aux
 
 
 def lm_head(cfg: ModelConfig, params) -> torch.Tensor:
@@ -160,8 +181,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     prefill returns the prompt's cache, stacked as ``build_cache_specs``
     lays it out for S = the prompt's length. decode takes one token a row
     (``batch["tokens"]`` of shape (B, 1)) at position ``pos`` (an int) and a
-    cache of ``init_cache``'s layout, writes each layer's k and v into it
-    at ``pos`` in place and returns it: the cache passed in is consumed, as
+    cache of ``init_cache``'s layout, writes each layer's k and v (MLA: its
+    latent and RoPE key) into it at ``pos`` in place and returns it: the cache passed in is consumed, as
     the JAX package's decode step consumes its donated cache. train and
     prefill ignore ``cache``. ``remat="full"`` keeps only each unit's input
     and recomputes the unit in the backward (``torch.utils.checkpoint``),
@@ -185,9 +206,12 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     new_cache: Dict[str, Any] = {}
 
     for i in range(q):
-        _, ffn = cfg.pattern[i]
+        mixer, ffn = cfg.pattern[i]
         c = cache.get(f"prefix_{i}") if mode == "decode" else None
-        x, nc = _apply_layer(cfg, ffn, params[f"prefix_{i}"], x, positions, mode, c, pos)
+        x, nc, a = _apply_layer(cfg, mixer, ffn, params[f"prefix_{i}"], x, positions,
+                                mode, c, pos)
+        if a is not None:
+            aux = aux + a
         if nc is not None:
             new_cache[f"prefix_{i}"] = nc
 
@@ -197,26 +221,29 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         slices = {path: torch.unbind(t, 0) for path, t in stacked}
         stack_cache = cache["stack"] if mode == "decode" else None
 
-        def apply_unit(x_in, u):
+        def apply_unit(x_in, aux_in, u):
             unit = map_with_path(lambda path, _t: slices[path][u], params["stack"])
             # unit u's cache slices are views: a write lands in the stack
             unit_cache = (map_with_path(lambda _path, t: t[u], stack_cache)
                           if stack_cache is not None else None)
             ncs = {}
-            for j, (_, ffn) in enumerate(unit_kinds):
+            for j, (mixer, ffn) in enumerate(unit_kinds):
                 cj = unit_cache[f"layer_{j}"] if unit_cache is not None else None
-                x_in, nc = _apply_layer(cfg, ffn, unit[f"layer_{j}"], x_in, positions,
-                                        mode, cj, pos)
+                x_in, nc, a = _apply_layer(cfg, mixer, ffn, unit[f"layer_{j}"], x_in,
+                                           positions, mode, cj, pos)
+                if a is not None:
+                    aux_in = aux_in + a
                 if nc is not None:
                     ncs[f"layer_{j}"] = nc
-            return x_in, ncs
+            return x_in, aux_in, ncs
 
         for u in range(n):
             if mode == "train" and remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(lambda x_in, u: apply_unit(x_in, u)[0], x, u,
-                               use_reentrant=False)
+                # the unit's aux loss leaves the checkpoint with its output
+                x, aux = checkpoint(lambda x_in, a_in, u: apply_unit(x_in, a_in, u)[:2],
+                                    x, aux, u, use_reentrant=False)
                 continue
-            x, ncs = apply_unit(x, u)
+            x, aux, ncs = apply_unit(x, aux, u)
             if mode == "prefill":
                 # each unit's prompt cache goes into its slot of one stacked
                 # tensor per leaf, allocated at the first unit

@@ -36,8 +36,9 @@ TILE_K = 64  # keys per tile, the kernel's BK
 
 
 def kernel_model(q, k, v, *, causal, parts=3):
-    """The kernel's arithmetic: q (B,S,H,hd), k/v (B,S,K,hd) bf16 -> bf16.
-    ``parts`` bf16 pieces of P (1: P rounded once)."""
+    """The kernel's arithmetic: q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hdv)
+    bf16 -> (B,S,H,hdv) bf16. ``parts`` bf16 pieces of P (1: P rounded
+    once)."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)  # (B, H, S, hd); kv head h // G
@@ -47,7 +48,7 @@ def kernel_model(q, k, v, *, causal, parts=3):
     rows = torch.arange(S)
     m = torch.full((B, H, S), NEG)
     ell = torch.zeros(B, H, S)
-    acc = torch.zeros(B, H, S, hd)
+    acc = torch.zeros(B, H, S, v.shape[-1])
     for kv0 in range(0, S, TILE_K):
         keys = torch.arange(kv0, min(S, kv0 + TILE_K))
         kt, vt = kf[:, :, kv0:kv0 + TILE_K], vf[:, :, kv0:kv0 + TILE_K]
@@ -91,10 +92,10 @@ def worst_ratio(got, want):
     return float((diff / (1e-6 * mag.max() + RTOL_BF16 * mag)).max())
 
 
-def _inputs(B, S, H, K, hd, seed):
+def _inputs(B, S, H, K, hd, seed, hdv=None):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((B, S, h, hd)).astype(np.float32)).bfloat16()
-            for h in (H, K, K)]
+    return [torch.from_numpy(rng.standard_normal((B, S, h, d)).astype(np.float32)).bfloat16()
+            for h, d in ((H, hd), (K, hd), (K, hdv or hd))]
 
 
 # (B, S, H, K, hd, causal): ragged S, on and just past the key tile's edge,
@@ -117,6 +118,25 @@ def test_three_part_split_holds_the_bf16_limit(case):
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.isfinite(got.float()).all()
     assert worst_ratio(got, want) <= 1.0
+
+
+# MLA's head dims (q/k 192, v 128: deepseek-v2-lite's, H = K): Q.K^T over
+# three 64-column sub-tiles, P.V over v's 128 columns
+MLA_CASES = [(1, 1000, 4, 4, True), (1, 1000, 4, 4, False), (2, 129, 4, 4, True),
+             (1, 65, 2, 2, False)]
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=lambda c: "B{}_S{}_H{}_K{}_{}".format(
+    *c[:4], "causal" if c[4] else "noncausal"))
+def test_three_part_split_holds_the_bf16_limit_at_hd192_hdv128(case):
+    B, S, H, K, causal = case
+    q, k, v = _inputs(B, S, H, K, 192, seed=S * H + 192, hdv=128)
+    got = kernel_model(q, k, v, causal=causal)
+    want = chunked_attention_ref(q, k, v, causal=causal, chunk_q=512, chunk_k=512)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, 128)
+    assert torch.isfinite(got.float()).all()
+    assert worst_ratio(got, want) <= 1.0
+    assert worst_ratio(got, exact_attention(q, k, v, causal=causal)) <= 1.0
 
 
 def test_single_rounding_of_p_misses_the_limit():

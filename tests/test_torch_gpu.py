@@ -632,3 +632,86 @@ def test_reduced_qwen3_serving_on_the_card_matches_the_cpu(cuda):
     for got, want in zip(card["logits"], cpu["logits"], strict=True):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert card["peak_bytes"] > 0 and len(card["decode_ms"]) == 6
+
+
+# MLA's head dims, q/k 192 and v 128 (deepseek-v2-lite's), v a strided
+# column slice as MLA's is: (name, B, S, H, causal)
+MLA_ATTN = [("mla_prefill", 8, 1024, 16, True), ("mla_prefill_noncausal", 8, 1024, 16, False),
+            ("mla_ragged", 2, 1000, 16, True), ("mla_ragged_noncausal", 2, 1000, 16, False)]
+MLA_ATTN += [(f"mla_s{S}", 2, S, 16, True) for S in (1, 63, 65, 129)]
+
+
+def _mla_qkv(B, S, H, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(B, S, H, 192, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kv = torch.randn(B, S, H, 256, generator=gen, device="cuda").bfloat16()
+    return q, k, kv[..., 128:]
+
+
+@pytest.mark.parametrize("case", MLA_ATTN, ids=[c[0] for c in MLA_ATTN])
+def test_flash_mla_head_dims_match_plain(cuda, case):
+    """The (192, 128) build against the plain version at one bf16 step of
+    each element, and the strided v read in place: a contiguous copy gives
+    the same bits; two launches give the same bits."""
+    _, B, S, H, causal = case
+    q, k, v = _mla_qkv(B, S, H)
+    assert not v.is_contiguous()
+    out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, H, 128)
+    _close(out, ref)
+    assert torch.equal(out, fa.flash_attention_fwd_kernel(q, k, v.contiguous(), causal=causal))
+    assert torch.equal(out, fa.flash_attention_fwd_kernel(q, k, v, causal=causal))
+
+
+def test_flash_refuses_an_unbuilt_head_dim_pair(cuda):
+    """minicpm3-4b's MLA (q/k 96, v 64) and v at 192 are not built: the
+    wrapper raises instead of running a neighbouring instantiation, and so
+    does the fp32 kernel at (192, 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q96, v64 = (torch.randn(1, 64, 2, d, generator=gen, device="cuda").bfloat16()
+                for d in (96, 64))
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention_fwd_kernel(q96, q96, v64)
+    q, k, v = _mla_qkv(1, 64, 2)
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention_fwd_kernel(q, k, q)
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention_fwd_kernel(q.float(), k.float(), v.float())
+    # v's rows must be 16-byte multiples apart for its tensor map
+    odd = torch.randn(1, 64, 2, 132, generator=gen, device="cuda").bfloat16()[..., 4:]
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_fwd_kernel(q, k, odd)
+
+
+def test_mla_prefill_runs_the_kernel_once_a_layer(cuda):
+    """A reduced deepseek-v2-lite-16b with MLA's full head dims (q/k 128 +
+    64, v 128) in bf16 with attn_impl="pallas": the prefill launches the
+    (192, 128) kernel once a layer and its last logits agree with dense
+    attention's to the bf16 bound of the serving tests (2^-5 of the
+    largest, two layers)."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = get_config("deepseek-v2-lite-16b").reduced(
+        dtype="bfloat16", attn_impl="pallas",
+        mla=MLAConfig(kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128))
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    params = init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 96), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    reset_launches()
+    flash, _ = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+    dense, _ = make_prefill_step(dataclasses.replace(cfg, attn_impl="dense"))(
+        params, {"tokens": toks})
+    assert float((flash.float() - dense.float()).abs().max()) <= \
+        2.0 ** -5 * float(dense.float().abs().max())

@@ -46,6 +46,10 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/distributed/sharding.py",
                      "src/repro_torch/launch/serve.py",
                      "src/repro_torch/configs/qwen3_4b.py",
+                     "src/repro_torch/models/moe.py",
+                     "src/repro_torch/configs/deepseek_v2_lite_16b.py",
+                     "src/repro_torch/configs/olmoe_1b_7b.py",
+                     "src/repro_torch/configs/minicpm3_4b.py",
                      "tools/step_repeat.py", "tools/flash_hd128_variants.py"):
         assert expected in names
 

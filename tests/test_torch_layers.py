@@ -35,7 +35,8 @@ def _close_to_max(got, want, frac, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("arch", ["gpt2-small", "llama-60m"])
+@pytest.mark.parametrize("arch", ["gpt2-small", "llama-60m", "deepseek-v2-lite-16b",
+                                  "olmoe-1b-7b", "minicpm3-4b"])
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
 def test_param_specs_match_jax(arch, reduced):
     """Same paths, shapes, init kinds and scales, full width included (specs
@@ -128,11 +129,76 @@ def test_attention_impls_agree_on_the_cpu():
 
 def test_unported_paths_raise_and_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        get_config("deepseek-v2-lite-16b")
+        get_config("xlstm-350m")
     cfg = get_config("gpt2-small").reduced()
-    mla = dataclasses.replace(cfg, pattern=(("mla", "dense"),) * 2)
-    # decoding an MLA pattern starts from its cache, which is not ported
+    mamba = dataclasses.replace(cfg, pattern=(("mamba", "dense"),) * 2)
+    # decoding a mamba pattern starts from its state cache, which is not ported
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        init_cache(mla, 2, 16, device="cpu")
+        init_cache(mamba, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        build_param_specs(mla)
+        build_param_specs(mamba)
+
+
+def _old_materialize(spec, generator, dtype, device):
+    """``layers.materialize`` before it scaled its noise in place: the
+    scaled noise as a second fp32 tensor, then the cast."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    noise = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+    if spec.init == "normal":
+        return (spec.scale * noise).to(dtype)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    std = spec.scale / (fan_in ** 0.5)
+    return (std * noise).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_materialize_in_place_keeps_the_bits(dtype):
+    """Scaling the noise in place gives the bits of the old two-tensor
+    formula from one generator state, for every init kind."""
+    specs = [layers.ParamSpec((7, 33, 65), ("a", "d_in", "b")),
+             layers.ParamSpec((130, 24), ("vocab", "embed"), "normal", 0.02),
+             layers.ParamSpec((3, 64, 48), ("layers", "d_in", "mlp"), "fan_in", 0.5),
+             layers.ParamSpec((40,), ("embed",)), layers.ParamSpec((5,), (None,), "ones"),
+             layers.ParamSpec((4, 4), (None, None), "zeros")]
+    for spec in specs:
+        g_new, g_old = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+        new = layers.materialize(spec, g_new, dtype, "cpu")
+        old = _old_materialize(spec, g_old, dtype, "cpu")
+        assert new.dtype == old.dtype == dtype
+        assert torch.equal(new.view(torch.int16) if dtype == torch.bfloat16 else new,
+                           old.view(torch.int16) if dtype == torch.bfloat16 else old), spec
+
+
+@pytest.mark.parametrize("arch", ["gpt2-small", "llama-130m", "qwen3-4b", "phi3-mini-3.8b",
+                                  "yi-9b"])
+def test_init_params_keeps_the_bits_of_every_existing_config(arch):
+    """``init_params`` of each config ported before the in-place repair, in
+    its own type (bf16, at reduced size with the full config's dtype),
+    against the old formula drawn leaf by leaf in the same order."""
+    from repro_torch.models.model import _spec_paths
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    got = dict(tree_paths(init_params(cfg, seed=3, device="cpu")))
+    gen = torch.Generator().manual_seed(3)
+    for path, spec in _spec_paths(build_param_specs(cfg)):
+        want = _old_materialize(spec, gen, torch.bfloat16, "cpu")
+        assert torch.equal(got[path].view(torch.int16), want.view(torch.int16)), path
+
+
+def test_deepseek_three_layer_cut_buckets():
+    """The shapes RMNP sees when deepseek-v2-lite-16b is cut to its first 3
+    layers (the dense prefix and 2 MoE units) at full width: 13 buckets,
+    the expert stacks at L = 2 units x 64 experts = 128."""
+    base = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(base, num_layers=3, pattern=base.pattern[:3])
+    shapes = {p: torch.empty(s.shape, device="meta")
+              for p, s in tree_paths(build_param_specs(cfg))}
+    assert sum(t.numel() for t in shapes.values()) == 1_670_135_296
+    plan = bucketing.build_plan(shapes, predicate=is_matrix_param)
+    sizes = {b.key: b.size for b in plan.buckets}
+    assert len(sizes) == 13
+    assert sizes["2048x2816"] == 128 and sizes["1408x2048"] == 128
+    for key in ("10944x2048", "2048x21888", "2048x64", "102400x2048"):
+        assert key in sizes

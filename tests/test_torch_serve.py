@@ -186,7 +186,8 @@ def test_decode_consumes_the_cache_in_place(jax_runs):
         assert not changed[:, :, T + 1:].any(), path
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "phi3-mini-3.8b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "phi3-mini-3.8b", "yi-9b",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b"])
 def test_serve_loop_gives_the_jax_examples_tokens(arch):
     """``launch/serve.serve`` (B=2, T=8, 8 tokens) from JAX's parameters and
     prompts gives the token sequence of ``examples/serve_batched.py``'s loop
@@ -224,7 +225,7 @@ def test_serve_draws_its_own_inputs_from_the_seed():
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen3-4b", "yi-9b", "gpt2-small",
-                                  "llama-130m"])
+                                  "llama-130m", "minicpm3-4b"])
 def test_decode_matches_dense_forward(arch):
     """The port's form of the JAX package's test of the same name, with its
     tolerance: decoding token T from a prefill-built cache reproduces the
@@ -298,7 +299,8 @@ def _spec_table(tree, cls):
 
 
 @pytest.mark.parametrize("kind", ["params", "cache"])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-9b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-9b", "phi3-mini-3.8b",
+                                  "deepseek-v2-lite-16b", "olmoe-1b-7b", "minicpm3-4b"])
 def test_full_size_specs_match_jax(arch, kind):
     """Built abstractly at full size (no tensor is allocated): the same tree
     paths, shapes, logical axes, inits and types as the JAX package's; the
@@ -315,6 +317,16 @@ def test_full_size_specs_match_jax(arch, kind):
     if arch == "qwen3-4b" and kind == "params":
         n = sum(int(np.prod(s[0])) for s in got.values())
         assert n == 4_412_079_616 and cfg.padded_vocab == 152064
+    if arch == "deepseek-v2-lite-16b":
+        if kind == "params":
+            n = sum(int(np.prod(s[0])) for s in got.values())
+            assert n == 15_706_484_224
+            assert got["stack/layer_0/ffn/w_in"][0] == (26, 64, 2048, 2816)
+        else:  # the latent cache: 576 values a token per layer
+            assert got["prefix_0/ckv"][0] == (8, 1152, 512)
+            assert got["stack/layer_0/k_rope"][0] == (26, 8, 1152, 64)
+            n = sum(int(np.prod(s[0])) for s in got.values())
+            assert n == 27 * 8 * 1152 * 576
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -359,8 +371,8 @@ def test_flash_plain_version_at_hd128_matches_pallas(dtype, causal):
 def test_flash_kernel_admits_hd128_in_bf16_only():
     """hd 128 is built for bf16; the fp32 kernel stops at 64. On CPU tensors
     the wrapper refuses to launch either way (the check comes first)."""
-    assert 128 in fa.HEAD_DIMS[torch.bfloat16]
-    assert 128 not in fa.HEAD_DIMS[torch.float32]
+    assert (128, 128) in fa.HEAD_DIM_PAIRS[torch.bfloat16]
+    assert (128, 128) not in fa.HEAD_DIM_PAIRS[torch.float32]
     q = torch.zeros(1, 8, 2, 128)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd_kernel(q, q, q)
@@ -379,5 +391,6 @@ def test_decode_refuses_a_missing_cache_or_a_position_past_it():
 
 
 def test_configs_copy_the_jax_packages():
-    for arch in ("qwen3-4b", "phi3-mini-3.8b", "yi-9b"):
+    for arch in ("qwen3-4b", "phi3-mini-3.8b", "yi-9b", "deepseek-v2-lite-16b",
+                 "olmoe-1b-7b", "minicpm3-4b"):
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))

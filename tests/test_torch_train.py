@@ -26,8 +26,8 @@ from repro.data.pipeline import make_stream as jax_make_stream
 from repro.models import init_params as jax_init_params
 from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
-from repro_torch.core import cosine_with_warmup, make_optimizer
-from repro_torch.core.types import tree_paths
+from repro_torch.core import apply_updates, cosine_with_warmup, make_optimizer
+from repro_torch.core.types import map_with_path, tree_paths
 from repro_torch.data.pipeline import make_stream
 from repro_torch.interop import to_numpy, tree_from_numpy
 from repro_torch.kernels import LAUNCHES
@@ -173,3 +173,81 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present; the default device works")
     with pytest.raises((RuntimeError, AssertionError)):
         train_mod.train("gpt2-small", steps=1, batch=2, seq=16)
+
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "olmoe-1b-7b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_two_rmnp_steps_of_moe_archs_match_jax(arch):
+    """Two single-pass RMNP steps of the reduced MoE configs (deepseek: MLA,
+    a dense prefix layer and MoE units with a shared expert; olmoe: GQA
+    with qk-norm and MoE in every layer) from the JAX package's parameters
+    and batches: loss, its aux term, grad norm, and every parameter (the
+    4-D expert stacks included), at this file's tolerances."""
+    jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = tree_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    jopt = jax_make_optimizer("rmnp", _opt_config(jax_cosine, "single-pass"))
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt, remat="full"))
+    opt = make_optimizer("rmnp", _opt_config(cosine_with_warmup, "single-pass"))
+    step_fn = make_train_step(cfg, opt, remat="full")
+    jstate, state = jopt.init(jparams), opt.init(params)
+    stream = make_stream(cfg, SEQ, BATCH)
+    want, got = [], []
+    keys = ("loss", "aux", "nll", "grad_norm")
+    for step in range(2):
+        np_batch = next(stream)
+        jparams, jstate, jm = jstep(jparams, jstate,
+                                    {k: jnp.asarray(v) for k, v in np_batch.items()}, step)
+        params, state, m = step_fn(params, state,
+                                   {k: torch.from_numpy(v) for k, v in np_batch.items()},
+                                   step)
+        want.append([float(jm[k]) for k in keys])
+        got.append([float(m[k]) for k in keys])
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-6, atol=0)
+    assert all(w[1] > 0 for w in want)  # the MoE layers' aux losses are in the loss
+    jflat = dict(tree_paths(jax.tree_util.tree_map(np.asarray, jparams)))
+    assert any(t.ndim == 4 for _, t in tree_paths(params))
+    for path, t in tree_paths(params):
+        w = jflat[path].astype(np.float32)
+        np.testing.assert_allclose(to_numpy(t), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()), err_msg=path)
+
+
+def test_engines_bitwise_equal_on_expert_stacks():
+    """Inside the port, on reduced deepseek's parameters with random
+    gradients: per-leaf == bucketed two-pass == single-pass, bit for bit,
+    the 4-D expert stacks ``(n_units, E, d_in, d_out)`` included (each
+    expert's matrix normalized over its own d_in)."""
+    from repro_torch.models import init_params
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    grads = [map_with_path(lambda _path, t: 0.01 * torch.randn(t.shape, generator=gen), params)
+             for _ in range(2)]
+    results = {}
+    for engine in ("per-leaf", "bucketed", "single-pass"):
+        opt = make_optimizer("rmnp", _opt_config(cosine_with_warmup, engine))
+        p, state = params, opt.init(params)
+        for step, g in enumerate(grads):
+            if opt.update_apply is not None:
+                p, state = opt.update_apply(g, state, p, step)
+            else:
+                updates, state = opt.update(g, state, p, step)
+                p = apply_updates(p, updates)
+        results[engine] = dict(tree_paths(p))
+    stacks = [path for path, t in results["per-leaf"].items() if t.ndim == 4]
+    assert stacks == ["stack/layer_1/ffn/w_in", "stack/layer_1/ffn/w_out"]
+    for engine in ("bucketed", "single-pass"):
+        for path, t in results[engine].items():
+            assert torch.equal(t, results["per-leaf"][path]), (engine, path)
+
+
+def test_moe_arch_trains():
+    """The port's form of the JAX package's ``test_moe_arch_trains``."""
+    _, _, hist = train_mod.train("olmoe-1b-7b", "rmnp", steps=40, batch=4, seq=32,
+                                 log_every=1, device="cpu")
+    assert np.isfinite(hist[-1]["loss"])
+    assert hist[-1]["loss"] < hist[0]["loss"] + 0.05
+    assert all(h["aux"] > 0 for h in hist)

@@ -58,17 +58,17 @@ def build(name, subs, out_dir):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         return None, proc.stderr[-3000:]
+    from repro_torch.kernels import flash_attention as fa
     lib = ctypes.CDLL(str(d / "lib.so"))
     fn = lib.fa_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
+    fn.argtypes = fa.BF16_ARGTYPES
     fn.restype = ctypes.c_int
     # registers and spills of the hd-128 instantiation
     report, keep = [], False
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            keep = "fa_fwd_tcILi128E" in m.group(1)
+            keep = "fa_fwd_tcILi128ELi128EE" in m.group(1)
         elif keep and ("spill" in line or "Used" in line):
             report.append(line.split(":", 1)[-1].strip())
     return fn, " ".join(report)
@@ -93,8 +93,9 @@ def main():
 
     def call(fn):
         out = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K, hd, 1,
-                 1.0 / hd ** 0.5, torch.cuda.current_stream().cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K, hd, hd,
+                 v.stride(2), v.stride(1), v.stride(0), 1, 1.0 / hd ** 0.5,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed ({err})")
         return out

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where a served batch of full-width qwen3-4b spends its time: the prefill
+"""Where a served batch of a full-width model spends its time: the prefill
 (attn_impl="pallas") and decode steps under torch.profiler.
 
-    python3 tools/serve_profile.py [--decode-steps 8]   # needs one CUDA card
+    python3 tools/serve_profile.py [--arch qwen3-4b] [--decode-steps 8]   # one CUDA card
 
-bf16, seed 0, B=8, T=1024, S_max=1152, as phase S of chip_smoke.py. After a
+bf16, seed 0, B=8, T=1024, S_max=1152, as phase S (qwen3-4b) and phase M2
+(deepseek-v2-lite-16b) of chip_smoke.py serve them, at the config's own
+capacity factor for an MoE model. After a
 warm-up, one prefill and then ``--decode-steps`` decode steps run under the
 profiler, each window ended by a synchronize. Per window it reports the
 sum of the device's kernel times, the number of kernel launches and the
@@ -12,7 +14,7 @@ kernels that take the most device time, and the wall time of the same
 window run again without the profiler (whose host-side recording slows
 the host): the device's idle share is 1 - kernel time / that wall time
 (kernels on one stream do not overlap). Prints one JSON line per window
-and writes chiprun_out/serve_profile.json.
+and writes chiprun_out/serve_profile_<arch>.json.
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ def window(fn, top=12):
 def main():
     import torch
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--decode-steps", type=int, default=8)
     args = ap.parse_args()
     if 2 * args.decode_steps > N:
@@ -74,11 +77,11 @@ def main():
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.train.step import make_prefill_step, make_serve_step
 
-    cfg = dataclasses.replace(get_config("qwen3-4b"), attn_impl="pallas")
+    cfg = dataclasses.replace(get_config(args.arch), attn_impl="pallas")
     params = init_params(cfg, seed=0, device="cuda")
     prompts = torch.randint(0, cfg.vocab, (B, T), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(1))
-    serve("qwen3-4b", full=True, batch=B, prompt_len=T, tokens=4, attn_impl="pallas",
+    serve(args.arch, full=True, batch=B, prompt_len=T, tokens=4, attn_impl="pallas",
           params=params, prompts=prompts)  # warm-up
     prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
     out = {}
@@ -108,7 +111,8 @@ def main():
         print(json.dumps({"window": name, **rec}), flush=True)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "serve_profile.json").write_text(json.dumps({"card": smi, **out}, indent=1))
+    (dest / f"serve_profile_{args.arch}.json").write_text(
+        json.dumps({"card": smi, "arch": args.arch, **out}, indent=1))
     print(smi, flush=True)
     return 0
 
