@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     SSMConfig,
     ShapeConfig,
+    cut_layers,
     get_config,
     list_configs,
     register,

@@ -166,6 +166,16 @@ class ModelConfig:
         return ModelConfig(**kw)
 
 
+def cut_layers(cfg: ModelConfig, layers: str) -> ModelConfig:
+    """``cfg`` cut in depth to the layers ``start:stop`` of its pattern, every
+    width kept: how a model too large for one card is run on it (jamba's
+    first group of 8 layers is ``"0:8"``)."""
+    start, stop = (int(x) for x in layers.split(":"))
+    if not 0 <= start < stop <= cfg.num_layers:
+        raise ValueError(f"layers {layers!r} outside {cfg.name}'s {cfg.num_layers}")
+    return dataclasses.replace(cfg, num_layers=stop - start, pattern=cfg.pattern[start:stop])
+
+
 # ---------------------------------------------------------------------------
 # Input shapes assigned to this paper (LM-family: seq_len x global_batch)
 # ---------------------------------------------------------------------------
@@ -202,10 +212,9 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 _REGISTRY = {}
 
 # Architectures the JAX package defines whose families the port does not run
-# yet: the SSM mixers (xlstm-350m, and jamba-v0.1-52b, whose MoE FFN is
-# ported but whose mamba layers are not) and the modality frontends
-# (musicgen-large, paligemma-3b): ROADMAP Queue 1, item 9.
-NOT_PORTED = ("jamba-v0.1-52b", "musicgen-large", "paligemma-3b", "xlstm-350m")
+# yet: the modality frontends (musicgen-large, paligemma-3b), ROADMAP Queue
+# 1, item 9c.
+NOT_PORTED = ("musicgen-large", "paligemma-3b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -215,16 +224,16 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _load():
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_lite_16b, gpt2, llama_small, minicpm3_4b, olmoe_1b_7b,
-        phi3_mini_3_8b, qwen3_4b, yi_9b)
+        deepseek_v2_lite_16b, gpt2, jamba_v0_1_52b, llama_small, minicpm3_4b,
+        olmoe_1b_7b, phi3_mini_3_8b, qwen3_4b, xlstm_350m, yi_9b)
 
 
 def get_config(name: str) -> ModelConfig:
     _load()
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1, item 9: "
-            f"the SSM and frontend families); ported: "
+            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1, item 9c: "
+            f"the frontend families); ported: "
             f"{', '.join(list_configs())}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; ported: "

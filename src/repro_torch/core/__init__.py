@@ -1,3 +1,7 @@
+from repro_torch.core.adamw import AdamWState, adamw  # noqa: F401
+from repro_torch.core.bucketing import (  # noqa: F401
+    BucketPlan, build_plan, fused_rownorm_update,
+)
 from repro_torch.core.dominance import dominance_ratios, global_dominance  # noqa: F401
 from repro_torch.core.engine import BucketedState  # noqa: F401
 from repro_torch.core.mixed import (  # noqa: F401

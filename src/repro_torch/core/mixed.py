@@ -257,16 +257,23 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
     def update_apply(grads, state, params, step):
         """Single-pass fused apply -> (new_params, state): AdamW leaves
         compute their new params directly; matrix buckets run the apply
-        kernel (gather g, v, w; one pass; scatter the new weights)."""
+        kernel (gather g, v, w; one pass; scatter the new weights), one
+        bucket at a time, so that a single bucket's gathered fp32 gradient
+        and weights exist at once."""
         plan = eng.plan(params)
         new_params, momentum, nu = adam_sweep(
             grads, state, params, step,
             emit=lambda u, p: p if u is None else p + u.to(p.dtype))
-        g_b = bucketing.gather(plan, grads, dtype=torch.float32)
-        p_b = bucketing.gather(plan, params)
-        w_b, v_b, s_b = eng.apply_buckets(plan, g_b, p_b, state.buckets,
-                                          state.slots, step)
-        new_params = bucketing.scatter(plan, w_b, new_params, cast=True)
+        v_b, s_b = {}, {name: {} for name in state.slots}
+        for bucket in plan.buckets:
+            one = bucketing.BucketPlan(buckets=(bucket,))
+            w_one, v_one, s_one = eng.apply_buckets(
+                one, bucketing.gather(one, grads, dtype=torch.float32),
+                bucketing.gather(one, params), state.buckets, state.slots, step)
+            new_params = bucketing.scatter(one, w_one, new_params, cast=True)
+            v_b.update(v_one)
+            for name, per_bucket in s_one.items():
+                s_b[name].update(per_bucket)
         return new_params, FusedMixedState(momentum=momentum, nu=nu,
                                            buckets=v_b, slots=s_b)
 

@@ -12,6 +12,11 @@ step from the cache.
     # MLA and MoE: deepseek-v2-lite-16b (the flash prefill at q/k 192, v 128)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --full --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
+    # the SSM architectures: xlstm-350m whole, jamba cut to its first group
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --full \\
+        --batch 8 --prompt-len 1024 --tokens 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full \\
+        --layers 0:8 --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
 
 Weights are random, drawn from ``--seed`` on the device; the prompts are
 synthetic tokens drawn from ``--seed + 1``. It runs on ``cuda`` unless
@@ -27,7 +32,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import cut_layers, get_config
 from repro_torch.core.types import map_with_path
 from repro_torch.models.model import init_cache, init_params
 from repro_torch.train.step import make_prefill_step, make_serve_step
@@ -122,8 +127,9 @@ def generate(cfg, params, prompts: torch.Tensor, tokens: int, *,
 def serve(arch: str, *, full: bool = False, batch: int = 4, prompt_len: int = 16,
           tokens: int = 32, seed: int = 0, device: str = "cuda",
           attn_impl: Optional[str] = None, params=None, prompts=None,
-          keep_logits: bool = False) -> Dict[str, Any]:
-    """Serve ``arch`` (its full config with ``full``, else ``.reduced()``):
+          keep_logits: bool = False, layers: str = "") -> Dict[str, Any]:
+    """Serve ``arch`` (its full config with ``full``, else ``.reduced()``;
+    ``layers`` "START:STOP" keeps only those layers, ``configs.cut_layers``):
     random weights from ``seed`` and synthetic prompts from ``seed + 1``,
     both drawn on ``device``, unless ``params`` or ``prompts`` are given.
     ``attn_impl`` overrides the config's attention for the prefill. Returns
@@ -131,6 +137,8 @@ def serve(arch: str, *, full: bool = False, batch: int = 4, prompt_len: int = 16
     cfg = get_config(arch)
     if not full:
         cfg = cfg.reduced()
+    if layers:
+        cfg = cut_layers(cfg, layers)
     if attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     dev = torch.device(device)
@@ -150,6 +158,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--full", action="store_true", help="full-size config")
+    ap.add_argument("--layers", default="",
+                    help="START:STOP, keep only these layers of the pattern "
+                         "(a depth cut; every width is kept)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu; never chosen for you")
@@ -159,7 +170,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     res = serve(args.arch, full=args.full, batch=args.batch, prompt_len=args.prompt_len,
                 tokens=args.tokens, seed=args.seed, device=args.device,
-                attn_impl=args.attn_impl)
+                attn_impl=args.attn_impl, layers=args.layers)
     seqs = res.pop("tokens").cpu()
     steps = sorted(res["decode_ms"])
     med = steps[len(steps) // 2] if steps else float("nan")

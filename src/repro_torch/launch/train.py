@@ -3,6 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small --full \\
         --optimizer rmnp --engine single-pass --use-kernel --steps 3 \\
         --batch 8 --seq 1024
+    # the SSM architectures: xlstm-350m whole; jamba cut in depth to fit one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --full \
+        --engine single-pass --steps 3 --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --full \
+        --layers 3:5 --engine single-pass --steps 3 --batch 8 --seq 1024
     # ZeRO-2 data parallel, one process per rank (NCCL; gloo with --device cpu)
     PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
         --arch gpt2-small --zero2 [--no-compress] [--accum A] [--overlap on]
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs import get_config
+from repro_torch.configs import cut_layers, get_config
 from repro_torch.core import (cosine_with_warmup, global_dominance, make_optimizer,
                               momentum_for_diagnostics, optimizer_names)
 from repro_torch.core.types import tree_paths
@@ -61,7 +66,7 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
           inject_fault: str = "", anomaly_spike_k: float = 6.0,
           anomaly_skip_budget: int = 3, anomaly_rewind_budget: int = 2,
           anomaly_lr_backoff: float = 0.5, anomaly_health_window: int = 2,
-          anomaly_skip_batch: bool = False, device: str = "cuda"):
+          anomaly_skip_batch: bool = False, device: str = "cuda", layers: str = ""):
     """Train ``arch`` for ``steps`` steps; returns (params, opt_state,
     history). ``fused`` routes matrix parameters through the shape-bucketed
     engine, ``fused_apply`` folds the weight update into the per-bucket
@@ -71,7 +76,8 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     plain versions. ``dominance_every`` adds the momentum's diagonal
     dominance (``r_avg``, ``r_min``, ``r_max``) to the logged steps it
     divides. Each history entry also holds the kernel launches of its step
-    (``launches``).
+    (``launches``). ``layers`` ("START:STOP") keeps only those layers of the
+    pattern at full width (``configs.cut_layers``).
 
     **Checkpoints.** With ``ckpt_dir`` the run resumes from the newest
     committed checkpoint there (the data stream from its ``data_step``),
@@ -122,6 +128,8 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = cut_layers(cfg, layers)
     fault_spec = faults.parse_fault(inject_fault) if inject_fault else None
     if fault_spec is not None and main_rank:
         print(f"[train] fault injection armed: {fault_spec.describe()}", flush=True)
@@ -373,6 +381,9 @@ def main(argv=None):
     ap.add_argument("--lr-matrix", type=float, default=2e-3)
     ap.add_argument("--lr-adamw", type=float, default=1e-3)
     ap.add_argument("--full", action="store_true", help="full-size config")
+    ap.add_argument("--layers", default="",
+                    help="START:STOP, keep only these layers of the pattern "
+                         "(a depth cut; every width is kept)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; never chosen for you")
@@ -409,6 +420,8 @@ def main(argv=None):
     ap.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
                     help="with --zero2: the pipelined schedule (per-bucket "
                          "collectives in flight together) or the serialized one")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="DEPRECATED alias for --overlap off")
     ap.add_argument("--no-matrix-embed", action="store_true",
                     help="AdamW on LM-head/embeddings (paper App D.4 ablation)")
     ap.add_argument("--stop-at", type=int, default=0,
@@ -457,6 +470,11 @@ def main(argv=None):
                       DeprecationWarning, stacklevel=2)
         engine = engine or mapped
     engine = engine or "per-leaf"
+    overlap = {"auto": None, "on": True, "off": False}[args.overlap]
+    if args.no_overlap:
+        warnings.warn("--no-overlap is deprecated; use --overlap off",
+                      DeprecationWarning, stacklevel=2)
+        overlap = False
     train(args.arch, args.optimizer, args.steps, args.batch, args.seq,
           args.lr_matrix, args.lr_adamw, reduced=not args.full, seed=args.seed,
           ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -466,7 +484,7 @@ def main(argv=None):
           momentum_dtype=args.momentum_dtype,
           fused_apply=engine == "single-pass", zero2=args.zero2,
           compress=not args.no_compress, accum=args.accum,
-          overlap={"auto": None, "on": True, "off": False}[args.overlap],
+          overlap=overlap,
           log_file=args.log_file, stop_at=args.stop_at, kill_at=args.kill_at,
           watchdog_deadline=args.watchdog_deadline, dump_params=args.dump_params,
           clip_norm=args.clip_norm, guard=args.guard,
@@ -475,7 +493,8 @@ def main(argv=None):
           anomaly_rewind_budget=args.anomaly_rewind_budget,
           anomaly_lr_backoff=args.anomaly_lr_backoff,
           anomaly_health_window=args.anomaly_health_window,
-          anomaly_skip_batch=args.anomaly_skip_batch, device=args.device)
+          anomaly_skip_batch=args.anomaly_skip_batch, device=args.device,
+          layers=args.layers)
 
 
 if __name__ == "__main__":

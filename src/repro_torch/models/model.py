@@ -1,12 +1,14 @@
-"""Model assembly of the port (mirror of ``repro.models.model``): GQA and
-MLA mixers, dense and MoE FFNs.
+"""Model assembly of the port (mirror of ``repro.models.model``): GQA, MLA
+and the SSM mixers (mamba, mLSTM, sLSTM), dense and MoE FFNs.
 
 A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units
-(deepseek-v2-lite: one dense-FFN prefix layer and 26 MoE units); the unit's
+(deepseek-v2-lite: one dense-FFN prefix layer and 26 MoE units; jamba: a
+unit of 8 layers, 4 times; xlstm: an mLSTM-sLSTM unit, 12 times); the unit's
 parameters are stacked ``(n_units, ...)`` exactly as in the JAX package, so
 tree paths, leaf shapes and optimizer buckets match, and so is the decode
 cache (GQA: ``stack/layer_j/{k,v}`` of shape ``(n_units, B, S, K, hd)``;
-MLA: ``stack/layer_j/{ckv,k_rope}`` of shape ``(n_units, B, S, r)``). The
+MLA: ``stack/layer_j/{ckv,k_rope}`` of shape ``(n_units, B, S, r)``; the
+SSM mixers: their fixed-size states, ``ssm.*_cache_specs``). The
 forward walks the stack with a Python loop over ``torch.unbind`` slices and
 sums the MoE layers' auxiliary losses in layer order.
 """
@@ -21,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import map_with_path, tree_paths
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -52,14 +55,17 @@ def plan_stack(pattern) -> Tuple[int, int, int]:
 MIXERS = {
     "gqa": (L.gqa_specs, L.gqa_apply, L.gqa_cache_specs),
     "mla": (L.mla_specs, L.mla_apply, L.mla_cache_specs),
+    "mamba": (SSM.mamba_specs, SSM.mamba_apply, SSM.mamba_cache_specs),
+    "mlstm": (SSM.mlstm_specs, SSM.mlstm_apply, SSM.mlstm_cache_specs),
+    "slstm": (SSM.slstm_specs, SSM.slstm_apply, SSM.slstm_cache_specs),
 }
 
 
 def _mixer(mixer: str):
     if mixer not in MIXERS:
         raise NotImplementedError(
-            f"the {mixer!r} mixer is not ported yet (ROADMAP Queue 1, item 9: "
-            f"the SSM and frontend families)")
+            f"the {mixer!r} mixer is not ported (ROADMAP Queue 1, item 9c: "
+            f"the frontend families)")
     return MIXERS[mixer]
 
 
@@ -182,7 +188,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     lays it out for S = the prompt's length. decode takes one token a row
     (``batch["tokens"]`` of shape (B, 1)) at position ``pos`` (an int) and a
     cache of ``init_cache``'s layout, writes each layer's k and v (MLA: its
-    latent and RoPE key) into it at ``pos`` in place and returns it: the cache passed in is consumed, as
+    latent and RoPE key) into it at ``pos`` in place (an SSM layer: its new
+    state) and returns it: the cache passed in is consumed, as
     the JAX package's decode step consumes its donated cache. train and
     prefill ignore ``cache``. ``remat="full"`` keeps only each unit's input
     and recomputes the unit in the backward (``torch.utils.checkpoint``),

@@ -92,10 +92,10 @@ def _save(path, **trees):
     np.savez(path, **arrays)
 
 
-def _model(jax_dir=None):
+def _model(jax_dir=None, arch="gpt2-small"):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config("gpt2-small").reduced()
+    cfg = get_config(arch).reduced()
     if jax_dir is None:
         return cfg, init_params(cfg, seed=0, device="cpu")
     from repro_torch.core.types import map_with_path
@@ -255,6 +255,24 @@ def dp_wires(comm, out):
                           gnorm=torch.stack([m["grad_norm"] for m in ms]))
 
 
+def dp_moe(comm, out):
+    """Reduced deepseek-v2-lite-16b (MLA, a dense prefix layer, MoE units
+    whose 4-D expert stacks ``(n_units, E, d_in, d_out)`` join the buckets)
+    through the dp step, RMNP, two steps with the clip active, on both
+    wires: every mode, and each rank's residual."""
+    cfg, params = _model(arch="deepseek-v2-lite-16b")
+    batches = _batches(cfg)
+    for compress in (False, True):
+        for mode in MODES:
+            p, st, comp, ms = _run_dp(comm, cfg, params, batches, mode, compress=compress)
+            tag = f"{'int8' if compress else 'exact'}_{mode}"
+            _save(out / f"moe_{tag}_r{comm.rank}.npz", c=comp)
+            if comm.rank == 0:
+                _save(out / f"moe_{tag}.npz", p=p, s=st,
+                      gnorm=torch.stack([m["grad_norm"] for m in ms]),
+                      clip=torch.stack([m["clip_rate"] for m in ms]))
+
+
 def guard(comm, out):
     """The guard on the pipelined ZeRO-2 step: a NaN at step 1 on either
     wire, and (int8) a bit-flip of a block scale on rank 0's wire at step
@@ -393,6 +411,7 @@ def all4(comm, out, jax_dir):
     synthetic(comm, out)
     dp_rules(comm, out)
     dp_wires(comm, out)
+    dp_moe(comm, out)
     guard(comm, out)
     wire_fault(comm, out)
     jax_dp(comm, out, jax_dir)

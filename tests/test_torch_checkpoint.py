@@ -61,8 +61,8 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _jax_params(dtype=None):
-    cfg = jax_get_config("gpt2-small").reduced()
+def _jax_params(dtype=None, arch="gpt2-small"):
+    cfg = jax_get_config(arch).reduced()
     params = jax_init_params(cfg, jax.random.PRNGKey(0))
     if dtype is not None:
         params = jax.tree_util.tree_map(lambda x: x.astype(dtype), params)
@@ -154,8 +154,8 @@ def _opt_config(cos, momentum_dtype):
                 fused_apply=True, momentum_dtype=momentum_dtype)
 
 
-def _jax_two_steps(momentum_dtype):
-    cfg, params = _jax_params()
+def _jax_two_steps(momentum_dtype, arch="gpt2-small"):
+    cfg, params = _jax_params(arch=arch)
     opt = jax_make_optimizer("rmnp", _opt_config(jax_cosine, momentum_dtype))
     step = jax.jit(jax_make_train_step(cfg, opt, remat="none"))
     state = opt.init(params)
@@ -172,13 +172,24 @@ def test_jax_checkpoint_restores_into_the_port_bitwise(momentum_dtype, tmp_path)
     RMNP steps; the port restores every leaf bit for bit (bf16 momentum
     through its uint16 bits) and one more step of each agrees within the
     train parity tolerance."""
-    jcfg, jopt, jstep, jparams, jstate, jstream = _jax_two_steps(momentum_dtype)
+    _jax_to_port(momentum_dtype, tmp_path, "gpt2-small")
+
+
+@pytest.mark.parametrize("momentum_dtype", ["float32", "bfloat16"])
+def test_jax_moe_checkpoint_restores_into_the_port_bitwise(momentum_dtype, tmp_path):
+    """The same with reduced deepseek-v2-lite-16b (MLA, MoE): its 4-D
+    expert stacks and their momentum buckets cross bit for bit."""
+    _jax_to_port(momentum_dtype, tmp_path, "deepseek-v2-lite-16b")
+
+
+def _jax_to_port(momentum_dtype, tmp_path, arch):
+    jcfg, jopt, jstep, jparams, jstate, jstream = _jax_two_steps(momentum_dtype, arch)
     jmgr = JaxManager(str(tmp_path), async_save=False)
     jlayout = jax_elastic.state_layout(jopt, jparams, mesh_size=1, rule="rmnp",
                                        opt_state=jstate)
     jmgr.save(2, (jparams, jstate), data_step=jstream.step, layout=jlayout)
 
-    cfg = get_config("gpt2-small").reduced()
+    cfg = get_config(arch).reduced()
     opt = make_optimizer("rmnp", _opt_config(cosine_with_warmup, momentum_dtype))
     like_params = tree_from_numpy(_np(jparams))
     like = (like_params, opt.init(like_params))
@@ -191,6 +202,8 @@ def test_jax_checkpoint_restores_into_the_port_bitwise(momentum_dtype, tmp_path)
     _assert_bitwise((_np(jparams), _np(jstate)), (params, state))
     if momentum_dtype == "bfloat16":
         assert all(b.dtype == torch.bfloat16 for b in state.buckets.values())
+    if arch != "gpt2-small":
+        assert any(t.ndim == 4 for _, t in tree_paths(params))
 
     batch = next(jstream)
     assert all(np.array_equal(batch[k], v)
@@ -208,8 +221,18 @@ def test_jax_checkpoint_restores_into_the_port_bitwise(momentum_dtype, tmp_path)
 def test_port_checkpoint_restores_into_jax_bitwise(tmp_path):
     """The port saves fp32 (params, opt_state) after two of its own steps;
     JAX's manager restores them into its template bit for bit."""
-    _, jparams = _jax_params()
-    cfg = get_config("gpt2-small").reduced()
+    _port_to_jax(tmp_path, "gpt2-small")
+
+
+def test_port_moe_checkpoint_restores_into_jax_bitwise(tmp_path):
+    """The same with reduced deepseek-v2-lite-16b: the expert stacks and the
+    MoE buckets restore into JAX's template bit for bit."""
+    _port_to_jax(tmp_path, "deepseek-v2-lite-16b")
+
+
+def _port_to_jax(tmp_path, arch):
+    _, jparams = _jax_params(arch=arch)
+    cfg = get_config(arch).reduced()
     opt = make_optimizer("rmnp", _opt_config(cosine_with_warmup, "float32"))
     params = tree_from_numpy(_np(jparams))
     state = opt.init(params)

@@ -50,6 +50,9 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/configs/deepseek_v2_lite_16b.py",
                      "src/repro_torch/configs/olmoe_1b_7b.py",
                      "src/repro_torch/configs/minicpm3_4b.py",
+                     "src/repro_torch/models/ssm.py", "src/repro_torch/core/adamw.py",
+                     "src/repro_torch/configs/xlstm_350m.py",
+                     "src/repro_torch/configs/jamba_v0_1_52b.py",
                      "tools/step_repeat.py", "tools/flash_hd128_variants.py"):
         assert expected in names
 

@@ -36,7 +36,8 @@ def _close_to_max(got, want, frac, what):
 
 
 @pytest.mark.parametrize("arch", ["gpt2-small", "llama-60m", "deepseek-v2-lite-16b",
-                                  "olmoe-1b-7b", "minicpm3-4b"])
+                                  "olmoe-1b-7b", "minicpm3-4b", "xlstm-350m",
+                                  "jamba-v0.1-52b"])
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
 def test_param_specs_match_jax(arch, reduced):
     """Same paths, shapes, init kinds and scales, full width included (specs
@@ -128,15 +129,23 @@ def test_attention_impls_agree_on_the_cpu():
 
 
 def test_unported_paths_raise_and_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        get_config("xlstm-350m")
+    """The SSM mixers are ported (item 9b); what is left are the modality
+    frontends (item 9c): their configs and a frontend-only mixer name."""
+    for arch in ("paligemma-3b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
+            get_config(arch)
     cfg = get_config("gpt2-small").reduced()
-    mamba = dataclasses.replace(cfg, pattern=(("mamba", "dense"),) * 2)
-    # decoding a mamba pattern starts from its state cache, which is not ported
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        init_cache(mamba, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        build_param_specs(mamba)
+    vision = dataclasses.replace(cfg, pattern=(("vision", "dense"),) * 2)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
+        init_cache(vision, 2, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
+        build_param_specs(vision)
+    # a mamba pattern now builds its parameters and its state cache
+    mamba = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                                num_layers=2, pattern=(("mamba", "dense"),) * 2)
+    assert "stack" in build_param_specs(mamba)
+    assert {p.split("/")[-1] for p, _ in tree_paths(init_cache(mamba, 2, 16, device="cpu"))} \
+        == {"h", "conv"}
 
 
 def _old_materialize(spec, generator, dtype, device):

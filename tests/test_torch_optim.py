@@ -345,3 +345,61 @@ def test_every_engine_routes_rmnp_through_the_kernel_entry(engine):
         run = opt.update_apply if opt.update_apply is not None else opt.update
         with pytest.raises(ValueError, match="plain versions CPU tensors; got a tensor on meta"):
             run(grads, state, params, 1)
+
+
+@pytest.mark.parametrize("arch", ["gpt2-small", "xlstm-350m"])
+def test_standalone_adamw_matches_jax(arch):
+    """``repro_torch.core.adamw`` against ``repro.core.adamw`` on a reduced
+    model's parameters, three steps of the same numpy gradients: every
+    update and the state ``AdamWState(mu, nu)``, at this file's fp32
+    tolerance. The exports of ``repro_torch.core`` that ``repro.core`` has
+    are there too."""
+    import repro.core as jax_core
+    import repro_torch.core as core
+    from repro.core.adamw import AdamWState as JaxAdamWState
+    for name in ("adamw", "BucketPlan", "build_plan", "fused_rownorm_update"):
+        assert hasattr(jax_core, name) and hasattr(core, name), name
+    assert core.BucketPlan is core.bucketing.BucketPlan
+    jparams = _jax_params(arch)
+    grads = _grads(jparams, seed=5)
+    jopt = jax_core.adamw(jax_cosine(1e-2, STEPS), weight_decay=0.1)
+    opt = core.adamw(cosine_with_warmup(1e-2, STEPS), weight_decay=0.1)
+    js, jp = jopt.init(jparams), jparams
+    state, params = opt.init(tree_from_numpy(_np_tree(jparams))), tree_from_numpy(
+        _np_tree(jparams))
+    assert isinstance(state, core.AdamWState) and state._fields == JaxAdamWState._fields
+    for step, g in enumerate(grads):
+        jupd, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp, step)
+        jp = jax.tree_util.tree_map(lambda p, u: p + u.astype(p.dtype), jp, jupd)
+        upd, state = opt.update(tree_from_numpy(g), state, params, step)
+        params = apply_updates(params, upd)
+        _assert_trees_close(jupd, upd, rtol=1e-6, atol=1e-7)
+    _assert_trees_close(js._asdict(), state._asdict(), rtol=1e-6, atol=1e-7)
+    _assert_trees_close(jp, params, rtol=1e-6, atol=1e-7)
+
+
+def test_single_pass_apply_gathers_one_bucket_at_a_time(monkeypatch):
+    """The single-pass apply gathers, launches and scatters bucket by
+    bucket, so only one bucket's fp32 gradient and weights are gathered at
+    a time (jamba's 16-expert stack alone is 8 GB of fp32 gradient); the
+    result is the per-leaf engine's, bit for bit."""
+    params = tree_from_numpy(_np_tree(_jax_params()))
+    grads = _grads(_jax_params(), seed=6)
+    gathered = []
+    gather = bucketing.gather
+
+    def recording(plan, tree, dtype=None):
+        gathered.append(len(plan.buckets))
+        return gather(plan, tree, dtype)
+
+    opt = make_optimizer("rmnp", _opt_config("single-pass", "float32", cosine_with_warmup))
+    monkeypatch.setattr(bucketing, "gather", recording)
+    got, _ = _run_torch(opt, params, grads)
+    monkeypatch.setattr(bucketing, "gather", gather)
+    n_buckets = len(opt.bucket_plan(params).buckets)
+    assert n_buckets > 1 and gathered == [1] * (2 * n_buckets * STEPS)
+    want, _ = _run_torch(make_optimizer("rmnp", _opt_config("per-leaf", "float32",
+                                                            cosine_with_warmup)),
+                         params, grads)
+    for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want), strict=True):
+        assert torch.equal(a, b), path

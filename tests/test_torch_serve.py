@@ -187,7 +187,8 @@ def test_decode_consumes_the_cache_in_place(jax_runs):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "phi3-mini-3.8b", "yi-9b",
-                                  "deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b"])
+                                  "deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b",
+                                  "xlstm-350m", "jamba-v0.1-52b"])
 def test_serve_loop_gives_the_jax_examples_tokens(arch):
     """``launch/serve.serve`` (B=2, T=8, 8 tokens) from JAX's parameters and
     prompts gives the token sequence of ``examples/serve_batched.py``'s loop
@@ -225,7 +226,7 @@ def test_serve_draws_its_own_inputs_from_the_seed():
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen3-4b", "yi-9b", "gpt2-small",
-                                  "llama-130m", "minicpm3-4b"])
+                                  "llama-130m", "minicpm3-4b", "xlstm-350m"])
 def test_decode_matches_dense_forward(arch):
     """The port's form of the JAX package's test of the same name, with its
     tolerance: decoding token T from a prefill-built cache reproduces the
@@ -300,7 +301,8 @@ def _spec_table(tree, cls):
 
 @pytest.mark.parametrize("kind", ["params", "cache"])
 @pytest.mark.parametrize("arch", ["qwen3-4b", "yi-9b", "phi3-mini-3.8b",
-                                  "deepseek-v2-lite-16b", "olmoe-1b-7b", "minicpm3-4b"])
+                                  "deepseek-v2-lite-16b", "olmoe-1b-7b", "minicpm3-4b",
+                                  "xlstm-350m", "jamba-v0.1-52b"])
 def test_full_size_specs_match_jax(arch, kind):
     """Built abstractly at full size (no tensor is allocated): the same tree
     paths, shapes, logical axes, inits and types as the JAX package's; the
@@ -392,5 +394,5 @@ def test_decode_refuses_a_missing_cache_or_a_position_past_it():
 
 def test_configs_copy_the_jax_packages():
     for arch in ("qwen3-4b", "phi3-mini-3.8b", "yi-9b", "deepseek-v2-lite-16b",
-                 "olmoe-1b-7b", "minicpm3-4b"):
+                 "olmoe-1b-7b", "minicpm3-4b", "xlstm-350m", "jamba-v0.1-52b"):
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))

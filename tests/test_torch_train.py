@@ -129,6 +129,30 @@ def test_unported_flags_raise_and_name_their_item(flag, item, capsys):
     assert "launches={'rmnp_precondition': 0, 'rmnp_apply': 0" in out
 
 
+def test_no_overlap_is_the_deprecated_alias_of_overlap_off(monkeypatch, capsys):
+    """As in the JAX package's driver: ``--no-overlap`` warns that it is
+    deprecated and runs the serialized schedule, as ``--overlap off`` does;
+    with ``--zero2`` it trains on a group of one gloo rank."""
+    import torch.distributed as dist
+    argv = ["--arch", "gpt2-small", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--log-every", "1", "--device", "cpu", "--zero2"]
+    seen = []
+    real_train = train_mod.train
+    monkeypatch.setattr(train_mod, "train", lambda *a, **kw: seen.append((a, kw)))
+    train_mod.main(argv + ["--overlap", "off"])
+    with pytest.warns(DeprecationWarning, match="--no-overlap is deprecated"):
+        train_mod.main(argv + ["--no-overlap"])
+    assert seen[0] == seen[1] and seen[1][1]["overlap"] is False
+    monkeypatch.setattr(train_mod, "train", real_train)
+    try:
+        with pytest.warns(DeprecationWarning):
+            train_mod.main(argv + ["--no-overlap"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert capsys.readouterr().out.count("[train] step=") == 2
+
+
 @pytest.mark.parametrize("flags", [
     ["--ckpt-dir={d}", "--ckpt-every=1"], ["--guard"],
     ["--guard", "--inject-fault=nan:*:1"], ["--ckpt-dir={d}", "--kill-at=0"],

@@ -222,6 +222,35 @@ def test_dp_zero1_and_zero2_equal_replicated_bitwise(runs, rule):
         assert_bitwise(load(runs, f"dp_{rule}_{mode}.npz"), ref, mode)
 
 
+@pytest.mark.parametrize("wire", ["exact", "int8"])
+def test_moe_expert_stacks_through_zero1_and_zero2_bitwise(runs, wire):
+    """Reduced deepseek-v2-lite-16b on 4 ranks, two RMNP steps with the clip
+    active: its 4-D expert stacks ``(n_units, E, d_in, d_out)`` join the
+    buckets that ZeRO-1 and ZeRO-2 shard (2 units x 4 experts = 8 slices a
+    stack). Exact wire: ZeRO-1 and both ZeRO-2 schedules equal ZeRO-0 in
+    params, momentum and grad_norm. int8 wire: ZeRO-1 equals ZeRO-0 (the
+    same per-leaf wire) and pipelined ZeRO-2 equals serialized ZeRO-2,
+    every rank's residual included; ZeRO-2's int8 blocks are laid over the
+    chunked buckets and ZeRO-0's over the leaves, so those two wires round
+    different blocks, in the JAX package as here."""
+    ref = load(runs, f"moe_{wire}_z0.npz")
+    assert (ref["clip"] == 1).all()
+    stacks = [k for k, v in ref.items() if k.startswith("p:") and v.ndim == 4]
+    assert stacks == ["p:stack/layer_1/ffn/w_in", "p:stack/layer_1/ffn/w_out"]
+    z2 = {m: load(runs, f"moe_{wire}_{m}.npz") for m in ("z2s", "z2p")}
+    assert_bitwise(load(runs, f"moe_{wire}_z1.npz"), ref, "z1")
+    if wire == "exact":
+        for mode, got in z2.items():
+            assert_bitwise(got, ref, mode)
+    else:
+        assert_bitwise(z2["z2p"], z2["z2s"], "z2p")
+        for r in range(4):
+            assert_bitwise(load(runs, f"moe_int8_z2p_r{r}.npz"),
+                           load(runs, f"moe_int8_z2s_r{r}.npz"), f"residual {r}")
+            assert_bitwise(load(runs, f"moe_int8_z1_r{r}.npz"),
+                           load(runs, f"moe_int8_z0_r{r}.npz"), f"z1 residual {r}")
+
+
 @pytest.mark.parametrize("wire,accum", [("exact", 1), ("exact", 4), ("int8", 1), ("int8", 4)])
 def test_pipelined_equals_serialized_bitwise(runs, wire, accum):
     tag = f"{wire}_a{accum}"
