@@ -40,8 +40,12 @@ Phases:
          (20 more at hd 128 and 20 at (192, 128) in bf16); the ptxas
          report of both kernels is printed, and cuobjdump must find HGMMA
          in each instantiation of each (bf16 (hd, hdv) (16, 16) to
-         (128, 128) and (192, 128), fp32 hd 16-64); an fp32 row's bound is
-         that of its 3xTF32 products on the tensor cores, the FFMA bound is
+         (128, 128) and (192, 128), fp32 hd 16-64); every bf16 build must
+         spill nothing, hold USETMAXREG (its producer warpgroup's
+         registers go to the consumers) and have no wgmma that ptxas
+         serialised, and its registers and spills go on the kernels line
+         (kernels/report.py reads both); an fp32 row's bound is that of
+         its 3xTF32 products on the tensor cores, the FFMA bound is
          recorded beside it, and a bf16 row's kernel floor with P.V as three
          products beside its bound; F.scaled_dot_product_attention is timed
          beside it as a yardstick only;
@@ -374,6 +378,7 @@ def rmnp_instantiation(mangled):
 def phase_rmnp():
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels import report as kreport
     from repro_torch.kernels import rmnp_update as rm
     gen = torch.Generator(device="cuda").manual_seed(0)
     beta, eps = 0.95, 1e-8
@@ -491,8 +496,8 @@ def phase_rmnp():
             bitwise.append(dict(rmnp_bitwise(shape, gen, beta, eps), model=model))
     for name, recs in rows.items():
         emit(f"A_{name}", {"buckets": recs})
-    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_kernel", "",
-                        key=rmnp_instantiation)
+    ptxas = kreport.ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_kernel", "",
+                                key=rmnp_instantiation)
     check(len(ptxas) == 30, f"rmnp: {len(ptxas)} instantiations in the ptxas report, want 30")
     for key, line in sorted(ptxas.items()):
         print(f"ptxas rmnp_kernel {key}: {line}", flush=True)
@@ -544,58 +549,6 @@ def attention_flops(B, S, H, hd, causal=True, hdv=None, pv_parts=1):
     return 2 * B * H * pairs * (hd + pv_parts * (hdv or hd))
 
 
-def template_args(mangled):
-    """The integer and bool template arguments in a mangled kernel name
-    (``ILi64E``: 64; ``ILb1ELb0E``: 1, 0)."""
-    import re
-    return re.findall(r"L[ib](\d+)E", mangled)
-
-
-def ptxas_lines(report, marker, prefix, key=None):
-    """Registers, stack and spills of each function whose name holds
-    ``marker``, from an ``nvcc -Xptxas -v`` report, keyed by ``prefix`` and
-    the template arguments in its mangled name (``hd`` and ``ILi64E``:
-    hd64), or by ``key(mangled name)``."""
-    import re
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1) if marker in m.group(1) else None
-            continue
-        if name is None:
-            continue
-        k = key(name) if key else prefix + "_".join(template_args(name))
-        if "spill" in line or "Used" in line:
-            out[k] = (out.get(k, "") + " " + line.split(":", 1)[-1].strip()).strip()
-    return out
-
-
-def hgmma_counts(library):
-    """HGMMA instructions in the SASS of each kernel of a built library,
-    read with cuobjdump (the CUDA toolkit's, else the copy in Triton's
-    package)."""
-    import re
-    from repro_torch.kernels import build
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    if not tool.exists():
-        import triton
-        tool = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
-                          check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            kind = re.search(r"fa_fwd_tc|fa_fwd_tf32_kernel|gemm_kernel", m.group(1))
-            args = template_args(m.group(1))
-            name = (kind.group(0) + "".join(f"_{a}" for a in args)) if kind else m.group(1)
-            counts[name] = 0
-        elif name and "HGMMA" in line:
-            counts[name] += 1
-    return counts
-
-
 def attention_bounds(B, S, H, K, hd, dtype, causal, hdv=None):
     """(bound_ms, bound_by, ffma_ms or None): q/k/v read once and the output
     written once over the memory rate, against the FLOP at the peak of the
@@ -644,6 +597,7 @@ def phase_attention():
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import report as kreport
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
     # (name, B, S, H, K, hd, dtype, causal, timed[, hdv]): in each type the main
@@ -798,8 +752,8 @@ def phase_attention():
     ptxas, hgmma = {}, {}
     for lib, kernel, dt in (("flash_attention_fwd", "fa_fwd_tc", bf16),
                             ("flash_attention_fwd_tf32", "fa_fwd_tf32_kernel", fp32)):
-        lines = ptxas_lines(build.PTXAS_REPORTS.get(lib, ""), kernel, "hd")
-        counts = hgmma_counts(build.library_path(lib))
+        lines = kreport.ptxas_lines(build.PTXAS_REPORTS.get(lib, ""), kernel, "hd")
+        counts = kreport.sass_counts(build.library_path(lib))
         ours = {n: c for n, c in counts.items() if n.startswith(kernel)}
         # the bf16 kernel is a template over (hd, hdv), the fp32 one over hd
         keys = [f"{hd}_{hdv}" if dt == bf16 else f"{hd}" for hd, hdv in fa.HEAD_DIM_PAIRS[dt]]
@@ -811,8 +765,24 @@ def phase_attention():
         for key, line in lines.items():
             print(f"ptxas {kernel} {key}: {line}", flush=True)
         ptxas[kernel], hgmma[kernel] = lines, ours
+    # the bf16 kernel's design: a producer warpgroup that gives its registers
+    # to the consumers (setmaxnreg in the SASS), no build that spills, and
+    # no wgmma that ptxas serialised
+    report = build.PTXAS_REPORTS.get("flash_attention_fwd", "")
+    design = kreport.bf16_flash_design(
+        report, kreport.sass_functions(build.library_path("flash_attention_fwd")))
+    serialized = kreport.wgmma_serialized(report)
+    for key, d in design.items():
+        print(f"bf16 flash {key}: {d['registers']} registers, {d['spill_stores']} bytes spill "
+              f"stores, {d['spill_loads']} bytes spill loads, {d['usetmaxreg']} USETMAXREG, "
+              f"{d['hgmma']} HGMMA", flush=True)
+    check(all(d["spill_stores"] == 0 and d["spill_loads"] == 0 for d in design.values()),
+          f"attention: a bf16 flash build spills {design}")
+    check(all(d["usetmaxreg"] > 0 and d["hgmma"] > 0 for d in design.values()),
+          f"attention: USETMAXREG or HGMMA missing from fa_fwd_tc's SASS {design}")
+    check(not serialized, f"attention: ptxas serialised the bf16 kernel's wgmma {serialized}")
     emit("B_attention", {"cases": rows, "noncausal_seeds": stress, "ptxas": ptxas,
-                         "hgmma": hgmma})
+                         "hgmma": hgmma, "bf16_design": design})
     del inputs
     torch.cuda.empty_cache()
     return {r["case"]: r for r in rows}
@@ -943,8 +913,9 @@ def phase_ns():
     # the kernel's build: registers, spills and shared memory of each
     # instantiation, and wgmma (HGMMA) in the SASS of every one
     from repro_torch.kernels import build
-    ptxas = ptxas_lines(build.PTXAS_REPORTS.get("matmul", ""), "gemm_kernel", "ab")
-    hgmma = hgmma_counts(build.library_path("matmul"))
+    from repro_torch.kernels import report as kreport
+    ptxas = kreport.ptxas_lines(build.PTXAS_REPORTS.get("matmul", ""), "gemm_kernel", "ab")
+    hgmma = kreport.sass_counts(build.library_path("matmul"))
     gemms = {n: c for n, c in hgmma.items() if n.startswith("gemm_kernel")}
     check(len(gemms) == 4 and all(c > 0 for c in gemms.values()),
           f"GEMM: HGMMA missing from a kernel instantiation's SASS: {hgmma}")
@@ -3171,6 +3142,9 @@ def main():
              "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get("hd192_128"),
              "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get("fa_fwd_tc_192_128")},
          "launches_M2": m2_launches,
+         # every bf16 build's registers, spill bytes and setmaxnreg/HGMMA
+         # instructions (phase B: no spill, USETMAXREG beside HGMMA)
+         "bf16_builds": RESULTS["B_attention"]["bf16_design"],
          # jamba's first group of 8 layers: its one GQA layer (H=32, K=8, hd
          # 128, qwen3-4b's case) a served prefill in J1
          "launches_J1": j1_launches,

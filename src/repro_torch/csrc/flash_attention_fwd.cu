@@ -13,74 +13,103 @@
 // is a column slice of the latent's up-projection): its head, row and batch
 // strides go into its tensor map.
 //
-// What bounds it on this card. At the main path's shape (B=8, S=1024,
-// H=12, hd=64, causal) the function reads 37.7 MB of q/k/v and writes 12.6
-// MB of output (0.015 ms at 3.35 TB/s) and does 4*B*H*hd*S(S+1)/2 = 12.9
-// GFLOP (0.013 ms at the 989 TFLOP/s bf16 peak): bytes and operations are
-// about even, so the tensor cores are what a kernel has to reach.
-//
-// The tensor-core kernel (fa_fwd_tc). One block per (128-row query
-// tile, query head, batch): two consumer warpgroups of 64 rows each and one
-// producer warp. The producer issues TMA loads: Q once, and K/V tiles of 64
-// keys into a ring of 2 stages guarded by full/empty mbarriers. The
-// tensor maps are 4-D over (hd, heads, S, B), so the query head and the kv
-// head are coordinates (no repeat or transpose is materialised) and the
-// hardware's zero fill past S serves the ragged edge. Tiles are swizzled in
-// shared memory (128 B for hd 64 and up, 64 B for hd 32, 32 B for hd 16);
-// the wgmma descriptors name the same swizzle. A swizzle span holds at most
-// 64 bf16 values, and TMA's box is at most one span wide, so an hd-128 tile
-// is two column halves of 64, each its own swizzled sub-tile loaded by its
-// own box (coordinate 0 or 64 along hd), and an hd-192 tile three. Each
-// consumer computes S = Q.K^T with wgmma (Q and K K-major from shared memory, fp32
-// accumulators; bf16 x bf16 products are exact in fp32), applies the scale
-// and the masks (the causal mask only on tiles that cross the diagonal, the
-// key mask only past S), and runs the online softmax in registers, with
-// row maxima and sums over the 4 lanes of a quad; l is summed from the
-// fp32 p. The exponentials are exp2 of scores scaled by log2(e) along with
-// 1/sqrt(hd).
-//
-// P.V keeps p to fp32 accuracy, as the TPU kernel's fp32 P.V does: P is
-// split into three bf16 parts, hi = bf16(p), mid = bf16(p - hi) and
-// lo = bf16(p - hi - mid), and P.V runs as three bf16 wgmma. Each output
+// Numbers. P.V keeps p to fp32 accuracy, as the TPU kernel's fp32 P.V does:
+// P is split into three bf16 parts, hi = bf16(p), mid = bf16(p - hi) and
+// lo = bf16(p - hi - mid), and P.V runs as three bf16 products. Each output
 // element is held to 2^-7 of itself plus 1e-6 of the largest element:
 // rounded once to bf16, P misses that by two orders of magnitude at
 // S = 1024, and two parts (16 bits of p) still miss it on near-zero
-// elements of non-causal rows over ~1000 keys; three parts do not. A
-// tile's three products go into a fresh accumulator, smallest part first,
-// and the running sum is kept on the CUDA cores (acc = acc * corr + pv in
-// fp32): the tensor cores' own rounding of each k-step scales with the
-// accumulator's size, and adding every tile's products into the running
-// sum put the error of near-zero elements over that limit. The fp32
-// accumulator layout of the first wgmma is the A-register layout of the
-// second, so P never goes to shared memory; V is the MN-major B operand
-// (the transpose bit). The split makes the kernel's own operation floor
-// 2 x 12.9 = 25.8 GFLOP, 0.026 ms at the bf16 peak.
+// elements of non-causal rows over ~1000 keys; three parts do not
+// (tests/test_torch_flash_numerics.py). A tile's three products go into a
+// fresh accumulator, smallest part first, and the running sum is kept on
+// the CUDA cores (acc = acc * corr + pv in fp32): the tensor cores' own
+// rounding of each k-step scales with the accumulator's size, and adding
+// every tile's products into the running sum put the error of near-zero
+// elements over that limit. The exponentials are exp2 of scores scaled by
+// log2(e) along with 1/sqrt(hd). Every build computes the same products in
+// the same order as the design before it, so its outputs are the same bits.
 //
-// hd 128 (qwen3-4b's prefill: B=8, S=1024, H=32, K=8, causal) does
-// 4*B*H*hd*S(S+1)/2 = 68.8 GFLOP (0.070 ms at the bf16 peak; 137.5 with P
-// in three parts, 0.139 ms) and moves 168 MB (0.050 ms): the tensor cores
-// bound it. Per consumer thread it holds acc[64], S's fragment s[32], P's
-// three parts (48 registers) and a P.V tile sum of 32 (one atom of V) against a
-// cap of 168 registers a thread: the block's 9 warps leave 3 on one of the
-// SM's four sub-partitions, whose 16384 registers give 170 a thread (the
-// card refuses a launch at 175). ptxas spills 108 bytes a thread; the
-// report is printed by phase B of chip_smoke.py.
+// What bounds each build on this card (bf16 peak 989 TFLOP/s, 3.35 TB/s;
+// "three-part" counts P.V three times, the kernel's own floor):
+//   hd 64, B=8 S=1024 H=12 causal: 12.9 GFLOP (0.013 ms) against 50.3 MB
+//     (0.015 ms); three-part 25.8 GFLOP, 0.026 ms.
+//   hd 128, qwen3-4b's prefill (B=8 S=1024 H=32 K=8 causal): 68.8 GFLOP
+//     (0.070 ms) against 168 MB (0.050 ms); three-part 137.6 GFLOP, 0.139 ms.
+//   (192, 128), deepseek-v2-lite's prefill (B=8 S=1024 H=K=16 causal): 43.0
+//     GFLOP (0.043 ms) against 167.8 MB (0.050 ms); three-part 77.4 GFLOP,
+//     0.078 ms.
+// The tensor cores bound every build that keeps the three parts.
 //
-// (192, 128) (deepseek-v2-lite's prefill: B=8, S=1024, H=K=16, causal)
-// moves 167.8 MB (0.050 ms) and does 43.0 GFLOP, 25.8 of them in Q.K^T
-// (0.043 ms at the bf16 peak; 77.4 GFLOP, 0.078 ms, with P in three parts):
-// bytes bound it. Q.K^T runs 12 k-steps over three 64-column sub-tiles; the
-// O accumulator, P and the P.V products follow hdv = 128 exactly as the
-// hd-128 build, so its registers are that build's. Q takes 48 KB of shared
-// memory, a K stage 24 KB and a V stage 16 KB: 128 KB with two stages.
+// Layout. One block per (128-row query tile, query head, batch), three
+// warpgroups. The tensor maps are 4-D over (hd, heads, S, B), so the query
+// head and the kv head are coordinates (no repeat or transpose is
+// materialised) and the hardware's zero fill past S serves the ragged edge.
+// Tiles are swizzled in shared memory (128 B for hd 64 and up, 64 B for hd
+// 32, 32 B for hd 16); the wgmma descriptors name the same swizzle. A
+// swizzle span holds at most 64 bf16 values and TMA's box is at most one
+// span wide, so an hd-128 tile is two column halves of 64, each its own
+// swizzled sub-tile loaded by its own box, and an hd-192 tile three. S =
+// Q.K^T takes Q and K K-major from shared memory (bf16 x bf16 products are
+// exact in fp32); the fp32 accumulator layout of S is the A-register layout
+// of P.V, so P never goes to shared memory, and V is the MN-major B operand
+// (the transpose bit).
 //
-// The two consumer warpgroups take turns at issuing their products
-// (named barriers), so one's softmax overlaps the other's products.
+// What held the previous design back (two consumer warpgroups and one
+// producer warp), and what this one does about it:
+//  1. Registers. 9 warps put 3 on one of the SM's four sub-partitions of
+//     16384 registers, so every thread was capped at 168 and the hd-128 and
+//     (192, 128) builds spilled 108 bytes a thread. Now warpgroup 0 is the
+//     producer and drops to PRODUCER_REGS (24) with setmaxnreg.dec, and
+//     warpgroups 1 and 2 are the consumers and rise to CONSUMER_REGS (240)
+//     with setmaxnreg.inc: 128 x 24 + 256 x 240 = 64512 of the SM's 65536,
+//     one warp of each warpgroup on each sub-partition (768 + 2 x 7680 =
+//     16128 of 16384). ptxas gives each role its budget only when the branch
+//     that picks it is warp-uniform (the role is read from lane 0), and a
+//     trap on the consumers' path (the ring's timeout) held their main loop
+//     near 174 registers whatever setmaxnreg granted: the consumers wait
+//     with mbar_spin, and the producer watches the ring to its end with the
+//     trapping wait. A consumer thread at hdv 128 holds acc[64], S's
+//     fragment s[32], P's three parts (48) and the tile's P.V sum pv[64]:
+//     208 of its 240. No build spills.
+//  2. Serialised products. Each product was followed by a wait for all of
+//     them, and at hdv 128 P.V ran as two 64-column halves with a wait and
+//     the running-sum FMAs between them, so inside a warpgroup the tensor
+//     cores, the softmax and the running sum never overlapped. Now a
+//     consumer issues S_t = Q.K_t^T and then P_{t-1}.V_{t-1} (one m64n128
+//     product per part and k-step at hdv 128) as two commit groups, waits
+//     for S_t alone (wgmma.wait_group 1) and runs tile t's softmax while
+//     the tensor cores work on tile t - 1's P.V; then it
+//     waits for P.V, adds it into acc with tile t - 1's correction, and
+//     splits tile t's p into the P parts that the next issue takes. The
+//     softmax's results are pinned before the wait (fence_regs), which the
+//     compiler would otherwise sink past it. The two consumers no longer
+//     take turns at issuing: with the overlap inside each warpgroup the
+//     turns gained nothing measurable (PERF.md).
+//  3. Loads late. With two stages a K/V tile was reloaded only after its
+//     P.V, and the next tile waited on it. NSTAGE = 3 stages keep a load one
+//     tile ahead: 32 + 3 x 32 = 128 KB at hd 128, 48 + 3 x 40 = 168 KB at
+//     (192, 128).
+// What bounds it now (a clock64 trace of the main loop at hd 128, PERF.md):
+// a tile takes a consumer warpgroup about 3200 cycles against 2048 of the
+// block's tensor-core work at the peak rate; the issue of S and P.V waits on
+// the tensor cores, and the split of P (48 bf16 packs) and the softmax (34
+// exp2) share the SM's quarter-rate units with the other warpgroup's.
+// tools/flash_hd128_variants.py times the alternatives of each choice
+// (NSTAGE 2, P.V at hdv 128 as two 64-column products in turn,
+// PRODUCER_REGS 40 with consumers at 232) at qwen3-4b's and
+// deepseek-v2-lite's prefill shapes.
+//
 // Causal blocks are ordered heaviest query tile first, so the last wave is
-// short; key tiles after the query tile are never loaded, and a warpgroup
-// skips the tiles past its last row. The first visited tile always holds
-// key 0, which every row sees, so no row meets a fully masked tile before
-// its running max is finite.
+// short; key tiles after the query tile are never loaded, and a consumer
+// skips the tiles past its last row (it still releases their stage, once
+// loaded: the ring counts both consumers' arrivals in each phase). The
+// first visited tile always holds key 0, which every row sees, so no row
+// meets a fully masked tile before its running max is finite. No atomics:
+// two launches give the same bits.
+//
+// Every inline-PTX operation sits behind a helper in sm90.cuh;
+// tests/test_torch_kernel_emulation.py runs this source on the CPU against a
+// C++ model of those helpers.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,20 +128,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 128;     // query rows per block
 constexpr int BK = 64;      // keys per K/V tile (128 measured slower, PERF.md)
-constexpr int NSTAGE = 2;   // K/V stages in the ring
+constexpr int NSTAGE = 3;   // K/V stages in the ring
 constexpr int PARTS = 3;    // bf16 parts of P (fewer miss the accuracy limit)
-constexpr int CONSUMERS = 256;         // two warpgroups of 64 rows
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int WARPGROUP = 128;
+constexpr int CONSUMERS = 2 * WARPGROUP;       // two warpgroups of 64 rows
+constexpr int THREADS = WARPGROUP + CONSUMERS;  // and the producer warpgroup
+// registers a thread: the producer's, and the consumers' from what is left
+// of the SM's 65536 (a multiple of 8)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = (65536 / WARPGROUP - PRODUCER_REGS) / 2 / 8 * 8;
+static_assert(WARPGROUP * (PRODUCER_REGS + 2 * CONSUMER_REGS) <= 65536, "registers");
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Turns of the two consumer warpgroups at the tensor cores (named barriers
-// 1 and 2, 256 threads each): warpgroup wg waits for its turn before it
-// issues a product and passes the turn on after, so the products are
-// issued S0 S1 PV0 PV1 ... and one warpgroup's softmax runs while the
-// other's products do. Both wait on the same K/V tiles, and without the
-// turns they run in step: both in softmax while the tensor cores idle.
-__device__ __forceinline__ void turn_wait(int wg) { bar_sync(1 + wg, CONSUMERS); }
-__device__ __forceinline__ void turn_pass(int wg) { bar_arrive(2 - wg, CONSUMERS); }
 
 // N bf16x2 pairs that sum to two fp32 values: part 0 = bf16(x), part i
 // = bf16(x - parts 0..i-1) (each difference is exact in fp32), so three
@@ -139,9 +165,9 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&part
 // span (SPAN = hd up to 64, else 64), so a sub-tile's layout repeats every 8
 // rows. K-major operands (Q, K) step 8 rows by SBO and ignore LBO; a k-step
 // of 16 columns adds 32 bytes inside a sub-tile, and the step into the next
-// sub-tile adds the sub-tile's bytes. The MN-major V steps 8 keys by SBO; no
-// P.V product's N spans more than one atom (hdv 128 runs two 64-column
-// products, one per atom), so LBO is not followed.
+// sub-tile adds the sub-tile's bytes. The MN-major V steps 8 keys by SBO and
+// one sub-tile of columns by LBO (the sub-tile's bytes), which an m64n128
+// product over both sub-tiles of hdv 128 follows.
 template <int SPAN>
 struct Swizzle;
 template <>
@@ -165,77 +191,15 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
   return sm90::make_desc(addr, lbo, sbo, Swizzle<SPAN>::desc);
 }
 
-// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 16] (+)= A[64 x 16] . B[16 x 16], A in registers, B MN-major in shared
-// memory
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared
-// memory
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared
-// memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
+// D[64 x N] (+)= P[64 x 16] . V[16 x N], P in registers, V MN-major
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "a P.V product spans one atom of V");
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db, scale_d);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
-  else wgmma_rs_n64(d, a, db, scale_d);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "a P.V product's width");
+  if constexpr (N == 16) wgmma_bf16_m64n16k16_rs(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_bf16_m64n32k16_rs(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_bf16_m64n64k16_rs(d, a, db, scale_d);
+  else wgmma_bf16_m64n128k16_rs(d, a, db, scale_d);
 }
 
 // the columns of one operand's tile: HD / span sub-tiles of span columns
@@ -266,19 +230,22 @@ struct Layout {
   static constexpr int alloc = bytes + 1024;  // room to align the base to 1024
 };
 
+struct Args {
+  CUtensorMap qmap, kmap, vmap;
+  bf16* o;
+  int S, H, KH, B, nq, causal;
+  float scale_log2;
+};
+
 template <int HDQ, int HDV>
-__global__ void __launch_bounds__(THREADS, 1)
-fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-          const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int S, int H, int KH,
-          int B, int nq, int causal, float scale_log2) {
+__global__ void __launch_bounds__(THREADS, 1) fa_fwd_tc(const __grid_constant__ Args p) {
   using L = Layout<HDQ, HDV>;
   using QK = typename L::QK;
   using V = typename L::V;
-  extern __shared__ uint8_t smem_raw[];
+  const int S = p.S, H = p.H, causal = p.causal;
   // swizzled tiles start on a 1024-byte boundary, where the swizzle pattern
   // of TMA and of the wgmma descriptors lines up
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t base = (smem_u32(dynamic_smem()) + 1023) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::k_off, v_s = base + L::v_off;
   const uint32_t bars = base + L::bar_off;
   const uint32_t q_full = bars;
@@ -287,12 +254,11 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   auto empty_bar = [&](int st) { return bars + 8 * (1 + 2 * NSTAGE + st); };
 
   // heaviest causal query tiles first: the tile index is the slow one
-  const int hb_count = H * B;
+  const int hb_count = H * p.B;
   int qt = blockIdx.x / hb_count;
   const int hb = blockIdx.x % hb_count;
-  if (causal) qt = nq - 1 - qt;
+  if (causal) qt = p.nq - 1 - qt;
   const int h = hb % H, b = hb / H;
-  const int kh = h / (H / KH);
   const int q0 = qt * BQ;
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   const int ntiles = (kv_end + BK - 1) / BK;
@@ -308,209 +274,263 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  if (warp >= CONSUMERS / 32) {
-    // producer warp: one lane keeps the ring full
-    // each tile as its sub-tiles, one box of span columns each
-    if (threadIdx.x == CONSUMERS) {
+  // the warpgroup, read from lane 0 so that the compiler sees one value in
+  // every lane of a warp: each role then gets its own register budget
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WARPGROUP, 0);
+  if (role == 0) {
+    // the producer warpgroup: its registers go to the consumers, and one
+    // lane keeps the ring full, each tile as its sub-tiles, one box of span
+    // columns each
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int kh = h / (H / p.KH);
       mbar_expect_tx(q_full, L::q_bytes);
       for (int c = 0; c < QK::nsub; ++c)
-        tma_load_4d(q_s + c * L::q_sub, &qmap, q_full, c * QK::span, h, q0, b);
+        tma_load_4d(q_s + c * L::q_sub, &p.qmap, q_full, c * QK::span, h, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % NSTAGE;
         if (t >= NSTAGE) mbar_wait(empty_bar(st), ((t / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(k_full(st), L::k_bytes);
         for (int c = 0; c < QK::nsub; ++c)
-          tma_load_4d(k_s + st * L::k_bytes + c * L::k_sub, &kmap, k_full(st),
+          tma_load_4d(k_s + st * L::k_bytes + c * L::k_sub, &p.kmap, k_full(st),
                       c * QK::span, kh, t * BK, b);
         mbar_expect_tx(v_full(st), L::v_bytes);
         for (int c = 0; c < V::nsub; ++c)
-          tma_load_4d(v_s + st * L::v_bytes + c * L::v_sub, &vmap, v_full(st),
+          tma_load_4d(v_s + st * L::v_bytes + c * L::v_sub, &p.vmap, v_full(st),
                       c * V::span, kh, t * BK, b);
       }
+      // the consumers wait without a timeout (mbar_spin), so this lane
+      // watches the ring to its end: the last stages' releases, with the
+      // trapping wait, so that a broken ring fails the launch
+      for (int t = ntiles > NSTAGE ? ntiles - NSTAGE : 0; t < ntiles; ++t)
+        mbar_wait(empty_bar(t % NSTAGE), (t / NSTAGE) & 1);
     }
-    return;
-  }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    // consumer warpgroup wg: query rows q0 + 64 wg .. + 63. Thread layout of
+    // the m64nN fragments: warp w of the group holds rows 16 w + g and
+    // 16 w + g + 8 (g = lane / 4), and in each block j of 8 columns the
+    // columns 8 j + 2 (lane % 4) + {0, 1}: registers 4 j + {0, 1} for the
+    // first row, 4 j + {2, 3} for the second.
+    const int wg = role - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int t4 = lane % 4;
+    const int row_a = q0 + 64 * wg + 16 * warp + lane / 4;
+    const int row_b = row_a + 8;
+    const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+    // the key tiles this warpgroup visits: causal, none past its last row
+    const int nvisit = causal ? min(ntiles, wg_last / BK + 1) : ntiles;
 
-  // consumer warpgroup wg: query rows q0 + 64 wg .. + 63. Thread layout of
-  // the m64nN fragments: warp w of the group holds rows 16 w + g and
-  // 16 w + g + 8 (g = lane / 4), and in each block j of 8 columns the
-  // columns 8 j + 2 (lane % 4) + {0, 1}: registers 4 j + {0, 1} for the
-  // first row, 4 j + {2, 3} for the second.
-  const int wg = warp / 4;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane % 4;
-  const int row_a = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
-  const int row_b = row_a + 8;
-  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+    constexpr uint32_t ROW = QK::row;  // bytes per row of a Q or K sub-tile
+    constexpr uint32_t VROW = V::row;  // bytes per row of a V sub-tile
+    const uint64_t q_desc = make_desc<QK::span>(q_s + 64 * wg * ROW, 16, 8 * ROW);
+    // the descriptor offset (16-byte units) of k-step kk of 16 columns in a
+    // K-major tile whose sub-tiles are sub_bytes apart
+    auto kstep = [](int kk, int sub_bytes) {
+      constexpr int per_sub = QK::span / 16;
+      return static_cast<uint64_t>(((kk / per_sub) * sub_bytes + (kk % per_sub) * 32) >> 4);
+    };
 
-  constexpr uint32_t ROW = QK::row;  // bytes per row of a Q or K sub-tile
-  constexpr uint32_t VROW = V::row;  // bytes per row of a V sub-tile
-  const uint64_t q_desc = make_desc<QK::span>(q_s + 64 * wg * ROW, 16, 8 * ROW);
-  // the descriptor offset (16-byte units) of k-step kk of 16 columns in a
-  // K-major tile whose sub-tiles are sub_bytes apart
-  auto kstep = [](int kk, int sub_bytes) {
-    constexpr int per_sub = QK::span / 16;
-    return static_cast<uint64_t>(((kk / per_sub) * sub_bytes + (kk % per_sub) * 32) >> 4);
-  };
-
-  float acc[HDV / 2];
+    float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
-  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this thread's share
+    for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
+    float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this thread's share
+    float corr_a = 1.f, corr_b = 1.f;  // the correction of the tile in P.V
+    float s[BK / 2];                   // S of one tile, then its p
+    uint32_t pp[PARTS][BK / 16][4];    // P's parts as A fragments
+    float pv[HDV / 2];                 // a tile's P.V
 
-  mbar_wait(q_full, 0);
-  if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t % NSTAGE;
-    const uint32_t ph = (t / NSTAGE) & 1;
-    const int kv0 = t * BK;
-    mbar_wait(k_full(st), ph);
-    if (causal && kv0 > wg_last) {  // every key of the tile is after every row
-      mbar_wait(v_full(st), ph);
-      mbar_arrive(empty_bar(st));
-      turn_wait(wg);  // its two turns, so the other warpgroup's go on
-      turn_pass(wg);
-      turn_wait(wg);
-      turn_pass(wg);
-      continue;
-    }
-
-    // S = Q . K^T over hd in steps of 16 (32 bytes along the swizzled row)
-    float s[BK / 2];
-    const uint64_t k_desc = make_desc<QK::span>(k_s + st * L::k_bytes, 16, 8 * ROW);
-    turn_wait(wg);
-    wgmma_fence();
+    // S_t = Q . K_t^T over hd in steps of 16 (32 bytes along the swizzled
+    // row), one commit group
+    auto issue_qk = [&](int t) {
+      const uint64_t k_desc =
+          make_desc<QK::span>(k_s + (t % NSTAGE) * L::k_bytes, 16, 8 * ROW);
 #pragma unroll
-    for (int kk = 0; kk < HDQ / 16; ++kk)
-      wgmma_ss_n64(s, q_desc + kstep(kk, L::q_sub), k_desc + kstep(kk, L::k_sub), kk);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // scale (with log2 e, for exp2), masks, running max over the quad
-    const bool masked = (causal && kv0 + BK - 1 > wg_first) || kv0 + BK > S;
-    float mx_a = NEG, mx_b = NEG;
+      for (int kk = 0; kk < HDQ / 16; ++kk)
+        wgmma_bf16_m64n64k16_ss(s, q_desc + kstep(kk, L::q_sub),
+                                k_desc + kstep(kk, L::k_sub), kk);
+      wgmma_commit();
+    };
+    // scale (with log2 e, for exp2), masks, running max over the quad, then
+    // p in fp32 in place of S, l summed from it; returns tile t's
+    // corrections of the running sums through ca, cb
+    auto softmax = [&](int t, float& ca, float& cb) {
+      const int kv0 = t * BK;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+      for (int i = 0; i < BK / 2; ++i) s[i] *= p.scale_log2;
+      // masked: a key past S, or (causal) past the row; one uniform branch,
+      // and selects inside it
+      if ((causal && kv0 + BK - 1 > wg_first) || kv0 + BK > S) {
+        const int last_a = causal ? min(row_a, S - 1) : S - 1;
+        const int last_b = causal ? min(row_b, S - 1) : S - 1;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float xa = s[4 * j + c] * scale_log2;
-        float xb = s[4 * j + 2 + c] * scale_log2;
-        if (masked) {
-          const int key = kv0 + 8 * j + 2 * t4 + c;
-          if (key >= S || (causal && key > row_a)) xa = NEG;
-          if (key >= S || (causal && key > row_b)) xb = NEG;
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = kv0 + 8 * j + 2 * t4 + c;
+            s[4 * j + c] = key > last_a ? NEG : s[4 * j + c];
+            s[4 * j + 2 + c] = key > last_b ? NEG : s[4 * j + 2 + c];
+          }
         }
-        s[4 * j + c] = xa;
-        s[4 * j + 2 + c] = xb;
-        mx_a = fmaxf(mx_a, xa);
-        mx_b = fmaxf(mx_b, xb);
       }
-    }
+      float mx_a = NEG, mx_b = NEG;
 #pragma unroll
-    for (int sh = 1; sh < 4; sh <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = ex2(m_a - mn_a), corr_b = ex2(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // p in fp32, l summed from it, then P as (hi, lo) A fragments: k-step
-    // kk covers keys 16 kk .. 16 kk + 15, column blocks 2 kk and 2 kk + 1
-    float ls_a = 0.f, ls_b = 0.f;
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s[4 * j + c] = ex2(s[4 * j + c] - mn_a);
-        s[4 * j + 2 + c] = ex2(s[4 * j + 2 + c] - mn_b);
-        ls_a += s[4 * j + c];
-        ls_b += s[4 * j + 2 + c];
+        for (int c = 0; c < 2; ++c) {
+          mx_a = fmaxf(mx_a, s[4 * j + c]);
+          mx_b = fmaxf(mx_b, s[4 * j + 2 + c]);
+        }
       }
-    }
-    l_a = l_a * corr_a + ls_a;
-    l_b = l_b * corr_b + ls_b;
-    uint32_t p[PARTS][BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int off = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
-        uint32_t part[PARTS];
-        split_bf16x2<PARTS>(s[off], s[off + 1], part);
-#pragma unroll
-        for (int i = 0; i < PARTS; ++i) p[i][kk][r] = part[i];
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
       }
-    }
-    // pv = P_lo . V + P_mid . V + P_hi . V in a fresh accumulator, smallest
-    // part first: the tensor cores add each k-step to the accumulator with
-    // their own alignment and rounding, whose error scales with the
-    // accumulator's size, so no product is added into the running sum of
-    // earlier tiles and the small parts meet a small accumulator. V is the
-    // MN-major B operand; a k-step of 16 keys is 16 of its rows.
-    // At hdv 128 the columns go in two products, one per atom of V, each
-    // finished and added before the next is issued, so only half the tile
-    // sum is live at once (one m64n128 product over both atoms spilled twice
-    // as much and ran 2-3 % slower, PERF.md).
-    mbar_wait(v_full(st), ph);
-    constexpr int PV_N = HDV <= 64 ? HDV : 64;
-    const uint64_t v_desc = make_desc<V::span>(v_s + st * L::v_bytes, L::v_sub, 8 * VROW);
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      ca = ex2(m_a - mn_a);
+      cb = ex2(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float ls_a = 0.f, ls_b = 0.f;
 #pragma unroll
-    for (int i = 0; i < PARTS; ++i) fence_regs(p[i]);
-    turn_wait(wg);
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < HDV / PV_N; ++c) {
-      float pv[PV_N / 2];
-      wgmma_fence();
+        for (int c = 0; c < 2; ++c) {
+          s[4 * j + c] = ex2(s[4 * j + c] - mn_a);
+          s[4 * j + 2 + c] = ex2(s[4 * j + 2 + c] - mn_b);
+          ls_a += s[4 * j + c];
+          ls_b += s[4 * j + 2 + c];
+        }
+      }
+      l_a = l_a * ca + ls_a;
+      l_b = l_b * cb + ls_b;
+      // done here, under the P.V in flight, not after its wait
+      fence_regs(s);
+      fence_regs(m_a);
+      fence_regs(m_b);
+      fence_regs(l_a);
+      fence_regs(l_b);
+      fence_regs(ca);
+      fence_regs(cb);
+    };
+    // p as P's parts, A fragments: k-step kk covers keys 16 kk .. 16 kk +
+    // 15, column blocks 2 kk and 2 kk + 1
+    auto split_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int off = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+          uint32_t part[PARTS];
+          split_bf16x2<PARTS>(s[off], s[off + 1], part);
+#pragma unroll
+          for (int i = 0; i < PARTS; ++i) pp[i][kk][r] = part[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);
+    };
+    // pv = P_lo . V + P_mid . V + P_hi . V of tile t in a fresh
+    // accumulator, smallest part first: the tensor cores add each k-step to
+    // the accumulator with their own alignment and rounding, whose error
+    // scales with the accumulator's size, so no product is added into the
+    // running sum of earlier tiles and the small parts meet a small
+    // accumulator. A k-step of 16 keys is 16 rows of V; at hdv 128 one
+    // m64n128 product spans both sub-tiles of V. One commit group.
+    auto issue_pv = [&](int t) {
+      const uint64_t v_desc =
+          make_desc<V::span>(v_s + (t % NSTAGE) * L::v_bytes, L::v_sub, 8 * VROW);
 #pragma unroll
       for (int i = PARTS - 1; i >= 0; --i) {
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<PV_N>(pv, p[i][kk],
-                         v_desc + ((c * L::v_sub + 16 * kk * VROW) >> 4),
-                         i < PARTS - 1 || kk > 0);
+          wgmma_rs<HDV>(pv, pp[i][kk], v_desc + ((16 * kk * VROW) >> 4),
+                        i < PARTS - 1 || kk > 0);
       }
       wgmma_commit();
-      if (c == HDV / PV_N - 1) turn_pass(wg);
-      wgmma_wait_all();
+    };
+    // tile t's P.V retired: the running sum in fp32 on the CUDA cores, acc =
+    // acc * corr + pv, and tile t's stage released
+    auto finish_pv = [&](int t) {
+      wgmma_wait_group<0>();
       fence_regs(pv);
-      if (c == HDV / PV_N - 1) mbar_arrive(empty_bar(st));
-
-      // the running sum in fp32 on the CUDA cores: acc = acc * corr + pv
 #pragma unroll
-      for (int j = 0; j < PV_N / 8; ++j) {
-        const int a = 4 * (c * PV_N / 8 + j);
-        acc[a + 0] = fmaf(acc[a + 0], corr_a, pv[4 * j + 0]);
-        acc[a + 1] = fmaf(acc[a + 1], corr_a, pv[4 * j + 1]);
-        acc[a + 2] = fmaf(acc[a + 2], corr_b, pv[4 * j + 2]);
-        acc[a + 3] = fmaf(acc[a + 3], corr_b, pv[4 * j + 3]);
+      for (int j = 0; j < HDV / 8; ++j) {
+        acc[4 * j + 0] = fmaf(acc[4 * j + 0], corr_a, pv[4 * j + 0]);
+        acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
       }
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);  // P was read until now
+      mbar_arrive(empty_bar(t % NSTAGE));
+    };
+    auto full_parity = [](int t) { return static_cast<uint32_t>((t / NSTAGE) & 1); };
+
+    mbar_spin(q_full, 0);
+    // tile 0: S alone
+    mbar_spin(k_full(0), 0);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_wait_group<0>();
+    fence_regs(s);
+    softmax(0, corr_a, corr_b);
+    split_p();
+    // tile t's S and tile t - 1's P.V in flight together; t's softmax runs
+    // under t - 1's P.V
+    for (int t = 1; t < nvisit; ++t) {
+      mbar_spin(k_full(t % NSTAGE), full_parity(t));
+      mbar_spin(v_full((t - 1) % NSTAGE), full_parity(t - 1));
+      wgmma_fence();
+      issue_qk(t);
+      issue_pv(t - 1);
+      wgmma_wait_group<1>();  // S_t
+      fence_regs(s);
+      float ca, cb;
+      softmax(t, ca, cb);
+      finish_pv(t - 1);
+      corr_a = ca;
+      corr_b = cb;
+      split_p();
     }
-  }
+    // the last visited tile's P.V
+    const int last = nvisit - 1;
+    mbar_spin(v_full(last % NSTAGE), full_parity(last));
+    wgmma_fence();
+    issue_pv(last);
+    finish_pv(last);
+    // tiles past this warpgroup's last row: their stage, released once the
+    // tile is in it. An arrival names no phase, and empty_bar counts both
+    // warpgroups' arrivals: one made before the tile's load could complete
+    // the phase of the tile NSTAGE before it, which the other warpgroup may
+    // still be reading, and let the producer overwrite that stage.
+    for (int t = nvisit; t < ntiles; ++t) {
+      mbar_spin(k_full(t % NSTAGE), full_parity(t));
+      mbar_spin(v_full(t % NSTAGE), full_parity(t));
+      mbar_arrive(empty_bar(t % NSTAGE));
+    }
 
-  if (wg == 0) turn_wait(wg);  // the turn warpgroup 1 passed at the start
-
-  // epilogue: l over the quad, out = acc / (l + 1e-30), rows < S only
+    // epilogue: l over the quad, out = acc / (l + 1e-30), rows < S only
 #pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
-  }
-  const float den_a = l_a + 1e-30f, den_b = l_b + 1e-30f;
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+    }
+    const float den_a = l_a + 1e-30f, den_b = l_b + 1e-30f;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row_b : row_a;
-    if (row >= S) continue;
-    const float den = half ? den_b : den_a;
-    bf16* orow = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HDV + 2 * t4;
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row_b : row_a;
+      if (row >= S) continue;
+      const float den = half ? den_b : den_a;
+      bf16* orow = p.o + ((static_cast<int64_t>(b) * S + row) * H + h) * HDV + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < HDV / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
+      for (int j = 0; j < HDV / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
+      }
     }
   }
 }
@@ -537,12 +557,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   EncodeTiled fn;
   cudaError_t err = encode_fn(&fn);
   if (err != cudaSuccess) return err;
-  CUtensorMap qm, km, vm;
-  CUresult rc = encode<HDQ>(fn, &qm, q, H, S, B, BQ, HDQ, (int64_t)H * HDQ,
+  Args args;
+  CUresult rc = encode<HDQ>(fn, &args.qmap, q, H, S, B, BQ, HDQ, (int64_t)H * HDQ,
                             (int64_t)S * H * HDQ);
   if (rc == CUDA_SUCCESS)
-    rc = encode<HDQ>(fn, &km, k, KH, S, B, BK, HDQ, (int64_t)KH * HDQ, (int64_t)S * KH * HDQ);
-  if (rc == CUDA_SUCCESS) rc = encode<HDV>(fn, &vm, v, KH, S, B, BK, vhs, vss, vbs);
+    rc = encode<HDQ>(fn, &args.kmap, k, KH, S, B, BK, HDQ, (int64_t)KH * HDQ,
+                     (int64_t)S * KH * HDQ);
+  if (rc == CUDA_SUCCESS) rc = encode<HDV>(fn, &args.vmap, v, KH, S, B, BK, vhs, vss, vbs);
   if (rc != CUDA_SUCCESS) return TENSOR_MAP_ERROR + rc;
   using L = Layout<HDQ, HDV>;
   err = cudaFuncSetAttribute(fa_fwd_tc<HDQ, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -551,8 +572,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   const int nq = (S + BQ - 1) / BQ;
   const int64_t blocks = static_cast<int64_t>(nq) * H * B;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  fa_fwd_tc<HDQ, HDV><<<static_cast<unsigned>(blocks), THREADS, L::alloc, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), S, H, KH, B, nq, causal, scale * LOG2E);
+  args.o = static_cast<bf16*>(o);
+  args.S = S;
+  args.H = H;
+  args.KH = KH;
+  args.B = B;
+  args.nq = nq;
+  args.causal = causal;
+  args.scale_log2 = scale * LOG2E;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  fa_fwd_tc<HDQ, HDV><<<grid, THREADS, L::alloc, stream>>>(args);
   return cudaGetLastError();
 }
 

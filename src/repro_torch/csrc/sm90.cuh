@@ -4,22 +4,25 @@
 //   shared memory   smem_u32, dynamic_smem, fence_proxy_async
 //   named barriers  bar_sync, bar_arrive
 //   mbarrier        mbar_init, mbar_init_fence, mbar_expect_tx, mbar_arrive,
-//                   mbar_wait
+//                   mbar_wait, mbar_spin
 //   TMA             tma_load_4d, encode_fn (cuTensorMapEncodeTiled)
-//   wgmma           make_desc, wgmma_fence / wgmma_commit / wgmma_wait_all,
-//                   fence_regs; the tf32 products wgmma_tf32_m64n128k8 and
-//                   wgmma_tf32_m64n64k8 (A and B in shared memory) and
-//                   wgmma_tf32_m64n{16,32,64}k8_rs (A in registers)
+//   wgmma           make_desc, wgmma_fence / wgmma_commit / wgmma_wait_all /
+//                   wgmma_wait_group<N>, fence_regs; the tf32 products
+//                   wgmma_tf32_m64n128k8 and wgmma_tf32_m64n64k8 (A and B in
+//                   shared memory) and wgmma_tf32_m64n{16,32,64}k8_rs (A in
+//                   registers); the bf16 products wgmma_bf16_m64n64k16_ss (A
+//                   and B K-major in shared memory) and
+//                   wgmma_bf16_m64n{16,32,64,128}k16_rs (A in registers, B
+//                   MN-major in shared memory)
+//   registers       setmaxnreg_inc<N>, setmaxnreg_dec<N>
 //   TF32            tf32_rna (integer operations, no PTX)
 //   exp2            ex2
 //   clusters        cluster_ctarank, cluster_arrive, cluster_wait,
 //                   dsmem_map, ld_dsmem_f32
 //   streaming loads ld_stream_f4, ld_stream_u2
 //
-// The bf16 wgmma forms of the flash-attention kernel stay in its own source.
-// tests/test_torch_kernel_emulation.py compiles csrc/matmul.cu,
-// csrc/rmnp_update.cu and csrc/flash_attention_fwd_tf32.cu on the CPU
-// against a C++ model of the helpers each source uses, so a helper's
+// tests/test_torch_kernel_emulation.py compiles every source of csrc/ on
+// the CPU against a C++ model of the helpers it uses, so a helper's
 // signature is part of that test's contract.
 #pragma once
 
@@ -98,6 +101,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// the same wait without the timeout, for a loop whose registers are tight:
+// a trap on its path holds ptxas's register allocation in that loop far
+// below the thread's limit (the bf16 flash kernel's consumers spilled for
+// it), so another thread of the block must watch the ring with mbar_wait
+__device__ __forceinline__ void mbar_spin(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
 // ----------------------------------------------------------------- TMA ---
 
 // one TMA load of a box at coordinates (c0, c1, c2, c3) of a 4-D map,
@@ -164,15 +176,24 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N of this warpgroup's committed groups are pending;
+// groups retire in the order they were committed
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // pin registers that wgmma reads or writes asynchronously in place in the
 // instruction stream, so the compiler moves no use of them across the
-// fence, the issue or the wait
+// fence, the issue or the wait; and pin work that is to run while a product
+// is in flight before the wait (the compiler would otherwise sink register
+// arithmetic past it)
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+__device__ __forceinline__ void fence_regs(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -272,6 +293,114 @@ __device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uin
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T on bf16 operands, both K-major
+// in shared memory, fp32 accumulators; scale_d 0 starts a fresh sum. The
+// fragment layout of wgmma_tf32_m64n128k8.
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N] on bf16 operands, A in registers and
+// B MN-major in shared memory (the transpose bit): B's rows are the 16 k
+// values, each N values along the swizzle span; the descriptor steps 8 k by
+// its stride byte offset and one span of N by its leading byte offset. A:
+// warp w holds rows 16 w .. 16 w + 15; a[0] row g, columns 2c and 2c + 1;
+// a[1] row g + 8, the same columns; a[2] and a[3] the same rows at columns
+// 2c + 8 and 2c + 9 (g = lane / 4, c = lane % 4), the first column in the
+// low half. D as in wgmma_tf32_m64n128k8.
+__device__ __forceinline__ void wgmma_bf16_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64],
+                                                         const uint32_t (&a)[4], uint64_t db,
+                                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ----------------------------------------------------------- registers ---
+
+// Move registers between the warpgroups of a block: every warp of a
+// warpgroup executes the same one (.sync.aligned) and its threads' limit
+// becomes N (a multiple of 8, 24 to 256). dec gives registers back to the
+// block's pool; inc waits until the pool holds enough. sm_90a only.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------- TF32 ---

@@ -1,7 +1,7 @@
 """The port's CUDA sources run on the CPU under an emulation of the CUDA
 features they use: the GEMM kernel (``csrc/matmul.cu``), the RMNP kernel
-(``csrc/rmnp_update.cu``) and the fp32 flash-attention kernel
-(``csrc/flash_attention_fwd_tf32.cu``).
+(``csrc/rmnp_update.cu``) and the fp32 and bf16 flash-attention kernels
+(``csrc/flash_attention_fwd_tf32.cu``, ``csrc/flash_attention_fwd.cu``).
 
 There is no ``nvcc`` and no card on a CPU machine, so each source is
 compiled with the host C++ compiler against two small headers written below
@@ -77,6 +77,7 @@ EMULATION_HEADER = r"""
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 #define __restrict__ __restrict
 #define __align__(n) __attribute__((aligned(n)))
@@ -206,6 +207,7 @@ template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const c
 
 BF16_HEADER = r"""
 #pragma once
+#include <cuda_runtime.h>
 #include <cstdint>
 #include <cstring>
 // bf16 storage; conversions as the card's intrinsics: widening is exact,
@@ -225,6 +227,14 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {uint16_t(u >> 16)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
+// a pair, the first value in the low half
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 h) {
+  return {__bfloat162float(h.x), __bfloat162float(h.y)};
+}
 """
 
 # The helpers of sm90.cuh that csrc/rmnp_update.cu calls. A block's
@@ -283,8 +293,10 @@ inline float ld_dsmem_f32(uint32_t addr) {
 SM90_MODEL = r"""
 #pragma once
 #include <cuda_runtime.h>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <mutex>
@@ -296,29 +308,58 @@ inline uint32_t smem_u32(const void* p) {
 }
 inline uint8_t* dynamic_smem() { return smem; }
 inline void fence_proxy_async() {}
-// an mbarrier: 16 bits of expected arrivals, 16 pending, and the phase
-struct Mbar { uint16_t count, pending; uint32_t phase; };
+// an mbarrier: 16 bits each of expected arrivals, pending arrivals, the
+// phase and the transaction bytes still to come; a phase completes once
+// both of the last two are zero
+struct Mbar { uint16_t count, pending, phase, tx; };
 inline std::mutex mbar_lock;
 inline Mbar* mbar(uint32_t bar) { return reinterpret_cast<Mbar*>(smem + bar); }
 inline void mbar_init(uint32_t bar, uint32_t count) {
   std::lock_guard<std::mutex> g(mbar_lock);
-  *mbar(bar) = {uint16_t(count), uint16_t(count), 0};
+  *mbar(bar) = {uint16_t(count), uint16_t(count), 0, 0};
 }
 inline void mbar_init_fence() {}
-inline void mbar_arrive(uint32_t bar) {
-  std::lock_guard<std::mutex> g(mbar_lock);
-  Mbar* m = mbar(bar);
-  if (--m->pending == 0) {
+inline void mbar_complete_if_done(Mbar* m) {
+  if (m->pending == 0 && m->tx == 0) {
     m->pending = m->count;
     ++m->phase;
   }
 }
-// the phase of the given parity has completed once the current one differs
+inline void mbar_arrive(uint32_t bar) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = mbar(bar);
+  if (m->pending == 0) std::abort();  // more arrivals than the count
+  --m->pending;
+  mbar_complete_if_done(m);
+}
+inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = mbar(bar);
+  if (m->pending == 0 || m->tx + bytes > 0xFFFF) std::abort();
+  m->tx += bytes;
+  --m->pending;
+  mbar_complete_if_done(m);
+}
+inline void mbar_complete_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> g(mbar_lock);
+  Mbar* m = mbar(bar);
+  if (bytes > m->tx) std::abort();  // more bytes than expected
+  m->tx -= bytes;
+  mbar_complete_if_done(m);
+}
+// the phase of the given parity has completed once the current one
+// differs; a wait that sees none for 60 s aborts, as the card's wait traps,
+// so a broken ring fails instead of hanging
 inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  const auto until = std::chrono::steady_clock::now() + std::chrono::seconds(60);
   for (;;) {
     {
       std::lock_guard<std::mutex> g(mbar_lock);
       if ((mbar(bar)->phase & 1) != parity) return;
+    }
+    if (std::chrono::steady_clock::now() > until) {
+      std::fprintf(stderr, "mbar_wait: no phase of parity %u in 60 s\n", parity);
+      std::abort();
     }
     std::this_thread::yield();
   }
@@ -327,6 +368,7 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 inline void wgmma_wait_all() {}
 template <int N> inline void fence_regs(float (&)[N]) {}
+inline void fence_regs(float&) {}
 inline uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t swizzle) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
@@ -958,6 +1000,15 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   sm90::group_barriers.warp[t / 32]->arrive_and_wait();
   return r;
 }
+inline int __shfl_sync(unsigned, int v, int src_lane) {
+  const int t = threadIdx.x;
+  std::memcpy(&shfl_buffer[t], &v, 4);
+  sm90::group_barriers.warp[t / 32]->arrive_and_wait();
+  int r;
+  std::memcpy(&r, &shfl_buffer[(t & ~31) | src_lane], 4);
+  sm90::group_barriers.warp[t / 32]->arrive_and_wait();
+  return r;
+}
 """
 
 
@@ -1028,3 +1079,328 @@ def test_emulated_flash_tf32_two_launches_give_identical_bits(flash_tf32):
     q, k, v = _flash_inputs(1, 129, 4, 1, 64, seed=3)
     first = _flash(flash_tf32, q, k, v, True)
     assert np.array_equal(first, _flash(flash_tf32, q, k, v, True))
+
+
+# --------------------------------------------------- flash attention, bf16 ---
+#
+# csrc/flash_attention_fwd.cu under the fp32 flash kernel's emulation and
+# model (SM90_MODEL + FLASH_MODEL), with what it adds: a ``cuda.h`` whose
+# ``CUtensorMap`` records what ``cuTensorMapEncodeTiled`` is given (and
+# refuses what the card's encode refuses: strides off 16 bytes, a box over 256 or
+# wider than its swizzle span); ``tma_load_4d`` copies the box at issue,
+# zeros past the map's edge, into shared memory in the map's 32-, 64- or
+# 128-byte swizzle (bits 4.. of the address XOR bits 7..), and completes its
+# bytes on the mbarrier, whose phase then needs both its arrivals and its
+# bytes; the bf16 wgmma forms read K-major operands (row r, k: 8-row groups
+# at the stride byte offset, rows one span apart) and the MN-major B (k, n:
+# 8-k groups at the stride byte offset, spans of n at the leading byte
+# offset) through the same swizzle, A of the register forms gathered across
+# the warpgroup as the fp32 kernel's, with the tensor cores' addition
+# modelled as the GEMM's over 16 products a k-step; wait_group and
+# setmaxnreg are no-ops, since the model computes at issue, and mbar_spin is
+# mbar_wait. ``emulate_hold_second_consumer`` holds the second consumer
+# warpgroup back at its first product of each block, so the producer and the
+# first consumer run ahead of it through the ring. So this checks the tensor maps, boxes and coordinates, the
+# swizzle and descriptor arithmetic, the ring's barriers and parities (the
+# producer's watch of the last stages included), the split of P, the masks
+# and the epilogue; not the order in which the card completes products,
+# which phase B of chip_smoke.py checks.
+
+BF16_FLASH_SOURCE = SOURCE.with_name("flash_attention_fwd.cu")
+
+TENSOR_MAP_HEADER = r"""
+#pragma once
+#include <cstdint>
+typedef uint64_t cuuint64_t;
+typedef uint32_t cuuint32_t;
+enum CUresult { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_32B,
+                          CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_SWIZZLE_128B };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+// what an encoded map holds (the card's is 128 opaque bytes)
+struct alignas(64) CUtensorMap {
+  const uint8_t* base;
+  uint64_t dims[4], strides[3];
+  uint32_t box[4], span;  // span: bytes of the swizzle, 0 for none
+};
+inline CUresult cuTensorMapEncodeTiled(CUtensorMap* map, CUtensorMapDataType type,
+                                       cuuint32_t rank, void* base, const cuuint64_t* dims,
+                                       const cuuint64_t* strides, const cuuint32_t* box,
+                                       const cuuint32_t* elem, CUtensorMapInterleave,
+                                       CUtensorMapSwizzle swizzle, CUtensorMapL2promotion,
+                                       CUtensorMapFloatOOBfill) {
+  const uint32_t span = swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? 128
+                        : swizzle == CU_TENSOR_MAP_SWIZZLE_64B ? 64
+                        : swizzle == CU_TENSOR_MAP_SWIZZLE_32B ? 32 : 0;
+  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank != 4 ||
+      reinterpret_cast<uintptr_t>(base) % 16 || box[0] * 2 % 16 || (span && box[0] * 2 > span))
+    return CUDA_ERROR_INVALID_VALUE;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] % 16 || strides[i] >= (uint64_t(1) << 40)) return CUDA_ERROR_INVALID_VALUE;
+  for (int i = 0; i < 4; ++i)
+    if (box[i] < 1 || box[i] > 256 || elem[i] != 1 || dims[i] < 1) return CUDA_ERROR_INVALID_VALUE;
+  map->base = static_cast<const uint8_t*>(base);
+  for (int i = 0; i < 4; ++i) map->dims[i] = dims[i], map->box[i] = box[i];
+  for (int i = 0; i < 3; ++i) map->strides[i] = strides[i];
+  map->span = span;
+  return CUDA_SUCCESS;
+}
+"""
+
+BF16_FLASH_MODEL = r"""
+#include <cuda.h>
+#include <atomic>
+#include <chrono>
+// microseconds that each thread of the second consumer warpgroup (threads
+// 256..383) sleeps before its first Q.K^T product of a block
+inline std::atomic<int> hold_second_consumer_us{0};
+extern "C" void emulate_hold_second_consumer(int us) { hold_second_consumer_us = us; }
+namespace sm90 {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+constexpr int TENSOR_MAP_ERROR = 100000;
+inline cudaError_t encode_fn(EncodeTiled* out) {
+  *out = cuTensorMapEncodeTiled;
+  return cudaSuccess;
+}
+template <int N> inline void wgmma_wait_group() {}
+inline void mbar_spin(uint32_t bar, uint32_t parity) { mbar_wait(bar, parity); }
+template <int N> inline void setmaxnreg_inc() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
+}
+template <int N> inline void setmaxnreg_dec() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
+}
+// a shared-memory byte address through the swizzle of `span` bytes
+inline uint32_t swizzled(uint32_t at, uint32_t span) {
+  return span ? at ^ (((at >> 7) & (span / 16 - 1)) << 4) : at;
+}
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                        int c2, int c3) {
+  if (dst % 128) std::abort();  // TMA writes 128-byte aligned boxes
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t* box = map->box;
+  uint32_t n = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, ++n) {
+          const int64_t x[4] = {c[0] + int64_t(i0), c[1] + int64_t(i1), c[2] + int64_t(i2),
+                                c[3] + int64_t(i3)};
+          uint16_t v = 0;  // zero past the edge
+          bool inside = true;
+          for (int d = 0; d < 4; ++d) inside = inside && x[d] >= 0 && uint64_t(x[d]) < map->dims[d];
+          if (inside)
+            std::memcpy(&v, map->base + 2 * x[0] + x[1] * map->strides[0] +
+                            x[2] * map->strides[1] + x[3] * map->strides[2], 2);
+          std::memcpy(smem + swizzled(dst + 2 * n, map->span), &v, 2);
+        }
+  mbar_complete_tx(bar, 2 * n);
+}
+inline uint32_t desc_span(uint64_t desc) {
+  const uint32_t mode = uint32_t(desc >> 62);
+  if (mode == 0) std::abort();  // every operand here is swizzled
+  return 256u >> mode;          // 1: 128, 2: 64, 3: 32
+}
+inline double bf16_smem(uint32_t at) {
+  uint16_t h;
+  std::memcpy(&h, smem + at, 2);
+  const uint32_t u = uint32_t(h) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// element (row, k) of a K-major operand, (k, n) of an MN-major one
+inline double k_major(uint64_t desc, int row, int k) {
+  const uint32_t span = desc_span(desc);
+  const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
+  const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
+  return bf16_smem(swizzled(start + (row / 8) * sbo + (row % 8) * span + 2 * k, span));
+}
+inline double mn_major(uint64_t desc, int k, int n) {
+  const uint32_t span = desc_span(desc), atom = span / 2;
+  const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
+  const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
+  return bf16_smem(swizzled(start + (n / atom) * lbo + (k / 8) * sbo + (k % 8) * span +
+                            2 * (n % atom), span));
+}
+inline void wgmma_bf16_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  thread_local bool held = false;  // a block's threads are made anew
+  if (!held && threadIdx.x / 128 == 2 && hold_second_consumer_us > 0) {
+    held = true;
+    std::this_thread::sleep_for(std::chrono::microseconds(hold_second_consumer_us.load()));
+  }
+  const int t = threadIdx.x % 128, lane = t % 32;
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+    double prod[16];
+    for (int k = 0; k < 16; ++k) prod[k] = k_major(da, row, k) * k_major(db, col, k);
+    d[i] = tc_sum(scale_d ? d[i] : 0.f, prod, 16);
+  }
+}
+inline uint32_t bf16_frags[8][128][4];
+template <int N>
+inline void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  std::memcpy(bf16_frags[wg][t], a, 16);
+  group_barriers.warpgroup[wg]->arrive_and_wait();
+  auto a_at = [&](int row, int k) {  // element (row, k) of the 64 x 16 A
+    const int w = row / 16, r = row % 16;
+    const uint32_t u = bf16_frags[wg][32 * w + 4 * (r % 8) + (k % 8) / 2][2 * (k / 8) + r / 8];
+    const uint32_t bits = (k % 2 ? u >> 16 : u & 0xFFFFu) << 16;
+    float f;
+    std::memcpy(&f, &bits, 4);
+    return double(f);
+  };
+  for (int i = 0; i < N / 2; ++i) {
+    const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+    double prod[16];
+    for (int k = 0; k < 16; ++k) prod[k] = a_at(row, k) * mn_major(db, k, col);
+    d[i] = tc_sum(scale_d ? d[i] : 0.f, prod, 16);
+  }
+  group_barriers.warpgroup[wg]->arrive_and_wait();  // the buffer is free again
+}
+inline void wgmma_bf16_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_bf16_rs<16>(d, a, db, s);
+}
+inline void wgmma_bf16_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_bf16_rs<32>(d, a, db, s);
+}
+inline void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_bf16_rs<64>(d, a, db, s);
+}
+inline void wgmma_bf16_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                     int s) {
+  wgmma_bf16_rs<128>(d, a, db, s);
+}
+}  // namespace sm90
+"""
+
+
+@pytest.fixture(scope="module")
+def flash_bf16_lib(tmp_path_factory):
+    """The emulated library: ``fa_fwd`` and ``emulate_hold_second_consumer``."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    from repro_torch.kernels import flash_attention as fa
+    out = tmp_path_factory.mktemp("flash_bf16_emulation")
+    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    (out / "cuda_bf16.h").write_text(BF16_HEADER)
+    (out / "cuda.h").write_text(TENSOR_MAP_HEADER)
+    (out / "sm90.cuh").write_text(SM90_MODEL + FLASH_MODEL + BF16_FLASH_MODEL)
+    src = re.sub(r"(\w+<[\w, ]+>)<<<(\w+), (\w+), [^>]*>>>\((\w+)\)",
+                 r"emulate_launch(\1, \2, \3, \4)", BF16_FLASH_SOURCE.read_text())
+    assert src.count("emulate_launch(") == 1, "the launch site of flash_attention_fwd.cu changed"
+    (out / "flash.cpp").write_text(src)
+    lib = out / "libflash_bf16_emulated.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-Wno-unknown-pragmas",
+                    "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
+                    str(out / "flash.cpp")], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib))
+    lib.fa_fwd.argtypes = fa.BF16_ARGTYPES
+    lib.fa_fwd.restype = ctypes.c_int
+    lib.emulate_hold_second_consumer.argtypes = [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def flash_bf16(flash_bf16_lib):
+    return flash_bf16_lib.fa_fwd
+
+
+def _flash_bf16_inputs(B, S, H, K, hd, hdv, seed):
+    """q, k, v as bf16 bits (uint16), v MLA's strided column slice when
+    hdv != hd: the last hdv columns of a (B, S, K, 2 hdv) array."""
+    rng = np.random.default_rng(seed)
+    q, k = (_bf16(rng.standard_normal((B, S, h, hd))) for h in (H, K))
+    if hdv == hd:
+        return q, k, _bf16(rng.standard_normal((B, S, K, hd)))
+    return q, k, _bf16(rng.standard_normal((B, S, K, 2 * hdv)))[..., hdv:]
+
+
+def _flash_bf16(fn, q, k, v, causal):
+    """The kernel's C entry on bf16 bits: q, k contiguous, v by its strides."""
+    B, S, H, hd = q.shape
+    hdv = v.shape[3]
+    out = np.full((B, S, H, hdv), 0xFFFF, np.uint16)  # NaN bits where nothing is written
+    vs = [st // 2 for st in v.strides]
+    err = fn(q.ctypes.data, k.ctypes.data, v.ctypes.data, out.ctypes.data, B, S, H,
+             k.shape[2], hd, hdv, vs[2], vs[1], vs[0], int(causal), 1.0 / hd ** 0.5, None)
+    assert err == 0
+    return out
+
+
+# (B, S, H, K, hd, hdv, causal): every build the port's models use but hd
+# 32, each at S of 1, one past the 64-key tile and one past the 128-row
+# query tile, causal and not, G = 1, 2 and 4; (192, 128) with MLA's strided v
+BF16_FLASH_CASES = [(1, 1, 2, 2, 16, 16, True), (1, 65, 4, 1, 16, 16, False),
+                    (1, 129, 4, 2, 16, 16, True), (1, 129, 2, 1, 64, 64, True),
+                    (1, 65, 4, 2, 64, 64, True), (1, 129, 4, 1, 64, 64, False),
+                    (1, 1, 4, 1, 128, 128, False), (1, 129, 4, 2, 128, 128, True),
+                    (1, 65, 2, 2, 128, 128, False), (1, 129, 2, 2, 192, 128, True),
+                    (1, 65, 2, 2, 192, 128, False), (1, 1, 2, 2, 192, 128, True)]
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES,
+                         ids=lambda c: "S{1}_H{2}_K{3}_hd{4}_{5}_".format(*c)
+                         + ("causal" if c[6] else "noncausal"))
+def test_emulated_flash_bf16_matches_plain(flash_bf16, case):
+    """Against the plain version (torch, CPU, bf16 in and out) at phase B's
+    bf16 limit, 2^-7 * |want| + 1e-6 * max|want| per element."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, K, hd, hdv, causal = case
+    q, k, v = _flash_bf16_inputs(B, S, H, K, hd, hdv, seed=S * H + hd)
+    got = _f32(_flash_bf16(flash_bf16, q, k, v, causal))
+    tq, tk, tv = (torch.from_numpy(_f32(x).copy()).to(torch.bfloat16) for x in (q, k, v))
+    want = fa.flash_attention_fwd_plain(tq, tk, tv, causal=causal).float().numpy()
+    assert np.isfinite(got).all()
+    lim = 1e-6 * np.abs(want).max() + 2.0 ** -7 * np.abs(want)
+    print(f"emulated bf16 {case}: {float(np.max(np.abs(got - want) / lim)):.3f} of the limit")
+    assert np.all(np.abs(got - want) <= lim)
+
+
+def test_emulated_flash_bf16_two_launches_and_a_contiguous_v_give_identical_bits(flash_bf16):
+    """Two launches give the same bits, and so does MLA's v copied into a
+    contiguous array of its own."""
+    q, k, v = _flash_bf16_inputs(1, 129, 2, 2, 192, 128, seed=5)
+    first = _flash_bf16(flash_bf16, q, k, v, True)
+    assert np.array_equal(first, _flash_bf16(flash_bf16, q, k, v, True))
+    assert np.array_equal(first, _flash_bf16(flash_bf16, q, k, np.ascontiguousarray(v), True))
+
+
+@pytest.mark.parametrize("hd, hdv", [(64, 64), (192, 128)])
+def test_emulated_flash_bf16_ring_waits_for_a_late_consumer(flash_bf16_lib, hd, hdv):
+    """The second consumer warpgroup held back 50 ms at the start of each
+    block, S = 257 causal. In the block of query rows 128..255 the first
+    consumer visits key tiles 0..2 and skips tile 3, whose stage is tile 0's.
+    Its release of that stage must wait for tile 3's load: released at once,
+    its arrivals complete tile 0's phase of the ring before the second
+    consumer has read tile 0, and the producer overwrites the stage under it.
+    The held launch must give the free launch's bits and hold the limit."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_bf16_inputs(1, 257, 2, 1, hd, hdv, seed=hd)
+    free = _flash_bf16(flash_bf16_lib.fa_fwd, q, k, v, True)
+    flash_bf16_lib.emulate_hold_second_consumer(50_000)
+    try:
+        held = _flash_bf16(flash_bf16_lib.fa_fwd, q, k, v, True)
+    finally:
+        flash_bf16_lib.emulate_hold_second_consumer(0)
+    tq, tk, tv = (torch.from_numpy(_f32(x).copy()).to(torch.bfloat16) for x in (q, k, v))
+    want = fa.flash_attention_fwd_plain(tq, tk, tv, causal=True).float().numpy()
+    got = _f32(held)
+    lim = 1e-6 * np.abs(want).max() + 2.0 ** -7 * np.abs(want)
+    assert np.all(np.abs(got - want) <= lim)
+    assert np.array_equal(held, free)

@@ -1,32 +1,49 @@
 #!/usr/bin/env python3
-"""The bf16 flash kernel at head dim 128: build variants of
-csrc/flash_attention_fwd.cu that differ in how a thread's registers are
-spent, and time each at qwen3-4b's prefill shape beside its ptxas report.
+"""The bf16 flash kernel's design choices at its wide-head builds: build
+variants of csrc/flash_attention_fwd.cu that each change one choice, and
+time each at qwen3-4b's prefill shape (hd 128) and deepseek-v2-lite's
+((192, 128), v a strided column slice) beside its ptxas report.
 
-    python3 tools/flash_hd128_variants.py     # needs one CUDA card and nvcc
+    python3 tools/flash_hd128_variants.py                # needs one CUDA card and nvcc
+    python3 tools/flash_hd128_variants.py --build-only   # ptxas and SASS only, no launch
+    python3 tools/flash_hd128_variants.py --parent build/parent/src/repro_torch/csrc
+    python3 tools/flash_hd128_variants.py --trace        # cycles of each phase of a tile
 
-Variants (text substitutions of the source, each a correct kernel):
-  kernel          the source as it is: P.V in two products of 64 columns,
-                  one per atom of V;
-  maxnreg_224     __maxnreg__(224) in place of __launch_bounds__(THREADS,
-                  1), under which ptxas caps the kernel at 168 registers a
-                  thread; 288 threads x 224 registers fit the SM's 65536,
-                  but 9 warps put 3 on one of its four sub-partitions of
-                  16384, so the card may refuse the launch, which is then
-                  reported as the variant's error.
+Variants (patches of the source, each a correct kernel that computes the
+same bits):
+  kernel         the source as it is: NSTAGE = 3, a tile's P.V at hdv 128
+                 as one m64n128 product a part and k-step in one commit
+                 group, the producer warpgroup at 24 registers and the
+                 consumers at 240;
+  nstage_2       a ring of 2 K/V stages;
+  pv_n_64        P.V at hdv 128 as two 64-column products, the second
+                 issued once the first is added into the running sum;
+  producer_40    the producer at 40 registers, the consumers at 232.
+With ``--parent DIR`` the flash source and sm90.cuh in DIR (another
+commit's csrc/, unpacked with git archive) are built as ``parent`` and
+timed against ``kernel`` also at gpt2-small's hd-64 shapes (causal and
+not) and a ragged GQA shape, in turns parent, kernel, kernel, parent.
+
 Each is built with the package's own nvcc flags into
 build/kernels/variants/, called through the same C entry as the kernel,
 held against the plain version at 2^-7 of each element (plus 1e-6 of the
-largest) and timed with CUDA events, in turns (kernel, variants, then
-kernel again). Prints one JSON line per variant and writes
+largest), compared with the kernel's output bit for bit, and timed per call
+with CUDA events while the card is held busy until the call is enqueued
+(the median of 20: the card's time, not the host's). ``--trace`` also
+builds a copy of the kernel that records clock64 at the phases of each
+consumer warpgroup's main loop in the first four blocks (the heaviest query
+tiles) and prints the median cycles of each phase over their middle tiles.
+Prints one JSON line per variant and writes
 chiprun_out/flash_hd128_variants.json.
 """
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import json
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -34,47 +51,204 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-BOUNDS = "__global__ void __launch_bounds__(THREADS, 1)"
+# P.V at hdv 128 as two products of PN = 64 columns: the second issued (over
+# V's second sub-tile) once the first is added into acc
+PV_N_64 = [("    float pv[HDV / 2];                 // a tile's P.V\n",
+            "    constexpr int PN = HDV < 64 ? HDV : 64;  // columns of one P.V product\n"
+            "    float pv[PN / 2];\n"),
+           (re.compile(r"    auto issue_pv = \[&\]\(int t\) \{.*?(?=    auto full_parity)", re.S),
+            """    auto issue_pv = [&](int t, int c = 0) {
+      const uint64_t v_desc =
+          make_desc<V::span>(v_s + (t % NSTAGE) * L::v_bytes, L::v_sub, 8 * VROW);
+#pragma unroll
+      for (int i = PARTS - 1; i >= 0; --i) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<PN>(pv, pp[i][kk],
+                       v_desc + ((c * (PN / V::span) * L::v_sub + 16 * kk * VROW) >> 4),
+                       i < PARTS - 1 || kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto finish_pv = [&](int t) {
+#pragma unroll
+      for (int c = 0; c < HDV / PN; ++c) {
+        if (c > 0) {
+          wgmma_fence();
+          issue_pv(t, c);
+        }
+        wgmma_wait_group<0>();
+        fence_regs(pv);
+#pragma unroll
+        for (int j = 0; j < PN / 8; ++j) {
+          const int a = 4 * (c * PN / 8 + j);
+          acc[a + 0] = fmaf(acc[a + 0], corr_a, pv[4 * j + 0]);
+          acc[a + 1] = fmaf(acc[a + 1], corr_a, pv[4 * j + 1]);
+          acc[a + 2] = fmaf(acc[a + 2], corr_b, pv[4 * j + 2]);
+          acc[a + 3] = fmaf(acc[a + 3], corr_b, pv[4 * j + 3]);
+        }
+        fence_regs(acc);
+      }
+#pragma unroll
+      for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);
+      mbar_arrive(empty_bar(t % NSTAGE));
+    };
+""")]
 VARIANTS = {
     "kernel": [],
-    "maxnreg_224": [(BOUNDS, "__global__ void __maxnreg__(224)")],
+    "nstage_2": [("constexpr int NSTAGE = 3;", "constexpr int NSTAGE = 2;")],
+    "pv_n_64": PV_N_64,
+    "producer_40": [("constexpr int PRODUCER_REGS = 24;", "constexpr int PRODUCER_REGS = 40;")],
 }
-SHAPE = (8, 1024, 32, 8, 128)  # B, S, H, K, hd: qwen3-4b's prefill
+# the trace: clock64 at the phases of the consumers' main loop (one record
+# per block < 4, warpgroup and tile < 24), written by lane 0 of each
+# warpgroup's first warp, read through fa_trace_get
+TRACE_PHASES = ["wait K/V", "issue S and P.V", "wait S", "softmax", "wait and add P.V",
+                "split P"]
+TRACE = [("namespace {\n\nusing namespace sm90;",
+          "__device__ unsigned long long fa_trace[4][2][24][8];\n"
+          "extern \"C\" int fa_trace_get(void* dst) {\n"
+          "  return cudaMemcpyFromSymbol(dst, fa_trace, sizeof(fa_trace));\n}\n"
+          "#define TR(i) if (threadIdx.x % 128 == 0 && blockIdx.x < 4 && t < 24) "
+          "fa_trace[blockIdx.x][wg][t][i] = clock64();\n"
+          "namespace {\n\nusing namespace sm90;"),
+         ("    for (int t = 1; t < nvisit; ++t) {\n",
+          "    for (int t = 1; t < nvisit; ++t) {\n      TR(0);\n"),
+         ("      wgmma_fence();\n      issue_qk(t);", "      TR(1);\n      wgmma_fence();\n"
+          "      issue_qk(t);"),
+         ("      wgmma_wait_group<1>();  // S_t", "      TR(2);\n      wgmma_wait_group<1>();"),
+         ("      float ca, cb;", "      TR(3);\n      float ca, cb;"),
+         ("      finish_pv(t - 1);", "      TR(4);\n      finish_pv(t - 1);\n      TR(5);"),
+         ("      split_p();\n    }", "      split_p();\n      TR(6);\n    }")]
+# (name, B, S, H, K, hd, hdv, causal); the variants run the first two, the
+# parent all of them
+SHAPES = [("qwen3_hd128", 8, 1024, 32, 8, 128, 128, True),
+          ("deepseek_mla", 8, 1024, 16, 16, 192, 128, True),
+          ("main", 8, 1024, 12, 12, 64, 64, True),
+          ("main_noncausal", 8, 1024, 12, 12, 64, 64, False),
+          ("gqa_ragged", 2, 1000, 8, 2, 64, 64, True)]
 
 
-def build(name, subs, out_dir):
+def build(name, source, header, out_dir):
+    """(C entry or None, ptxas report or the compiler's error)"""
     from repro_torch.kernels import build as kb
-    src = (kb.CSRC / "flash_attention_fwd.cu").read_text()
-    for old, new in subs:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the kernel no longer has {old!r}")
-        src = src.replace(old, new)
+    from repro_torch.kernels import flash_attention as fa
     d = out_dir / name
     d.mkdir(parents=True, exist_ok=True)
-    (d / "flash_attention_fwd.cu").write_text(src)
-    (d / "sm90.cuh").write_text((kb.CSRC / "sm90.cuh").read_text())
-    cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(d / "lib.so"),
-           str(d / "flash_attention_fwd.cu")]
+    (d / "flash_attention_fwd.cu").write_text(source)
+    (d / "sm90.cuh").write_text(header)
+    cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "flash_attention_fwd.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    (d / "ptxas.txt").write_text(proc.stderr)
     if proc.returncode:
         return None, proc.stderr[-3000:]
-    from repro_torch.kernels import flash_attention as fa
-    lib = ctypes.CDLL(str(d / "lib.so"))
-    fn = lib.fa_fwd
+    fn = ctypes.CDLL(str(d / "lib.so")).fa_fwd
     fn.argtypes = fa.BF16_ARGTYPES
     fn.restype = ctypes.c_int
-    # registers and spills of the hd-128 instantiation
-    report, keep = [], False
-    for line in proc.stderr.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            keep = "fa_fwd_tcILi128ELi128EE" in m.group(1)
-        elif keep and ("spill" in line or "Used" in line):
-            report.append(line.split(":", 1)[-1].strip())
-    return fn, " ".join(report)
+    return fn, proc.stderr
+
+
+def patch(text, name, subs):
+    """``text`` with each (old, new) of ``subs`` applied; old is a string or
+    a compiled pattern and must occur exactly once."""
+    for old, new in subs:
+        pattern = old if isinstance(old, re.Pattern) else re.compile(re.escape(old))
+        if len(pattern.findall(text)) != 1:
+            raise SystemExit(f"variant {name}: the kernel no longer has {pattern.pattern!r} once")
+        text = pattern.sub(lambda _: new, text)
+    return text
+
+
+def sources(parent, trace):
+    from repro_torch.kernels import build as kb
+    src = (kb.CSRC / "flash_attention_fwd.cu").read_text()
+    header = (kb.CSRC / "sm90.cuh").read_text()
+    out = {name: (patch(src, name, subs), header)
+           for name, subs in {**VARIANTS, **({"trace": TRACE} if trace else {})}.items()}
+    if parent:
+        out["parent"] = ((parent / "flash_attention_fwd.cu").read_text(),
+                         (parent / "sm90.cuh").read_text())
+    return out
+
+
+def design_report(report, library):
+    """Per bf16 build: registers, spills and the setmaxnreg and HGMMA
+    instructions in its SASS; and any wgmma that ptxas serialised."""
+    from repro_torch.kernels import report as kreport
+    return {"builds": kreport.bf16_flash_design(report, kreport.sass_functions(library)),
+            "wgmma_serialized": kreport.wgmma_serialized(report)}
+
+
+def held_ms(fn, iters=20, warmup=3):
+    """Median ms of ``iters`` calls, CUDA events around each, the card held
+    busy (torch.cuda._sleep) until the call is enqueued: the card's time
+    alone, also for a kernel shorter than its own enqueueing."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def make_inputs(gen, B, S, H, K, hd, hdv):
+    """q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hdv) in bf16; with hdv != hd, v
+    is MLA's strided view: the last hdv columns of a (B,S,K,2 hdv) tensor."""
+    import torch
+    q, k = (torch.randn(B, S, h, hd, generator=gen, device="cuda").bfloat16() for h in (H, K))
+    if hdv == hd:
+        return q, k, torch.randn(B, S, K, hd, generator=gen, device="cuda").bfloat16()
+    return q, k, torch.randn(B, S, K, 2 * hdv, generator=gen, device="cuda").bfloat16()[..., hdv:]
+
+
+def worst_ratio(got, want):
+    """The largest |got - want| over 2^-7 |want| + 1e-6 max|want|."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    return float((diff / (1e-6 * mag.max() + 2.0 ** -7 * mag)).max())
+
+
+def trace(lib, fn, call, q, k, v, causal):
+    """Median cycles of each phase of a consumer warpgroup's main loop, and
+    of a whole tile, over the middle tiles of the first four blocks."""
+    import numpy as np
+    get = lib.fa_trace_get
+    get.argtypes, get.restype = [ctypes.c_void_p], ctypes.c_int
+    import torch
+    call(fn, q, k, v, causal)
+    torch.cuda.synchronize()
+    buf = np.zeros((4, 2, 24, 8), np.uint64)
+    if get(buf.ctypes.data):
+        raise RuntimeError("reading the trace failed")
+    a = buf.astype(np.int64)
+    phases = {name: [] for name in TRACE_PHASES + ["tile"]}
+    for blk in range(4):
+        for wg in range(2):
+            ts = [t for t in range(1, 24) if a[blk, wg, t, 6] > a[blk, wg, t, 0] > 0]
+            for t in ts[1:-1]:  # the middle tiles, past the ring's filling
+                for i, name in enumerate(TRACE_PHASES):
+                    phases[name].append(int(a[blk, wg, t, i + 1] - a[blk, wg, t, i]))
+                if t + 1 in ts:
+                    phases["tile"].append(int(a[blk, wg, t + 1, 0] - a[blk, wg, t, 0]))
+    return {name: statistics.median(v) for name, v in phases.items() if v}
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--build-only", action="store_true",
+                    help="build and report ptxas and SASS; launch nothing")
+    ap.add_argument("--parent", type=Path, help="another commit's csrc/ to time beside")
+    ap.add_argument("--trace", action="store_true",
+                    help="also record the cycles of each phase of the main loop")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("flash_hd128_variants: no CUDA device", file=sys.stderr)
@@ -82,61 +256,82 @@ def main():
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attention as fa
     out_dir = kb.BUILD_DIR / "variants"
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(lambda kv: build(*kv, out_dir), VARIANTS.items())))
-
-    B, S, H, K, hd = SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(B, S, h, hd, generator=gen, device="cuda").bfloat16()
-               for h in (H, K, K))
-    want = fa.flash_attention_fwd_plain(q, k, v, causal=True)
-
-    def call(fn):
-        out = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K, hd, hd,
-                 v.stride(2), v.stride(1), v.stride(0), 1, 1.0 / hd ** 0.5,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"launch failed ({err})")
-        return out
-
-    def time_ms(f, iters=20):
-        for _ in range(3):
-            f()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            f()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
+    srcs = sources(args.parent, args.trace)
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        built = dict(zip(srcs, pool.map(lambda kv: build(kv[0], *kv[1], out_dir), srcs.items())))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     rows = {}
-    for name in [*VARIANTS, "kernel"]:
-        fn, report = built[name]
-        row = rows.setdefault(name, {"ptxas": report, "ms": []})
-        if fn is None:
-            row["error"] = "build failed: " + report
-            continue
-        try:
-            got = call(fn)
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            row["error"] = str(e)
-            continue
-        diff = (got.float() - want.float()).abs()
-        mag = want.float().abs()
-        row["worst_ratio"] = float((diff / (1e-6 * mag.max() + 2.0 ** -7 * mag)).max())
-        row["ms"].append(time_ms(lambda fn=fn: call(fn)))
-    for name, row in rows.items():
-        print(json.dumps({"variant": name, **row}), flush=True)
+    for name, (fn, report) in built.items():
+        rows[name] = {"error": "build failed: " + report} if fn is None else \
+            design_report(report, out_dir / name / "lib.so")
+        print(json.dumps({"variant": name, **rows[name]}), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "flash_hd128_variants.json").write_text(json.dumps(
-        {"card": smi, "shape": SHAPE, "variants": rows}, indent=1))
+    record = {"card": smi, "shapes": SHAPES, "variants": rows}
+    if not args.build_only:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        inputs = {}
+        for name, B, S, H, K, hd, hdv, causal in SHAPES:
+            q, k, v = make_inputs(gen, B, S, H, K, hd, hdv)
+            want = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+            inputs[name] = (q, k, v, causal, want)
+
+        def call(fn, q, k, v, causal):
+            B, S, H, hd = q.shape
+            o = q.new_empty((B, S, H, v.shape[3]))
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, k.shape[2],
+                     hd, v.shape[3], v.stride(2), v.stride(1), v.stride(0), int(causal),
+                     1.0 / hd ** 0.5, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed ({err})")
+            return o
+
+        names = [n for n in built if built[n][0] is not None and n != "trace"]
+        # every variant at the wide shapes; the parent everywhere
+        plan = {n: [s[0] for s in SHAPES[:2]] for n in names}
+        if "parent" in plan:
+            plan["parent"] = plan["kernel"] = [s[0] for s in SHAPES]
+        reference = {}
+        for name in names:
+            row = rows[name]
+            row["cases"] = {}
+            for shape in plan[name]:
+                q, k, v, causal, want = inputs[shape]
+                try:
+                    got = call(built[name][0], q, k, v, causal)
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    row["cases"][shape] = {"error": str(e)}
+                    continue
+                case = {"worst_ratio": worst_ratio(got, want), "ms": []}
+                if name == "kernel":
+                    reference[shape] = got
+                elif shape in reference:
+                    case["bits_equal_kernel"] = bool(torch.equal(got, reference[shape]))
+                row["cases"][shape] = case
+        # timing in turns: each variant between two readings of the kernel
+        # (parent: parent, kernel, kernel, parent)
+        order = [n for n in names if n != "kernel"]
+        sequence = ["kernel"]
+        for n in order:
+            sequence += [n, "kernel"] if n != "parent" else ["parent", "kernel", "kernel", "parent"]
+        for name in sequence:
+            for shape in plan[name]:
+                case = rows[name].get("cases", {}).get(shape, {})
+                if "ms" not in case:
+                    continue
+                q, k, v, causal, _ = inputs[shape]
+                fn = built[name][0]
+                case["ms"].append(held_ms(lambda: call(fn, q, k, v, causal)))
+        for name in names:
+            print(json.dumps({"variant": name, "cases": rows[name]["cases"]}), flush=True)
+        if args.trace and built["trace"][0] is not None:
+            lib = ctypes.CDLL(str(out_dir / "trace" / "lib.so"))
+            record["trace"] = {shape: trace(lib, built["trace"][0], call, *inputs[shape][:4])
+                               for shape in plan["kernel"][:2]}
+            print(json.dumps({"trace": record["trace"]}), flush=True)
+    (out / "flash_hd128_variants.json").write_text(json.dumps(record, indent=1))
     print(smi, flush=True)
     return 0
 
