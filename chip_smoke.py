@@ -14,12 +14,15 @@ Phases:
          xlstm-350m (the 2048x4 gate matrices, the r_gates stack at L =
          48) and the 10 of jamba cut to layers 3-4 (the expert stacks at L
          = 17, x_proj 8192x288; 17x4096x28672 in the main path's types
-         only and without the bit-for-bit checks), fp32 and bf16
+         only and without the bit-for-bit checks) and paligemma-3b's tied
+         embedding 1x257280x2048 (the two-sweep path: its slab exceeds a
+         cluster's shared memory), fp32 and bf16
          momentum, bf16 weights (the main
          path's), and for the apply kernel also fp32 weights, whose update
          w_new - w is held against the plain version's at its own
          magnitude; per bucket its time, bound, rate, split (K, R, C) and
-         path, failing if a bucket takes the two-sweep path; bit for bit,
+         path, failing if a bucket but paligemma's embedding takes the
+         two-sweep path (or that one does not); bit for bit,
          a stacked launch against its slices launched alone (both forms)
          and, in fp32, apply against precondition followed by the two-pass
          engine's eager ops; the ptxas report of each instantiation;
@@ -34,13 +37,16 @@ Phases:
          129}; bf16 also at MLA's q/k 192, v 128 with v a strided column
          slice: deepseek-v2-lite's prefill shape (B=8 S=1024 H=K=16) causal
          and not, a ragged S causal and not, and S in {1, 63, 65, 129},
-         each also against a contiguous copy of v bit for bit; two
+         each also against a contiguous copy of v bit for bit; bf16 also
+         at hd 256: paligemma-3b's prefill shape (B=8 S=1024 H=8 K=1)
+         causal (timed) and not, a ragged S=1000 (timed) and S in {1, 63,
+         65, 129}, and 20 seeds of the prefill shape; two
          launches must give the same bits; 40 seeds of a
          non-causal S=1000 GQA head must all hold the limit in each type
-         (20 more at hd 128 and 20 at (192, 128) in bf16); the ptxas
-         report of both kernels is printed, and cuobjdump must find HGMMA
-         in each instantiation of each (bf16 (hd, hdv) (16, 16) to
-         (128, 128) and (192, 128), fp32 hd 16-64); every bf16 build must
+         (20 more at hd 128, 20 at (192, 128) and 20 at hd 256 in bf16); the
+         ptxas report of both kernels is printed, and cuobjdump must find
+         HGMMA in each instantiation of each (bf16 (hd, hdv) (16, 16) to
+         (128, 128), (192, 128) and (256, 256), fp32 hd 16-64); every bf16 build must
          spill nothing, hold USETMAXREG (its producer warpgroup's
          registers go to the consumers) and have no wgmma that ptxas
          serialised, and its registers and spills go on the kernels line
@@ -142,6 +148,23 @@ Phases:
          layer; 3,678,941,184 parameters) trained as X1 (10 apply launches
          a step, the expert stacks at L = 17), two runs bit for bit, one
          step profiled;
+  P      paligemma-3b at full width and depth (18 layers, hd 256 with H=8
+         on K=1, the tied 257280x2048 embedding; 2,508,793,856 parameters;
+         bf16, seed 0): P1-P3 serve B=8 prompts of 1024 positions whose
+         first 256 are image embeddings (launch/serve.prompt_batch, drawn
+         from seed 1), 128 new tokens, as S serves qwen3-4b: the flash
+         prefill (18 launches of the hd-256 kernel, counted) against dense
+         and a non-causal control, the first 16 decode steps against a
+         teacher-forced dense forward with the same image embeddings and a
+         pos + 1 control, each within S's tolerance and each control
+         outside it; prefill and decode ms, tokens/s, peak memory; P4
+         trains it with single-pass RMNP as J2 (B=8, S=1024, 2 steps, 5
+         apply launches a step, two runs bit for bit, one step profiled);
+  G      musicgen-large the same way (48 layers, hd 64 with H=K=32;
+         3,229,812,736 parameters): G1-G3 serve from 1024 audio frames a
+         request (48 flash launches a prefill); G2's forced forward takes
+         the prompt's frames followed by the generated tokens' embeddings;
+         G4 trains it (3 apply launches a step);
   R      checkpointing and the non-finite guard on llama-130m at full width
          (B=8, S=1024, bf16, single-pass RMNP, 6 steps of
          repro_torch.launch.train.train, 5 apply launches a step):
@@ -223,6 +246,13 @@ XLSTM_BUCKETS = [(48, 256, 1024), (36, 1024, 4096), (1, 1024, 50432), (24, 2048,
 J2_BUCKETS = [(1, 4096, 16), (2, 4096, 1024), (2, 4096, 4096), (1, 4096, 16384),
               (17, 4096, 28672), (1, 4096, 65536), (1, 8192, 288), (1, 8192, 4096),
               (17, 14336, 4096), (1, 65536, 4096)]
+# paligemma-3b (phase P4): 5 buckets, its tied embedding 257280x2048 the
+# largest (527 M elements; phase A times it, the only bucket on the RMNP
+# kernel's two-sweep path); musicgen-large (phase G4): 3
+# buckets, the embedding and the untied head in the 2048x2048 stack at L = 194
+P_BUCKETS = [(1, 257280, 2048), (18, 2048, 32768), (18, 16384, 2048), (36, 2048, 256),
+             (36, 2048, 2048)]
+G_BUCKETS = [(48, 2048, 16384), (48, 8192, 2048), (194, 2048, 2048)]
 # Phase A runs a bucket above this many elements in the main path's types
 # only (fp32 momentum, bf16 weights) and without the bit-for-bit checks,
 # which hold several fp32 copies of it: jamba's 17x4096x28672 (2.0 G).
@@ -414,18 +444,24 @@ def phase_rmnp():
                       "plain_ms": 0.0, "bound_ms": 0.0,
                       **{other: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                  "max_abs_err": 0.0}
-                    for other in ("llama", "deepseek", "xlstm", "jamba")}}
+                    for other in ("llama", "deepseek", "xlstm", "jamba", "paligemma")}}
                for name in kernels}
     others = {"llama-130m": "llama", "deepseek-v2-lite-16b-3L": "deepseek",
-              "xlstm-350m": "xlstm", "jamba-v0.1-52b-2L": "jamba"}
+              "xlstm-350m": "xlstm", "jamba-v0.1-52b-2L": "jamba",
+              "paligemma-3b-embedding": "paligemma"}
     for model, shape in ([("gpt2-small", b) for b in BUCKETS]
                          + [("llama-130m", b) for b in LLAMA_BUCKETS]
                          + [("deepseek-v2-lite-16b-3L", b) for b in DS_BUCKETS]
                          + [("xlstm-350m", b) for b in XLSTM_BUCKETS]
-                         + [("jamba-v0.1-52b-2L", b) for b in J2_BUCKETS]):
+                         + [("jamba-v0.1-52b-2L", b) for b in J2_BUCKETS]
+                         + [("paligemma-3b-embedding", P_BUCKETS[0])]):
         layout = rm.split(*shape[1:])
         path = "one-read" if layout.one_read else "two-sweep"
-        check(layout.one_read, f"rmnp {shape}: split {layout} takes the two-sweep path")
+        # every bucket on the one-read path but paligemma's embedding, whose
+        # 257280-row slab exceeds a 16-block cluster's shared memory even
+        # at 8 columns (rm.split): it must take the two-sweep path
+        check(layout.one_read == (model != "paligemma-3b-embedding"),
+              f"rmnp {shape}: split {layout} takes the {path} path")
         full_checks = math.prod(shape) <= A_FULL_CHECKS_MAX
         for vdt, wdt in (combos if full_checks else combos[:1]):
             g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
@@ -629,6 +665,13 @@ def phase_attention():
               ("ragged_mla_noncausal", 2, 1000, 16, 16, 192, bf16, False, False, 128)]
     cases += [(f"s{S}_mla", 2, S, 16, 16, 192, bf16, True, False, 128)
               for S in (1, 63, 65, 129)]
+    # bf16 at hd 256, paligemma-3b's heads (H = 8 on K = 1): its prefill
+    # shape causal (timed, row 3 hd 256) and not, the ragged S (timed), and S
+    # around the tiles' edges
+    cases += [("paligemma_hd256", 8, 1024, 8, 1, 256, bf16, True, True),
+              ("paligemma_hd256_noncausal", 8, 1024, 8, 1, 256, bf16, False, False),
+              ("ragged_hd256", 2, 1000, 8, 1, 256, bf16, True, True)]
+    cases += [(f"s{S}_hd256", 2, S, 8, 1, 256, bf16, True, False) for S in (1, 63, 65, 129)]
     cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
               ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
               ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
@@ -705,7 +748,7 @@ def phase_attention():
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
-    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla"):
+    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla", "paligemma_hd256"):
         q, k, v, causal = inputs[name]
         a = fa.flash_attention_fwd_kernel(q, k, v)
         b = fa.flash_attention_fwd_kernel(q, k, v)
@@ -746,9 +789,25 @@ def phase_attention():
 
     stress = {"bf16": seeds_over_limit(bf16), "fp32": seeds_over_limit(fp32),
               "bf16_hd128": seeds_over_limit(bf16, n=20, hd=128),
-              "bf16_hd192_hdv128": seeds_over_limit(bf16, n=20, hd=192, hdv=128, kv_heads=4)}
+              "bf16_hd192_hdv128": seeds_over_limit(bf16, n=20, hd=192, hdv=128, kv_heads=4),
+              "bf16_hd256": seeds_over_limit(bf16, n=20, hd=256, kv_heads=1)}
     check(all(r["over_limit"] == 0 for r in stress.values()),
           f"attention: the non-causal seed sweep missed the limit {stress}")
+    # hd 256 at paligemma's prefill shape (B=8, S=1024, H=8, K=1, causal),
+    # 20 seeds, every element of each held at the limit
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ratios = []
+    for _ in range(20):
+        q, k, v = attention_inputs(g, 8, 1024, 8, 1, 256, bf16)
+        got = fa.flash_attention_fwd_kernel(q, k, v, causal=True)
+        ratios.append(elementwise_err(got, fa.flash_attention_fwd_plain(q, k, v, causal=True),
+                                      rtol[bf16])[1])
+    del q, k, v, got
+    stress["bf16_hd256_paligemma_prefill"] = {
+        "seeds": 20, "reference": "plain", "over_limit": sum(r > 1.0 for r in ratios),
+        "worst_ratio": max(ratios)}
+    check(stress["bf16_hd256_paligemma_prefill"]["over_limit"] == 0,
+          f"attention: hd 256 at paligemma's prefill shape missed the limit {ratios}")
     ptxas, hgmma = {}, {}
     for lib, kernel, dt in (("flash_attention_fwd", "fa_fwd_tc", bf16),
                             ("flash_attention_fwd_tf32", "fa_fwd_tf32_kernel", fp32)):
@@ -2795,6 +2854,241 @@ def phase_jamba_serve():
     return serve_launches
 
 
+P_ARCH, G_ARCH = "paligemma-3b", "musicgen-large"
+# Phases P and G serve each frontend model at full width and depth as phase
+# S serves qwen3-4b (B requests of a T-position prompt, N new tokens, the
+# first F teacher-forced) and train it whole as J2 trains jamba's cut (both
+# fit 80 GB at full depth: 53.98 and 51.25 GiB at peak, PERF.md)
+F_BATCH, F_PROMPT, F_TOKENS, F_FORCED = 8, 1024, 128, 16
+F_TRAIN_BATCH, F_TRAIN_SEQ, F_TRAIN_STEPS = 8, 1024, 2
+# P1/P2 and G1/G2 hold the flash prefill against the dense one and decode
+# against a teacher-forced dense forward under S's tolerance, for S's
+# reasons (bf16 rounding carried through 18 and 48 layers); each control (a
+# non-causal prefill; decoding at pos + 1) must land outside it.
+F_LOGIT_TOL = S_LOGIT_TOL
+
+
+def forced_batch(cfg, params, prompt, generated):
+    """The prompt batch with the generated tokens appended, for a
+    teacher-forced forward: paligemma's tokens (its image embeddings kept
+    in front); musicgen's frames followed by the generated tokens' own
+    embeddings, since a forward given frames reads nothing else, and that
+    is what its decode steps embedded."""
+    import torch
+    if cfg.frontend == "audio_frames":
+        frames = prompt["frames"].to(params["embed"]["tokens"].dtype)
+        return {"frames": torch.cat([frames, params["embed"]["tokens"][generated.long()]], 1)}
+    return {"tokens": torch.cat([prompt["tokens"], generated.long()], dim=1),
+            "vision_embeds": prompt["vision_embeds"]}
+
+
+def frontend_serve(arch, tag):
+    """Serve ``arch`` at full width and depth (bf16, seed 0, F_BATCH
+    requests of F_PROMPT positions, F_TOKENS new tokens) through
+    launch/serve.serve with a prompt batch that carries its frontend array
+    (``prompt_batch``, seed 1). <tag>1 the flash prefill (one launch a layer,
+    counted) against the dense one, with the non-causal control; <tag>2 the
+    first F_FORCED decode steps' logits against a teacher-forced dense
+    forward over the same frontend input, with the pos + 1 control; <tag>3
+    prefill ms per mode, decode ms a step, tokens per second, peak memory.
+    Returns the flash launches of a served batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_paths
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import place_cache, prompt_batch, serve
+    from repro_torch.models import init_params, layers
+    from repro_torch.models.model import forward, init_cache, lm_head
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    base = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(base, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = prompt_batch(base, F_BATCH, F_PROMPT, 1, "cuda")
+    n_params = sum(t.numel() for _, t in tree_paths(params))
+    real = slice(0, base.vocab)
+
+    def rel(a, b):
+        a, b = a[..., real].float(), b[..., real].float()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    common = dict(full=True, batch=F_BATCH, prompt_len=F_PROMPT, attn_impl="pallas",
+                  params=params, prompts=prompt)
+    serve(arch, tokens=4, **common)
+    runs = {}
+    for run, keep in (("timed", False), ("checked", True)):
+        torch.cuda.empty_cache()
+        reset_launches()
+        runs[run] = serve(arch, tokens=F_TOKENS, keep_logits=keep, **common)
+        launches = LAUNCHES["flash_attention_fwd"]
+        check(launches == base.num_layers,
+              f"{tag} ({run}): {launches} flash launches in a served batch, "
+              f"want {base.num_layers}")
+    checked, res = runs["checked"], runs["timed"]
+    del runs
+    seqs = checked["tokens"]
+    check(seqs.shape == (F_BATCH, F_TOKENS) and int(seqs.min()) >= 0
+          and int(seqs.max()) < base.vocab, f"{tag}: generated tokens {seqs.shape}")
+    check(torch.equal(seqs, res["tokens"]),
+          f"{tag}: the checked run's tokens differ from the timed run's")
+    check(all(torch.isfinite(x.float()).all().item() for x in checked["logits"]),
+          f"{tag}: non-finite logits")
+
+    # <tag>1: the prefill in each mode from the same parameters and prompt
+    dense_attention = layers.attention
+    last, prefill_ms, launches = {}, {}, {}
+    for run in ("pallas", "dense", "control"):
+        cfg = dataclasses.replace(base, attn_impl="dense" if run == "control" else run)
+        step = make_prefill_step(cfg)
+        if run == "control":
+            layers.attention = lambda q, k, v, causal=True, **kw: dense_attention(
+                q, k, v, False, **kw)
+        try:
+            reset_launches()
+            last[run] = step(params, prompt)[0]
+            launches[run] = LAUNCHES["flash_attention_fwd"]
+            if run != "control":
+                prefill_ms[run] = per_call_ms(lambda st=step: st(params, prompt), iters=5,
+                                              warmup=1)
+        finally:
+            layers.attention = dense_attention
+        torch.cuda.empty_cache()
+    check(launches == {"pallas": base.num_layers, "dense": 0, "control": 0},
+          f"{tag}1: flash launches per prefill {launches}")
+    p1 = rel(last["pallas"], last["dense"])
+    p1_control = rel(last["control"], last["dense"])
+    agree = float((last["pallas"][:, real].argmax(-1) == last["dense"][:, real].argmax(-1))
+                  .float().mean())
+    check(torch.equal(last["pallas"], checked["logits"][0]),
+          f"{tag}1: the served prefill's logits differ from the prefill step's")
+
+    # <tag>2: teacher-force the prompt and the first F_FORCED generated tokens
+    dense_cfg = dataclasses.replace(base, attn_impl="dense")
+    with torch.no_grad():
+        hidden = forward(dense_cfg, params, forced_batch(base, params, prompt,
+                                                         seqs[:, :F_FORCED]),
+                         "train", return_hidden=True)[0]
+        want = hidden[:, F_PROMPT:F_PROMPT + F_FORCED] @ lm_head(base, params)
+    del hidden
+    got = torch.stack(checked["logits"][1:F_FORCED + 1], dim=1)
+    p2 = rel(got, want)
+    _, pc = make_prefill_step(dense_cfg)(params, prompt)
+    cache = place_cache(init_cache(dense_cfg, F_BATCH, F_PROMPT + F_TOKENS + 1,
+                                   device="cuda"), pc)
+    del pc
+    serve_step = make_serve_step(dense_cfg)
+    shifted = []
+    for i in range(F_FORCED):
+        _, lg, cache = serve_step(params, cache, seqs[:, i:i + 1], F_PROMPT + i + 1)
+        shifted.append(lg[:, 0])
+    p2_control = rel(torch.stack(shifted, dim=1), want)
+    del cache, shifted, want, got, checked
+    torch.cuda.empty_cache()
+
+    decode = res["decode_ms"]
+    card = card_name()
+    record = {
+        "card": card, "config": f"{arch}, full width and depth", "params": n_params,
+        "batch": F_BATCH, "prompt_len": F_PROMPT, "new_tokens": F_TOKENS,
+        "frontend": {k: list(v.shape) for k, v in prompt.items()}, "init_s": init_s,
+        f"{tag}1_logits_rel_flash_vs_dense": p1, f"{tag}1_logits_rel_control": p1_control,
+        f"{tag}1_greedy_agreement": agree, f"{tag}2_logits_rel_decode_vs_forced": p2,
+        f"{tag}2_logits_rel_control": p2_control, "tolerance": F_LOGIT_TOL,
+        "flash_launches_per_prefill": launches["pallas"],
+        "prefill_ms": {run: summary_ms(ms) for run, ms in prefill_ms.items()},
+        "prefill_samples_ms": prefill_ms,
+        "served_prefill_ms": res["prefill_ms"], "place_ms": res["place_ms"],
+        "decode_ms_per_step": summary_ms(decode), "decode_steps": len(decode),
+        "decode_samples_ms": decode, "decode_tokens_per_s": res["decode_tokens_per_s"],
+        "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+        "peak_mem_gb": res["peak_bytes"] / 2**30, "tokens_head": seqs[:, :8].tolist()}
+    emit(f"{tag}_serve_{arch.replace('-', '_').replace('.', '_')}", record)
+    d = record["decode_ms_per_step"]
+    print(f"{tag}3 ({card}): {arch} {n_params} parameters; prefill flash "
+          f"{record['prefill_ms']['pallas']['median']:.2f} ms, dense "
+          f"{record['prefill_ms']['dense']['median']:.2f} ms; decode {d['median']:.3f} ms a "
+          f"step ({d['min']:.3f}-{d['max']:.3f}); {res['decode_tokens_per_s']:.1f} decode "
+          f"tokens/s; peak {record['peak_mem_gb']:.2f} GiB", flush=True)
+    print(f"{tag}1/{tag}2: flash vs dense {p1:.3e} (control {p1_control:.3e}); decode vs "
+          f"forced {p2:.3e} (control {p2_control:.3e}); tolerance {F_LOGIT_TOL}", flush=True)
+    check(p1 <= F_LOGIT_TOL, f"{tag}1: flash prefill logits {p1} from dense > {F_LOGIT_TOL}")
+    check(p1_control > F_LOGIT_TOL,
+          f"{tag}1: the non-causal control is only {p1_control} from dense, inside "
+          f"the tolerance {F_LOGIT_TOL}")
+    check(p2 <= F_LOGIT_TOL,
+          f"{tag}2: decode logits {p2} from the forced forward > {F_LOGIT_TOL}")
+    check(p2_control > F_LOGIT_TOL,
+          f"{tag}2: decoding at pos + 1 is only {p2_control} from the forced forward, "
+          f"inside the tolerance {F_LOGIT_TOL}")
+    del params, res, last, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["pallas"]
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's expandable segments for the enclosed phase,
+    the default again after it. P4's second step asks for the 7.85 GiB fp32
+    logits of the 257280-column head while 25 GiB lie free in fixed
+    segments too small for it (46 GiB allocated): segments that grow in
+    place take the request. Only the allocator's layout changes."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
+
+
+def frontend_train(arch, tag, buckets, n_params):
+    """<tag>4: ``arch`` at full width and depth trained with single-pass
+    RMNP through launch.train.train (B=8, S=1024, bf16, seed 0; the data
+    stream's frontend arrays in each batch): 2 timed steps with one apply
+    launch a bucket, tokens/s, peak memory; a second run equal bit for bit;
+    one more step profiled."""
+    with expandable_segments():
+        rec, launches, params, _ = ssm_train(arch, "", F_TRAIN_STEPS, F_TRAIN_BATCH,
+                                             F_TRAIN_SEQ, len(buckets), tag)
+        del params
+    check(rec["params"] == n_params, f"{tag}: {rec['params']} parameters, want {n_params}")
+    check(sorted(rec["buckets"]) == sorted(f"{a}x{b}" for _, a, b in buckets),
+          f"{tag} buckets {rec['buckets']}")
+    rec["config"] = f"{arch}, full width and depth"
+    emit(f"{tag}_train_{arch.replace('-', '_')}", rec)
+    prof = rec["profile"] or {}
+    print(f"{tag} ({rec['card']}): steps {[round(s, 3) for s in rec['step_s']]} s, "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak {rec['peak_mem_gb']:.2f} GiB, "
+          f"{len(buckets)} apply launches a step; {prof.get('launches')} device ops a "
+          f"step, idle {rec['idle_share']}", flush=True)
+    return {"rmnp_apply": launches, "step_s": rec["step_s_median"]}
+
+
+def phase_paligemma():
+    """P: paligemma-3b at full width (18 layers, H = 8 on K = 1 at hd 256,
+    the tied 257280 x 2048 embedding; 2,508,793,856 parameters). P1-P3
+    serve it (the hd-256 flash kernel, 18 launches a prefill) with 256
+    image embeddings in front of each 1024-position prompt; P4 trains it."""
+    launches = frontend_serve(P_ARCH, "P")
+    return launches, frontend_train(P_ARCH, "P4", P_BUCKETS, 2_508_793_856)
+
+
+def phase_musicgen():
+    """G: musicgen-large at full width (48 layers, H = K = 32 at hd 64;
+    3,229,812,736 parameters). G1-G3 serve it from 1024 audio frames a
+    request (the hd-64 flash kernel, 48 launches a prefill); G4 trains it."""
+    launches = frontend_serve(G_ARCH, "G")
+    return launches, frontend_train(G_ARCH, "G4", G_BUCKETS, 3_229_812_736)
+
+
 def card_name():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -3091,6 +3385,8 @@ def main():
     phase_xlstm_serve()
     j1_launches = phase_jamba_serve()
     j2 = phase_jamba_train()
+    p_launches, p4 = phase_paligemma()
+    g_launches, g4 = phase_musicgen()
     llama_launches = phase_resilience()
     zero_launches = phase_zero()
 
@@ -3114,7 +3410,12 @@ def main():
          "xlstm_350m": rmnp["rmnp_apply"]["xlstm"], "launches_X1": x1["rmnp_apply"],
          "X1_optimizer_share": rmnp["rmnp_apply"]["xlstm"]["ms"] / 1e3 / x1["step_s"],
          "jamba_2_layers": rmnp["rmnp_apply"]["jamba"], "launches_J2": j2["rmnp_apply"],
-         "J2_optimizer_share": rmnp["rmnp_apply"]["jamba"]["ms"] / 1e3 / j2["step_s"]},
+         "J2_optimizer_share": rmnp["rmnp_apply"]["jamba"]["ms"] / 1e3 / j2["step_s"],
+         # paligemma-3b's tied embedding bucket 1x257280x2048 (phase A, fp32
+         # g and v, bf16 w) and the apply launches of P4's and G4's first
+         # runs (5 and 3 buckets a step)
+         "paligemma_embedding": rmnp["rmnp_apply"]["paligemma"],
+         "launches_P4": p4["rmnp_apply"], "launches_G4": g4["rmnp_apply"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
@@ -3142,6 +3443,19 @@ def main():
              "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get("hd192_128"),
              "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get("fa_fwd_tc_192_128")},
          "launches_M2": m2_launches,
+         # hd 256 at paligemma-3b's prefill shape (B=8, S=1024, H=8, K=1,
+         # causal), 18 launches a served prefill in P; musicgen-large's 48
+         # layers at hd 64 in G
+         "hd256": {**{k: attn_cases["paligemma_hd256"][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
+             "worst_ratio")},
+             "ragged": {k: attn_cases["ragged_hd256"][k] for k in (
+                 "kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                 "worst_ratio")},
+             "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get("hd256_256"),
+             "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get("fa_fwd_tc_256_256")},
+         "launches_P": p_launches, "launches_G": g_launches,
          # every bf16 build's registers, spill bytes and setmaxnreg/HGMMA
          # instructions (phase B: no spill, USETMAXREG beside HGMMA)
          "bf16_builds": RESULTS["B_attention"]["bf16_design"],

@@ -211,11 +211,6 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 _REGISTRY = {}
 
-# Architectures the JAX package defines whose families the port does not run
-# yet: the modality frontends (musicgen-large, paligemma-3b), ROADMAP Queue
-# 1, item 9c.
-NOT_PORTED = ("musicgen-large", "paligemma-3b")
-
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
@@ -223,18 +218,11 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _load():
-    from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_lite_16b, gpt2, jamba_v0_1_52b, llama_small, minicpm3_4b,
-        olmoe_1b_7b, phi3_mini_3_8b, qwen3_4b, xlstm_350m, yi_9b)
+    from repro_torch.configs import all_archs  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:
     _load()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1, item 9c: "
-            f"the frontend families); ported: "
-            f"{', '.join(list_configs())}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; ported: "
                        f"{', '.join(list_configs())}")

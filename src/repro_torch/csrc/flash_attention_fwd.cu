@@ -8,10 +8,11 @@
 // after the 1/sqrt(hd) scale; l is summed from the unrounded fp32 p; out
 // (B,S,H,hdv) = acc / (l + 1e-30) in bf16. Any S: the ragged edge is masked,
 // not padded. (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128)
-// (qwen3-4b's and yi-9b's) or (192, 128): MLA's q/k at nope 128 + rope 64
-// against its v at 128 (deepseek-v2-lite). v may be a strided view (MLA's v
-// is a column slice of the latent's up-projection): its head, row and batch
-// strides go into its tensor map.
+// (qwen3-4b's and yi-9b's), (192, 128): MLA's q/k at nope 128 + rope 64
+// against its v at 128 (deepseek-v2-lite), or (256, 256) (paligemma-3b's 8
+// query heads on one kv head). v may be a strided view (MLA's v is a column
+// slice of the latent's up-projection): its head, row and batch strides go
+// into its tensor map.
 //
 // Numbers. P.V keeps p to fp32 accuracy, as the TPU kernel's fp32 P.V does:
 // P is split into three bf16 parts, hi = bf16(p), mid = bf16(p - hi) and
@@ -38,6 +39,8 @@
 //   (192, 128), deepseek-v2-lite's prefill (B=8 S=1024 H=K=16 causal): 43.0
 //     GFLOP (0.043 ms) against 167.8 MB (0.050 ms); three-part 77.4 GFLOP,
 //     0.078 ms.
+//   hd 256, paligemma-3b's prefill (B=8 S=1024 H=8 K=1 causal): 34.4 GFLOP
+//     (0.035 ms) against 75.5 MB (0.023 ms); three-part 68.8 GFLOP, 0.070 ms.
 // The tensor cores bound every build that keeps the three parts.
 //
 // Layout. One block per (128-row query tile, query head, batch), three
@@ -48,7 +51,8 @@
 // 32, 32 B for hd 16); the wgmma descriptors name the same swizzle. A
 // swizzle span holds at most 64 bf16 values and TMA's box is at most one
 // span wide, so an hd-128 tile is two column halves of 64, each its own
-// swizzled sub-tile loaded by its own box, and an hd-192 tile three. S =
+// swizzled sub-tile loaded by its own box, an hd-192 tile three and an
+// hd-256 tile four. S =
 // Q.K^T takes Q and K K-major from shared memory (bf16 x bf16 products are
 // exact in fp32); the fp32 accumulator layout of S is the A-register layout
 // of P.V, so P never goes to shared memory, and V is the MN-major B operand
@@ -86,18 +90,39 @@
 //     take turns at issuing: with the overlap inside each warpgroup the
 //     turns gained nothing measurable (PERF.md).
 //  3. Loads late. With two stages a K/V tile was reloaded only after its
-//     P.V, and the next tile waited on it. NSTAGE = 3 stages keep a load one
-//     tile ahead: 32 + 3 x 32 = 128 KB at hd 128, 48 + 3 x 40 = 168 KB at
-//     (192, 128).
+//     P.V, and the next tile waited on it. Three stages (Layout::nstage)
+//     keep a load one tile ahead: 32 + 3 x 32 = 128 KB at hd 128, 48 + 3 x
+//     40 = 168 KB at (192, 128).
+//
+// hd 256 (paligemma-3b) on the same design, and what it changes. Shared
+// memory: a 512-byte row is four swizzled sub-tiles; the Q tile is 64 KB
+// and a K/V stage 64 KB, so three stages (256 KB) exceed the 227 KB a block
+// may use and the ring has two: 64 + 2 x 64 = 192 KB. Registers: a consumer
+// thread's running sum acc[] alone is 128 of its 240. The overlap of 2. holds
+// S_t (32) beside P_{t-1}'s three parts (48), and a whole-width P.V sum
+// would be 128 more: 336. So at hdv 256 P.V runs in four 64-column pieces
+// (Layout::pv_n), each into a fresh 32-register accumulator that is added
+// into acc before the next piece is issued, and each tile's S, softmax and
+// P.V run in turn (Layout::overlap off): 128 + 48 + 32 = 208, and S's 32
+// are dead while P.V runs. The overlap inside a warpgroup is given up; the
+// other consumer warpgroup's products fill the tensor cores meanwhile. A
+// split along hdv changes no element's order of sums. Alternatives timed
+// with tools/flash_hd128_variants.py at paligemma's prefill shape (PERF.md):
+// the overlap kept with 64-column pieces (240 registers of arrays) spills
+// 300 bytes and runs 10 % slower; P.V in halves in turn (240) spills 132
+// bytes, 3 % slower; 32-key tiles with the overlap and three stages (200)
+// spill nothing but run 8 % slower (m64n32 products, twice the softmax
+// passes a key); P's parts staged in shared memory do not fit beside two
+// stages (48 KB more).
 // What bounds it now (a clock64 trace of the main loop at hd 128, PERF.md):
 // a tile takes a consumer warpgroup about 3200 cycles against 2048 of the
 // block's tensor-core work at the peak rate; the issue of S and P.V waits on
 // the tensor cores, and the split of P (48 bf16 packs) and the softmax (34
 // exp2) share the SM's quarter-rate units with the other warpgroup's.
 // tools/flash_hd128_variants.py times the alternatives of each choice
-// (NSTAGE 2, P.V at hdv 128 as two 64-column products in turn,
+// (two stages, P.V at hdv 128 as two 64-column products in turn,
 // PRODUCER_REGS 40 with consumers at 232) at qwen3-4b's and
-// deepseek-v2-lite's prefill shapes.
+// deepseek-v2-lite's prefill shapes, and hd 256's candidates above.
 //
 // Causal blocks are ordered heaviest query tile first, so the last wave is
 // short; key tiles after the query tile are never loaded, and a consumer
@@ -127,9 +152,8 @@ constexpr float NEG = -1e30f;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 128;     // query rows per block
-constexpr int BK = 64;      // keys per K/V tile (128 measured slower, PERF.md)
-constexpr int NSTAGE = 3;   // K/V stages in the ring
 constexpr int PARTS = 3;    // bf16 parts of P (fewer miss the accuracy limit)
+constexpr int SMEM_LIMIT = 227 * 1024;  // dynamic shared memory a block may use
 constexpr int WARPGROUP = 128;
 constexpr int CONSUMERS = 2 * WARPGROUP;       // two warpgroups of 64 rows
 constexpr int THREADS = WARPGROUP + CONSUMERS;  // and the producer warpgroup
@@ -216,18 +240,35 @@ template <int HDQ, int HDV>
 struct Layout {
   using QK = Cols<HDQ>;
   using V = Cols<HDV>;
+  // hdv 256: the running sum alone is 128 registers a consumer thread
+  static constexpr bool wide = HDV > 128;
+  static constexpr int bk = 64;  // keys per K/V tile (128 measured slower, PERF.md)
+  // columns of one P.V product: the whole of hdv up to 128; at hdv 256 P.V
+  // runs in pieces, each added into acc before the next is issued
+  static constexpr int pv_n = wide ? 64 : HDV;
+  // S_t issued beside P_{t-1}.V_{t-1}, tile t's softmax under that P.V; at
+  // hdv 256 a tile's S, softmax and P.V run in turn (PERF.md)
+  static constexpr bool overlap = !wide;
   static constexpr int q_sub = BQ * QK::span * 2;  // bytes of a Q sub-tile
-  static constexpr int k_sub = BK * QK::span * 2;  // bytes of a K sub-tile
-  static constexpr int v_sub = BK * V::span * 2;   // bytes of a V sub-tile
+  static constexpr int k_sub = bk * QK::span * 2;  // bytes of a K sub-tile
+  static constexpr int v_sub = bk * V::span * 2;   // bytes of a V sub-tile
   static constexpr int q_bytes = BQ * HDQ * 2;
-  static constexpr int k_bytes = BK * HDQ * 2;     // a K stage
-  static constexpr int v_bytes = BK * HDV * 2;     // a V stage
+  static constexpr int k_bytes = bk * HDQ * 2;     // a K stage
+  static constexpr int v_bytes = bk * HDV * 2;     // a V stage
+  // the Q tile, n K/V stages, their barriers and the base's alignment
+  static constexpr int alloc_for(int n) {
+    return q_bytes + n * (k_bytes + v_bytes) + (1 + 3 * n) * 8 + 1024;
+  }
+  // K/V stages in the ring: 3, or 2 where 3 do not fit (hd 256)
+  static constexpr int nstage = alloc_for(3) <= SMEM_LIMIT ? 3 : 2;
   static constexpr int k_off = q_bytes;
-  static constexpr int v_off = k_off + NSTAGE * k_bytes;
-  static constexpr int bar_off = v_off + NSTAGE * v_bytes;
-  // q_full, k_full[NSTAGE], v_full[NSTAGE], empty[NSTAGE]
-  static constexpr int bytes = bar_off + (1 + 3 * NSTAGE) * 8;
+  static constexpr int v_off = k_off + nstage * k_bytes;
+  static constexpr int bar_off = v_off + nstage * v_bytes;
+  // q_full, k_full[nstage], v_full[nstage], empty[nstage]
+  static constexpr int bytes = bar_off + (1 + 3 * nstage) * 8;
   static constexpr int alloc = bytes + 1024;  // room to align the base to 1024
+  static_assert(alloc == alloc_for(nstage) && alloc <= SMEM_LIMIT, "shared memory");
+  static_assert(HDV % pv_n == 0 && pv_n % V::span == 0, "P.V in whole sub-tiles");
 };
 
 struct Args {
@@ -242,6 +283,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_tc(const __grid_constant__ 
   using L = Layout<HDQ, HDV>;
   using QK = typename L::QK;
   using V = typename L::V;
+  constexpr int BK = L::bk, NSTAGE = L::nstage, PN = L::pv_n;
   const int S = p.S, H = p.H, causal = p.causal;
   // swizzled tiles start on a 1024-byte boundary, where the swizzle pattern
   // of TMA and of the wgmma descriptors lines up
@@ -339,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_tc(const __grid_constant__ 
     float corr_a = 1.f, corr_b = 1.f;  // the correction of the tile in P.V
     float s[BK / 2];                   // S of one tile, then its p
     uint32_t pp[PARTS][BK / 16][4];    // P's parts as A fragments
-    float pv[HDV / 2];                 // a tile's P.V
+    float pv[PN / 2];                  // a piece of a tile's P.V
 
     // S_t = Q . K_t^T over hd in steps of 16 (32 bytes along the swizzled
     // row), one commit group
@@ -432,38 +474,49 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_tc(const __grid_constant__ 
 #pragma unroll
       for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);
     };
-    // pv = P_lo . V + P_mid . V + P_hi . V of tile t in a fresh
-    // accumulator, smallest part first: the tensor cores add each k-step to
-    // the accumulator with their own alignment and rounding, whose error
-    // scales with the accumulator's size, so no product is added into the
-    // running sum of earlier tiles and the small parts meet a small
-    // accumulator. A k-step of 16 keys is 16 rows of V; at hdv 128 one
-    // m64n128 product spans both sub-tiles of V. One commit group.
-    auto issue_pv = [&](int t) {
-      const uint64_t v_desc =
-          make_desc<V::span>(v_s + (t % NSTAGE) * L::v_bytes, L::v_sub, 8 * VROW);
+    // pv = P_lo . V + P_mid . V + P_hi . V of tile t's columns PN c .. PN c
+    // + PN - 1 in a fresh accumulator, smallest part first: the tensor cores
+    // add each k-step to the accumulator with their own alignment and
+    // rounding, whose error scales with the accumulator's size, so no
+    // product is added into the running sum of earlier tiles and the small
+    // parts meet a small accumulator. A k-step of 16 keys is 16 rows of V; at
+    // hdv 128 one m64n128 product spans both sub-tiles of V. One commit group.
+    auto issue_pv = [&](int t, int c) {
+      const uint64_t v_desc = make_desc<V::span>(
+          v_s + (t % NSTAGE) * L::v_bytes + c * (PN / V::span) * L::v_sub, L::v_sub,
+          8 * VROW);
 #pragma unroll
       for (int i = PARTS - 1; i >= 0; --i) {
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<HDV>(pv, pp[i][kk], v_desc + ((16 * kk * VROW) >> 4),
-                        i < PARTS - 1 || kk > 0);
+          wgmma_rs<PN>(pv, pp[i][kk], v_desc + ((16 * kk * VROW) >> 4),
+                       i < PARTS - 1 || kk > 0);
       }
       wgmma_commit();
     };
-    // tile t's P.V retired: the running sum in fp32 on the CUDA cores, acc =
-    // acc * corr + pv, and tile t's stage released
+    // tile t's P.V retired, piece by piece (the first piece issued by the
+    // caller, each later one once the piece before is added): the running
+    // sum in fp32 on the CUDA cores, acc = acc * corr + pv; then tile t's
+    // stage released
     auto finish_pv = [&](int t) {
-      wgmma_wait_group<0>();
-      fence_regs(pv);
 #pragma unroll
-      for (int j = 0; j < HDV / 8; ++j) {
-        acc[4 * j + 0] = fmaf(acc[4 * j + 0], corr_a, pv[4 * j + 0]);
-        acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
-        acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
-        acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+      for (int c = 0; c < HDV / PN; ++c) {
+        if (c > 0) {
+          wgmma_fence();
+          issue_pv(t, c);
+        }
+        wgmma_wait_group<0>();
+        fence_regs(pv);
+#pragma unroll
+        for (int j = 0; j < PN / 8; ++j) {
+          const int a = 4 * (c * (PN / 8) + j);
+          acc[a + 0] = fmaf(acc[a + 0], corr_a, pv[4 * j + 0]);
+          acc[a + 1] = fmaf(acc[a + 1], corr_a, pv[4 * j + 1]);
+          acc[a + 2] = fmaf(acc[a + 2], corr_b, pv[4 * j + 2]);
+          acc[a + 3] = fmaf(acc[a + 3], corr_b, pv[4 * j + 3]);
+        }
+        fence_regs(acc);
       }
-      fence_regs(acc);
 #pragma unroll
       for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);  // P was read until now
       mbar_arrive(empty_bar(t % NSTAGE));
@@ -471,37 +524,56 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_tc(const __grid_constant__ 
     auto full_parity = [](int t) { return static_cast<uint32_t>((t / NSTAGE) & 1); };
 
     mbar_spin(q_full, 0);
-    // tile 0: S alone
-    mbar_spin(k_full(0), 0);
-    wgmma_fence();
-    issue_qk(0);
-    wgmma_wait_group<0>();
-    fence_regs(s);
-    softmax(0, corr_a, corr_b);
-    split_p();
-    // tile t's S and tile t - 1's P.V in flight together; t's softmax runs
-    // under t - 1's P.V
-    for (int t = 1; t < nvisit; ++t) {
-      mbar_spin(k_full(t % NSTAGE), full_parity(t));
-      mbar_spin(v_full((t - 1) % NSTAGE), full_parity(t - 1));
+    if constexpr (L::overlap) {
+      // tile 0: S alone
+      mbar_spin(k_full(0), 0);
       wgmma_fence();
-      issue_qk(t);
-      issue_pv(t - 1);
-      wgmma_wait_group<1>();  // S_t
+      issue_qk(0);
+      wgmma_wait_group<0>();
       fence_regs(s);
-      float ca, cb;
-      softmax(t, ca, cb);
-      finish_pv(t - 1);
-      corr_a = ca;
-      corr_b = cb;
+      softmax(0, corr_a, corr_b);
       split_p();
+      // tile t's S and tile t - 1's P.V in flight together; t's softmax runs
+      // under t - 1's P.V
+      for (int t = 1; t < nvisit; ++t) {
+        mbar_spin(k_full(t % NSTAGE), full_parity(t));
+        mbar_spin(v_full((t - 1) % NSTAGE), full_parity(t - 1));
+        wgmma_fence();
+        issue_qk(t);
+        issue_pv(t - 1, 0);
+        wgmma_wait_group<1>();  // S_t
+        fence_regs(s);
+        float ca, cb;
+        softmax(t, ca, cb);
+        finish_pv(t - 1);
+        corr_a = ca;
+        corr_b = cb;
+        split_p();
+      }
+      // the last visited tile's P.V
+      const int last = nvisit - 1;
+      mbar_spin(v_full(last % NSTAGE), full_parity(last));
+      wgmma_fence();
+      issue_pv(last, 0);
+      finish_pv(last);
+    } else {
+      // each tile's S, softmax and P.V in turn: S is not held beside P's
+      // parts, the P.V piece and acc (the other consumer warpgroup fills the
+      // tensor cores meanwhile)
+      for (int t = 0; t < nvisit; ++t) {
+        mbar_spin(k_full(t % NSTAGE), full_parity(t));
+        wgmma_fence();
+        issue_qk(t);
+        wgmma_wait_group<0>();
+        fence_regs(s);
+        softmax(t, corr_a, corr_b);
+        split_p();
+        mbar_spin(v_full(t % NSTAGE), full_parity(t));
+        wgmma_fence();
+        issue_pv(t, 0);
+        finish_pv(t);
+      }
     }
-    // the last visited tile's P.V
-    const int last = nvisit - 1;
-    mbar_spin(v_full(last % NSTAGE), full_parity(last));
-    wgmma_fence();
-    issue_pv(last);
-    finish_pv(last);
     // tiles past this warpgroup's last row: their stage, released once the
     // tile is in it. An arrival names no phase, and empty_bar counts both
     // warpgroups' arrivals: one made before the tile's load could complete
@@ -560,12 +632,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   Args args;
   CUresult rc = encode<HDQ>(fn, &args.qmap, q, H, S, B, BQ, HDQ, (int64_t)H * HDQ,
                             (int64_t)S * H * HDQ);
-  if (rc == CUDA_SUCCESS)
-    rc = encode<HDQ>(fn, &args.kmap, k, KH, S, B, BK, HDQ, (int64_t)KH * HDQ,
-                     (int64_t)S * KH * HDQ);
-  if (rc == CUDA_SUCCESS) rc = encode<HDV>(fn, &args.vmap, v, KH, S, B, BK, vhs, vss, vbs);
-  if (rc != CUDA_SUCCESS) return TENSOR_MAP_ERROR + rc;
   using L = Layout<HDQ, HDV>;
+  if (rc == CUDA_SUCCESS)
+    rc = encode<HDQ>(fn, &args.kmap, k, KH, S, B, L::bk, HDQ, (int64_t)KH * HDQ,
+                     (int64_t)S * KH * HDQ);
+  if (rc == CUDA_SUCCESS) rc = encode<HDV>(fn, &args.vmap, v, KH, S, B, L::bk, vhs, vss, vbs);
+  if (rc != CUDA_SUCCESS) return TENSOR_MAP_ERROR + rc;
   err = cudaFuncSetAttribute(fa_fwd_tc<HDQ, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::alloc);
   if (err != cudaSuccess) return err;
@@ -590,8 +662,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
 // bf16 q (B,S,H,hd) and k (B,S,K,hd), contiguous; v (B,S,K,hdv) with unit
 // stride along hdv and head, row and batch strides vhs, vss, vbs (elements,
 // multiples of 8); o (B,S,H,hdv) contiguous; every base 16-byte aligned.
-// (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128) or (192, 128); fp32
-// is csrc/flash_attention_fwd_tf32.cu. Returns the cudaError_t of the launch,
+// (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128), (192, 128) or (256,
+// 256); fp32 is csrc/flash_attention_fwd_tf32.cu. Returns the cudaError_t of the launch,
 // or TENSOR_MAP_ERROR + a CUresult (0 on success); the caller raises on
 // anything else, an unbuilt (hd, hdv) included.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
@@ -610,6 +682,8 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int 
     return launch_tc<128, 128>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
   if (hd == 192 && hdv == 128)
     return launch_tc<192, 128>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 256 && hdv == 256)
+    return launch_tc<256, 256>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 

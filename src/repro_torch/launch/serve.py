@@ -12,6 +12,12 @@ step from the cache.
     # MLA and MoE: deepseek-v2-lite-16b (the flash prefill at q/k 192, v 128)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --full --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
+    # the modality frontends: paligemma-3b (256 image embeddings in front of
+    # the prompt; the flash prefill at hd 256), musicgen-large (audio frames)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b --full \\
+        --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large --full \\
+        --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
     # the SSM architectures: xlstm-350m whole, jamba cut to its first group
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --full \\
         --batch 8 --prompt-len 1024 --tokens 128
@@ -19,7 +25,8 @@ step from the cache.
         --layers 0:8 --attn-impl pallas --batch 8 --prompt-len 1024 --tokens 128
 
 Weights are random, drawn from ``--seed`` on the device; the prompts are
-synthetic tokens drawn from ``--seed + 1``. It runs on ``cuda`` unless
+synthetic tokens (with a frontend model's image embeddings, or audio frames
+in their place) drawn from ``--seed + 1``. It runs on ``cuda`` unless
 ``--device cpu`` is given, and never switches device by itself.
 """
 from __future__ import annotations
@@ -74,17 +81,39 @@ class _Clock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def generate(cfg, params, prompts: torch.Tensor, tokens: int, *,
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> Dict[str, Any]:
+    """A synthetic prompt batch drawn on ``device`` from ``seed``: tokens (B,
+    T); a vision model's ``vision_embeds`` (B, n_frontend_tokens, d_model)
+    beside them; an audio model's ``frames`` (B, T, d_model) in their place.
+    A frontend array is standard normal x 0.02 in fp32, as the data stream
+    draws it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                                      device=device) * 0.02}
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                                   device=device)}
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                                           generator=gen, device=device) * 0.02
+    return out
+
+
+def generate(cfg, params, prompts, tokens: int, *,
              keep_logits: bool = False) -> Dict[str, Any]:
-    """Greedy generation of ``tokens`` tokens after ``prompts`` (B, T): one
-    prefill (whose last logits give the first token) and ``tokens - 1``
-    decode steps, with S_max = T + tokens. Returns the tokens (B, tokens),
-    int32, and the timings: prefill and placement ms, each decode step's
-    ms, decode tokens per second and, on a card, the peak device memory.
-    With ``keep_logits`` also the prefill's last logits and each decode
-    step's logits (B, padded_vocab)."""
-    device = prompts.device
-    B, T = prompts.shape
+    """Greedy generation of ``tokens`` tokens after ``prompts``: token ids
+    (B, T), or a prefill batch (``prompt_batch``: tokens and a frontend
+    array, or an audio model's frames alone). One prefill (whose last logits
+    give the first token) and ``tokens - 1`` decode steps, which embed the
+    generated tokens, with S_max = T + tokens. Returns the tokens (B,
+    tokens), int32, and the timings: prefill and placement ms, each decode
+    step's ms, decode tokens per second and, on a card, the peak device
+    memory. With ``keep_logits`` also the prefill's last logits and each
+    decode step's logits (B, padded_vocab)."""
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    lead = batch["tokens"] if "tokens" in batch else batch["frames"]
+    device = lead.device
+    B, T = lead.shape[:2]
     prefill = make_prefill_step(cfg)
     decode = make_serve_step(cfg)
     clock = _Clock(device)
@@ -93,7 +122,7 @@ def generate(cfg, params, prompts: torch.Tensor, tokens: int, *,
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     clock.mark()
-    last, prompt_cache = prefill(params, {"tokens": prompts})
+    last, prompt_cache = prefill(params, batch)
     tok = torch.argmax(last[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
     clock.mark()
     cache = place_cache(init_cache(cfg, B, T + tokens, device=device), prompt_cache)
@@ -130,9 +159,10 @@ def serve(arch: str, *, full: bool = False, batch: int = 4, prompt_len: int = 16
           keep_logits: bool = False, layers: str = "") -> Dict[str, Any]:
     """Serve ``arch`` (its full config with ``full``, else ``.reduced()``;
     ``layers`` "START:STOP" keeps only those layers, ``configs.cut_layers``):
-    random weights from ``seed`` and synthetic prompts from ``seed + 1``,
-    both drawn on ``device``, unless ``params`` or ``prompts`` are given.
-    ``attn_impl`` overrides the config's attention for the prefill. Returns
+    random weights from ``seed`` and synthetic prompts (``prompt_batch``,
+    with a frontend model's array) from ``seed + 1``, both drawn on
+    ``device``, unless ``params`` or ``prompts`` are given. ``attn_impl``
+    overrides the config's attention for the prefill. Returns
     ``generate``'s result."""
     cfg = get_config(arch)
     if not full:
@@ -145,10 +175,12 @@ def serve(arch: str, *, full: bool = False, batch: int = 4, prompt_len: int = 16
     if params is None:
         params = init_params(cfg, seed=seed, device=dev)
     if prompts is None:
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
-                                device=dev)
-    return generate(cfg, params, prompts.to(dev), tokens, keep_logits=keep_logits)
+        prompts = prompt_batch(cfg, batch, prompt_len, seed + 1, dev)
+    elif isinstance(prompts, dict):
+        prompts = {k: v.to(dev) for k, v in prompts.items()}
+    else:
+        prompts = prompts.to(dev)
+    return generate(cfg, params, prompts, tokens, keep_logits=keep_logits)
 
 
 def main(argv=None):

@@ -370,6 +370,11 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
 
 
 def main(argv=None):
+    # segments that grow in place: a full-width paligemma-3b step asks for
+    # its 257280-column head's 7.85 GiB fp32 logits while fixed segments
+    # hold enough free memory only in smaller pieces (set before the card's
+    # allocator starts; a value the caller set is kept)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--optimizer", default="rmnp", choices=list(optimizer_names()),

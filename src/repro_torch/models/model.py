@@ -1,5 +1,6 @@
 """Model assembly of the port (mirror of ``repro.models.model``): GQA, MLA
-and the SSM mixers (mamba, mLSTM, sLSTM), dense and MoE FFNs.
+and the SSM mixers (mamba, mLSTM, sLSTM), dense and MoE FFNs, and the
+modality frontend stubs (audio frames, vision embeddings) at the input.
 
 A config's per-layer ``pattern`` is decomposed as prefix + unit * n_units
 (deepseek-v2-lite: one dense-FFN prefix layer and 26 MoE units; jamba: a
@@ -62,10 +63,8 @@ MIXERS = {
 
 
 def _mixer(mixer: str):
-    if mixer not in MIXERS:
-        raise NotImplementedError(
-            f"the {mixer!r} mixer is not ported (ROADMAP Queue 1, item 9c: "
-            f"the frontend families)")
+    if mixer not in MIXERS:  # a KeyError, as the JAX package's lookup raises
+        raise KeyError(f"unknown mixer {mixer!r}; known: {', '.join(MIXERS)}")
     return MIXERS[mixer]
 
 
@@ -193,22 +192,33 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     the JAX package's decode step consumes its donated cache. train and
     prefill ignore ``cache``. ``remat="full"`` keeps only each unit's input
     and recomputes the unit in the backward (``torch.utils.checkpoint``),
-    which changes no number."""
+    which changes no number.
+
+    The frontend stubs, outside decode (which always embeds ``tokens``): an
+    ``audio_frames`` model given ``batch["frames"]`` (B, S, d_model) takes
+    them, cast to the config's type, as its input embeddings and needs no
+    ``tokens``; a ``vision`` model given ``batch["vision_embeds"]`` (B, nf,
+    d_model) puts them in place of the first nf token embeddings. Attention
+    stays causal over the image prefix, as in the JAX package."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown forward mode {mode!r}")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache (init_cache, filled by prefill)")
     q, p, n = plan_stack(cfg.pattern)
-    tokens = batch["tokens"].long()
-    B, S = tokens.shape
-    x = params["embed"]["tokens"][tokens]
+    if cfg.frontend == "audio_frames" and mode != "decode" and "frames" in batch:
+        x = batch["frames"].to(torch_dtype(cfg.dtype))
+    else:
+        x = params["embed"]["tokens"][batch["tokens"].long()]
+        if cfg.frontend == "vision" and mode != "decode" and "vision_embeds" in batch:
+            nf = batch["vision_embeds"].shape[1]
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nf:]], dim=1)
+    B, S = x.shape[:2]
     if mode == "decode":
-        positions = torch.full((B, S), int(pos), dtype=torch.int32, device=tokens.device)
+        positions = torch.full((B, S), int(pos), dtype=torch.int32, device=x.device)
     else:
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device).expand(B, S)
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
 

@@ -73,8 +73,11 @@ def grads_of(cfg: ModelConfig, params, batch, remat: str, fault=None,
     live = map_with_path(lambda path, _t: leaves[path], params)
     loss, metrics = loss_fn(cfg, live, batch, remat=remat)
     paths = list(leaves)
-    grads = dict(zip(paths, torch.autograd.grad(loss, [leaves[p] for p in paths]),
-                     strict=True))
+    # a leaf the loss never reads (musicgen's token embedding when the batch
+    # carries frames) gets a zero gradient, as under jax.grad
+    grads = {p: torch.zeros_like(leaves[p]) if g is None else g
+             for p, g in zip(paths, torch.autograd.grad(
+                 loss, [leaves[p] for p in paths], allow_unused=True), strict=True)}
     grads = faults_mod.apply_grad_fault(fault, grads, step, mb_idx)
     if grad_dtype:
         dt = torch_dtype(grad_dtype)

@@ -208,6 +208,11 @@ ATTN += [(f"s{S}", 2, S, 8, 2, 64, torch.bfloat16, True) for S in (1, 63, 65, 12
 ATTN += [("hd128_g4", 2, 1024, 32, 8, 128, torch.bfloat16, True),
          ("hd128_g4_ragged_noncausal", 2, 1000, 8, 2, 128, torch.bfloat16, False),
          ("hd128_s65", 2, 65, 8, 2, 128, torch.bfloat16, True)]
+# bf16 at hd 256, paligemma-3b's heads (H = 8 on K = 1)
+ATTN += [("hd256_g8", 2, 1024, 8, 1, 256, torch.bfloat16, True),
+         ("hd256_g8_ragged_noncausal", 2, 1000, 8, 1, 256, torch.bfloat16, False),
+         ("hd256_s65", 2, 65, 8, 1, 256, torch.bfloat16, True),
+         ("hd256_s1", 2, 1, 8, 1, 256, torch.bfloat16, True)]
 ATTN += [("gpt2_small_fp32", 8, 1024, 12, 12, 64, torch.float32, True),
          ("gpt2_small_fp32_noncausal", 8, 1024, 12, 12, 64, torch.float32, False),
          ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, torch.float32, False),
@@ -715,3 +720,29 @@ def test_mla_prefill_runs_the_kernel_once_a_layer(cuda):
         params, {"tokens": toks})
     assert float((flash.float() - dense.float()).abs().max()) <= \
         2.0 ** -5 * float(dense.float().abs().max())
+
+
+def test_frontend_prefills_run_the_kernel_once_a_layer(cuda):
+    """Reduced paligemma-3b at its full head dim (hd 256, H = 8 on K = 1)
+    with its image embeddings, and reduced musicgen-large from audio
+    frames, in bf16 with attn_impl="pallas": each prefill launches the
+    kernel once a layer, and its last logits agree with dense attention's
+    to the bf16 bound of the MLA check above (2^-5 of the largest)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_prefill_step
+
+    for cfg in (get_config("paligemma-3b").reduced(n_heads=8, n_kv_heads=1, head_dim=256),
+                get_config("musicgen-large").reduced()):
+        cfg = dataclasses.replace(cfg, dtype="bfloat16", attn_impl="pallas")
+        params = init_params(cfg, seed=0, device="cuda")
+        batch = prompt_batch(cfg, 2, 96, 1, "cuda")
+        reset_launches()
+        flash, _ = make_prefill_step(cfg)(params, batch)
+        assert LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+        dense, _ = make_prefill_step(dataclasses.replace(cfg, attn_impl="dense"))(params, batch)
+        assert float((flash.float() - dense.float()).abs().max()) <= \
+            2.0 ** -5 * float(dense.float().abs().max())

@@ -53,7 +53,10 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/models/ssm.py", "src/repro_torch/core/adamw.py",
                      "src/repro_torch/configs/xlstm_350m.py",
                      "src/repro_torch/configs/jamba_v0_1_52b.py",
-                     "tools/step_repeat.py", "tools/flash_hd128_variants.py"):
+                     "tools/step_repeat.py", "tools/flash_hd128_variants.py",
+                     "src/repro_torch/configs/paligemma_3b.py",
+                     "src/repro_torch/configs/musicgen_large.py",
+                     "src/repro_torch/configs/all_archs.py"):
         assert expected in names
 
 

@@ -308,15 +308,18 @@ inline uint32_t smem_u32(const void* p) {
 }
 inline uint8_t* dynamic_smem() { return smem; }
 inline void fence_proxy_async() {}
-// an mbarrier: 16 bits each of expected arrivals, pending arrivals, the
-// phase and the transaction bytes still to come; a phase completes once
-// both of the last two are zero
-struct Mbar { uint16_t count, pending, phase, tx; };
+// an mbarrier in its 8 bytes: 12 bits each of expected and pending
+// arrivals, 8 of the phase, and the transaction bytes still to come, which
+// the card counts up to 2^20 - 1 (an hd-256 Q tile is 65536); a phase
+// completes once pending arrivals and bytes are both zero
+struct Mbar { uint32_t count : 12, pending : 12, phase : 8; uint32_t tx; };
+static_assert(sizeof(Mbar) == 8, "an mbarrier is 8 bytes");
 inline std::mutex mbar_lock;
 inline Mbar* mbar(uint32_t bar) { return reinterpret_cast<Mbar*>(smem + bar); }
 inline void mbar_init(uint32_t bar, uint32_t count) {
   std::lock_guard<std::mutex> g(mbar_lock);
-  *mbar(bar) = {uint16_t(count), uint16_t(count), 0, 0};
+  if (count < 1 || count > 0xFFF) std::abort();
+  *mbar(bar) = {count, count, 0, 0};
 }
 inline void mbar_init_fence() {}
 inline void mbar_complete_if_done(Mbar* m) {
@@ -335,7 +338,7 @@ inline void mbar_arrive(uint32_t bar) {
 inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   std::lock_guard<std::mutex> g(mbar_lock);
   Mbar* m = mbar(bar);
-  if (m->pending == 0 || m->tx + bytes > 0xFFFF) std::abort();
+  if (m->pending == 0 || m->tx + bytes > 0xFFFFF) std::abort();
   m->tx += bytes;
   --m->pending;
   mbar_complete_if_done(m);
@@ -1341,13 +1344,18 @@ def _flash_bf16(fn, q, k, v, causal):
 
 # (B, S, H, K, hd, hdv, causal): every build the port's models use but hd
 # 32, each at S of 1, one past the 64-key tile and one past the 128-row
-# query tile, causal and not, G = 1, 2 and 4; (192, 128) with MLA's strided v
+# query tile, causal and not, G = 1, 2 and 4; (192, 128) with MLA's strided v;
+# (256, 256) at paligemma's G = 8 (K = 1), its two-stage ring and P.V in
+# 64-column pieces, with S = 63 and 130 besides
 BF16_FLASH_CASES = [(1, 1, 2, 2, 16, 16, True), (1, 65, 4, 1, 16, 16, False),
                     (1, 129, 4, 2, 16, 16, True), (1, 129, 2, 1, 64, 64, True),
                     (1, 65, 4, 2, 64, 64, True), (1, 129, 4, 1, 64, 64, False),
                     (1, 1, 4, 1, 128, 128, False), (1, 129, 4, 2, 128, 128, True),
                     (1, 65, 2, 2, 128, 128, False), (1, 129, 2, 2, 192, 128, True),
-                    (1, 65, 2, 2, 192, 128, False), (1, 1, 2, 2, 192, 128, True)]
+                    (1, 65, 2, 2, 192, 128, False), (1, 1, 2, 2, 192, 128, True),
+                    (1, 1, 8, 1, 256, 256, True), (1, 63, 8, 1, 256, 256, False),
+                    (1, 65, 8, 1, 256, 256, True), (1, 130, 8, 1, 256, 256, True),
+                    (1, 130, 8, 1, 256, 256, False)]
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES,
@@ -1379,7 +1387,15 @@ def test_emulated_flash_bf16_two_launches_and_a_contiguous_v_give_identical_bits
     assert np.array_equal(first, _flash_bf16(flash_bf16, q, k, np.ascontiguousarray(v), True))
 
 
-@pytest.mark.parametrize("hd, hdv", [(64, 64), (192, 128)])
+def test_emulated_flash_bf16_hd256_two_launches_give_identical_bits(flash_bf16):
+    """The (256, 256) build, paligemma's K = 1 and G = 8: two launches give
+    the same bits."""
+    q, k, v = _flash_bf16_inputs(1, 130, 8, 1, 256, 256, seed=7)
+    assert np.array_equal(_flash_bf16(flash_bf16, q, k, v, True),
+                          _flash_bf16(flash_bf16, q, k, v, True))
+
+
+@pytest.mark.parametrize("hd, hdv", [(64, 64), (192, 128), (256, 256)])
 def test_emulated_flash_bf16_ring_waits_for_a_late_consumer(flash_bf16_lib, hd, hdv):
     """The second consumer warpgroup held back 50 ms at the start of each
     block, S = 257 causal. In the block of query rows 128..255 the first

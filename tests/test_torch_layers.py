@@ -129,17 +129,24 @@ def test_attention_impls_agree_on_the_cpu():
 
 
 def test_unported_paths_raise_and_name_the_roadmap_item():
-    """The SSM mixers are ported (item 9b); what is left are the modality
-    frontends (item 9c): their configs and a frontend-only mixer name."""
+    """Every family the JAX package defines is ported: the frontend configs
+    (paligemma-3b, musicgen-large) resolve and equal the JAX package's, and
+    a mixer name neither package knows raises a KeyError in both, the
+    port's naming the mixers it knows."""
+    from repro.models.model import build_cache_specs as jax_cache_specs
     for arch in ("paligemma-3b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
-            get_config(arch)
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
     cfg = get_config("gpt2-small").reduced()
+    jcfg = jax_get_config("gpt2-small").reduced()
     vision = dataclasses.replace(cfg, pattern=(("vision", "dense"),) * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
+    jvision = dataclasses.replace(jcfg, pattern=(("vision", "dense"),) * 2)
+    with pytest.raises(KeyError, match="unknown mixer 'vision'; known: gqa, mla, mamba"):
         init_cache(vision, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9c"):
+    with pytest.raises(KeyError, match="unknown mixer 'vision'"):
         build_param_specs(vision)
+    for build in (lambda: jax_cache_specs(jvision, 2, 16), lambda: jax_param_specs(jvision)):
+        with pytest.raises(KeyError, match="vision"):
+            build()
     # a mamba pattern now builds its parameters and its state cache
     mamba = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
                                 num_layers=2, pattern=(("mamba", "dense"),) * 2)

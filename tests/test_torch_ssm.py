@@ -37,6 +37,7 @@ import torch
 
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.configs import shape_applicable as jax_shape_applicable
 from repro.core import constant as jax_constant
 from repro.core import is_matrix_param as jax_is_matrix_param
@@ -49,8 +50,7 @@ from repro.models.model import forward as jax_forward
 from repro.models.model import loss_fn as jax_loss_fn
 from repro.train.step import make_prefill_step as jax_make_prefill_step
 from repro.train.step import make_train_step as jax_make_train_step
-from repro_torch.configs import SHAPES, cut_layers, get_config, shape_applicable
-from repro_torch.configs.base import NOT_PORTED
+from repro_torch.configs import SHAPES, cut_layers, get_config, list_configs, shape_applicable
 from repro_torch.core import build_plan, constant, is_matrix_param, make_optimizer
 from repro_torch.core.types import map_with_path, tree_paths
 from repro_torch.data.pipeline import make_stream
@@ -341,7 +341,8 @@ def test_configs_and_mixers_are_the_jax_packages():
         for name, shape in SHAPES.items():
             assert shape_applicable(cfg, shape) == jax_shape_applicable(jcfg, JAX_SHAPES[name])
     assert {"mamba", "mlstm", "slstm"} <= set(MIXERS)
-    assert NOT_PORTED == ("musicgen-large", "paligemma-3b")
+    # every architecture the JAX package defines resolves in the port
+    assert list_configs() == jax_list_configs()
 
 
 def _full_width(arch, layers=None):

@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
 """The bf16 flash kernel's design choices at its wide-head builds: build
 variants of csrc/flash_attention_fwd.cu that each change one choice, and
-time each at qwen3-4b's prefill shape (hd 128) and deepseek-v2-lite's
-((192, 128), v a strided column slice) beside its ptxas report.
+time each at qwen3-4b's prefill shape (hd 128), deepseek-v2-lite's
+((192, 128), v a strided column slice) or paligemma-3b's (hd 256, H = 8 on
+K = 1) beside its ptxas report.
 
     python3 tools/flash_hd128_variants.py                # needs one CUDA card and nvcc
     python3 tools/flash_hd128_variants.py --build-only   # ptxas and SASS only, no launch
     python3 tools/flash_hd128_variants.py --parent build/parent/src/repro_torch/csrc
     python3 tools/flash_hd128_variants.py --trace        # cycles of each phase of a tile
 
-Variants (patches of the source, each a correct kernel that computes the
-same bits):
-  kernel         the source as it is: NSTAGE = 3, a tile's P.V at hdv 128
-                 as one m64n128 product a part and k-step in one commit
-                 group, the producer warpgroup at 24 registers and the
-                 consumers at 240;
-  nstage_2       a ring of 2 K/V stages;
-  pv_n_64        P.V at hdv 128 as two 64-column products, the second
-                 issued once the first is added into the running sum;
-  producer_40    the producer at 40 registers, the consumers at 232.
+Variants (patches of the source's constants, each a correct kernel):
+  kernel           the source as it is: 64-key tiles, a 3-stage ring (2 at
+                   hd 256, where 3 do not fit), a tile's P.V at hdv <= 128
+                   as one product a part and k-step, S_t beside P_{t-1}.V;
+                   at hdv 256 P.V in four 64-column pieces and each tile's
+                   S, softmax and P.V in turn; the producer warpgroup at 24
+                   registers and the consumers at 240;
+  nstage_2         a ring of 2 K/V stages (hd 128 and (192, 128));
+  pv_n_64          P.V at hdv 128 as two 64-column products, the second
+                   issued once the first is added into the running sum;
+  producer_40      the producer at 40 registers, the consumers at 232;
+  hd256_overlap    hd 256 with S_t beside P_{t-1}.V, P.V in 64-column pieces;
+  hd256_pv_halves  hd 256 with P.V in two 128-column pieces, in turn;
+  hd256_bk32       hd 256 with 32-key tiles (S as m64n32 products), three
+                   stages, the overlap, P.V in 64-column pieces: its running
+                   sum is grouped by 32 keys, so its bits differ.
+The first three run at the hd-128 and (192, 128) shapes, the hd256 ones at
+paligemma's; each but hd256_bk32 must give the kernel's bits.
 With ``--parent DIR`` the flash source and sm90.cuh in DIR (another
 commit's csrc/, unpacked with git archive) are built as ``parent`` and
 timed against ``kernel`` also at gpt2-small's hd-64 shapes (causal and
-not) and a ragged GQA shape, in turns parent, kernel, kernel, parent.
+not) and a ragged GQA shape, in turns parent, kernel, kernel, parent (a
+parent without the hd-256 build refuses that shape).
 
 Each is built with the package's own nvcc flags into
 build/kernels/variants/, called through the same C entry as the kernel,
@@ -51,55 +61,53 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# P.V at hdv 128 as two products of PN = 64 columns: the second issued (over
-# V's second sub-tile) once the first is added into acc
-PV_N_64 = [("    float pv[HDV / 2];                 // a tile's P.V\n",
-            "    constexpr int PN = HDV < 64 ? HDV : 64;  // columns of one P.V product\n"
-            "    float pv[PN / 2];\n"),
-           (re.compile(r"    auto issue_pv = \[&\]\(int t\) \{.*?(?=    auto full_parity)", re.S),
-            """    auto issue_pv = [&](int t, int c = 0) {
-      const uint64_t v_desc =
-          make_desc<V::span>(v_s + (t % NSTAGE) * L::v_bytes, L::v_sub, 8 * VROW);
-#pragma unroll
-      for (int i = PARTS - 1; i >= 0; --i) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<PN>(pv, pp[i][kk],
-                       v_desc + ((c * (PN / V::span) * L::v_sub + 16 * kk * VROW) >> 4),
-                       i < PARTS - 1 || kk > 0);
-      }
-      wgmma_commit();
-    };
-    auto finish_pv = [&](int t) {
-#pragma unroll
-      for (int c = 0; c < HDV / PN; ++c) {
-        if (c > 0) {
-          wgmma_fence();
-          issue_pv(t, c);
-        }
-        wgmma_wait_group<0>();
-        fence_regs(pv);
-#pragma unroll
-        for (int j = 0; j < PN / 8; ++j) {
-          const int a = 4 * (c * PN / 8 + j);
-          acc[a + 0] = fmaf(acc[a + 0], corr_a, pv[4 * j + 0]);
-          acc[a + 1] = fmaf(acc[a + 1], corr_a, pv[4 * j + 1]);
-          acc[a + 2] = fmaf(acc[a + 2], corr_b, pv[4 * j + 2]);
-          acc[a + 3] = fmaf(acc[a + 3], corr_b, pv[4 * j + 3]);
-        }
-        fence_regs(acc);
-      }
-#pragma unroll
-      for (int i = 0; i < PARTS; ++i) fence_regs(pp[i]);
-      mbar_arrive(empty_bar(t % NSTAGE));
-    };
-""")]
+# hd 256, 32-key tiles: S as an m64n32 product (a helper of the variant's
+# own), P's parts 24 registers, three stages in shared memory, and S_t beside
+# P_{t-1}.V in 64-column pieces
+BK32_SS = """template <int N>
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_bf16_m64n64k16_ss(d, da, db, scale_d);
+  } else {
+    static_assert(N == 32, "S over 32 or 64 keys");
+    asm volatile(
+        "{\\n.reg .pred p;\\nsetp.ne.b32 p, %18, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\\n}\\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+"""
+BK = "  static constexpr int bk = 64;"
+OVERLAP = "  static constexpr bool overlap = !wide;"
+PV_N = "  static constexpr int pv_n = wide ? 64 : HDV;"
 VARIANTS = {
     "kernel": [],
-    "nstage_2": [("constexpr int NSTAGE = 3;", "constexpr int NSTAGE = 2;")],
-    "pv_n_64": PV_N_64,
+    "nstage_2": [("  static constexpr int nstage = alloc_for(3) <= SMEM_LIMIT ? 3 : 2;",
+                  "  static constexpr int nstage = 2;")],
+    "pv_n_64": [(PV_N, "  static constexpr int pv_n = HDV < 64 ? HDV : 64;")],
     "producer_40": [("constexpr int PRODUCER_REGS = 24;", "constexpr int PRODUCER_REGS = 40;")],
+    # the hd-256 candidates (the kernel: 64-key tiles, two stages, each
+    # tile's S, softmax and P.V in turn, P.V in 64-column pieces)
+    "hd256_overlap": [(OVERLAP, "  static constexpr bool overlap = true;")],
+    "hd256_pv_halves": [(PV_N, "  static constexpr int pv_n = wide ? 128 : HDV;")],
+    "hd256_bk32": [(BK, "  static constexpr int bk = wide ? 32 : 64;"),
+                   (OVERLAP, "  static constexpr bool overlap = true;"),
+                   ("template <int HDQ, int HDV>\n__global__", BK32_SS
+                    + "template <int HDQ, int HDV>\n__global__"),
+                   ("wgmma_bf16_m64n64k16_ss(s, q_desc", "wgmma_ss_n<BK>(s, q_desc")],
 }
+# the shapes each variant runs besides the kernel (the parent runs all)
+HD256 = ["paligemma_hd256"]
+WIDE = ["qwen3_hd128", "deepseek_mla"]
+VARIANT_SHAPES = {"nstage_2": WIDE, "pv_n_64": WIDE, "producer_40": WIDE,
+                  "hd256_overlap": HD256, "hd256_pv_halves": HD256, "hd256_bk32": HD256}
 # the trace: clock64 at the phases of the consumers' main loop (one record
 # per block < 4, warpgroup and tile < 24), written by lane 0 of each
 # warpgroup's first warp, read through fa_trace_get
@@ -112,18 +120,21 @@ TRACE = [("namespace {\n\nusing namespace sm90;",
           "#define TR(i) if (threadIdx.x % 128 == 0 && blockIdx.x < 4 && t < 24) "
           "fa_trace[blockIdx.x][wg][t][i] = clock64();\n"
           "namespace {\n\nusing namespace sm90;"),
-         ("    for (int t = 1; t < nvisit; ++t) {\n",
-          "    for (int t = 1; t < nvisit; ++t) {\n      TR(0);\n"),
-         ("      wgmma_fence();\n      issue_qk(t);", "      TR(1);\n      wgmma_fence();\n"
-          "      issue_qk(t);"),
-         ("      wgmma_wait_group<1>();  // S_t", "      TR(2);\n      wgmma_wait_group<1>();"),
-         ("      float ca, cb;", "      TR(3);\n      float ca, cb;"),
-         ("      finish_pv(t - 1);", "      TR(4);\n      finish_pv(t - 1);\n      TR(5);"),
-         ("      split_p();\n    }", "      split_p();\n      TR(6);\n    }")]
-# (name, B, S, H, K, hd, hdv, causal); the variants run the first two, the
-# parent all of them
+         ("      for (int t = 1; t < nvisit; ++t) {\n",
+          "      for (int t = 1; t < nvisit; ++t) {\n        TR(0);\n"),
+         ("        wgmma_fence();\n        issue_qk(t);\n        issue_pv",
+          "        TR(1);\n        wgmma_fence();\n        issue_qk(t);\n        issue_pv"),
+         ("        wgmma_wait_group<1>();  // S_t",
+          "        TR(2);\n        wgmma_wait_group<1>();"),
+         ("        float ca, cb;", "        TR(3);\n        float ca, cb;"),
+         ("        finish_pv(t - 1);", "        TR(4);\n        finish_pv(t - 1);\n        TR(5);"),
+         ("        split_p();\n      }\n      // the last",
+          "        split_p();\n        TR(6);\n      }\n      // the last")]
+# (name, B, S, H, K, hd, hdv, causal); the kernel and each variant run the
+# first three (VARIANT_SHAPES), the parent all of them
 SHAPES = [("qwen3_hd128", 8, 1024, 32, 8, 128, 128, True),
           ("deepseek_mla", 8, 1024, 16, 16, 192, 128, True),
+          ("paligemma_hd256", 8, 1024, 8, 1, 256, 256, True),
           ("main", 8, 1024, 12, 12, 64, 64, True),
           ("main_noncausal", 8, 1024, 12, 12, 64, 64, False),
           ("gqa_ragged", 2, 1000, 8, 2, 64, 64, True)]
@@ -288,8 +299,9 @@ def main():
             return o
 
         names = [n for n in built if built[n][0] is not None and n != "trace"]
-        # every variant at the wide shapes; the parent everywhere
-        plan = {n: [s[0] for s in SHAPES[:2]] for n in names}
+        # the kernel at the wide shapes, each variant at its own; the parent
+        # everywhere
+        plan = {n: VARIANT_SHAPES.get(n, WIDE + HD256) for n in names}
         if "parent" in plan:
             plan["parent"] = plan["kernel"] = [s[0] for s in SHAPES]
         reference = {}
@@ -329,7 +341,7 @@ def main():
         if args.trace and built["trace"][0] is not None:
             lib = ctypes.CDLL(str(out_dir / "trace" / "lib.so"))
             record["trace"] = {shape: trace(lib, built["trace"][0], call, *inputs[shape][:4])
-                               for shape in plan["kernel"][:2]}
+                               for shape in WIDE}
             print(json.dumps({"trace": record["trace"]}), flush=True)
     (out / "flash_hd128_variants.json").write_text(json.dumps(record, indent=1))
     print(smi, flush=True)
