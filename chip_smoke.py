@@ -40,13 +40,20 @@ Phases:
          each also against a contiguous copy of v bit for bit; bf16 also
          at hd 256: paligemma-3b's prefill shape (B=8 S=1024 H=8 K=1)
          causal (timed) and not, a ragged S=1000 (timed) and S in {1, 63,
-         65, 129}, and 20 seeds of the prefill shape; two
+         65, 129}, and 20 seeds of the prefill shape; bf16 also at hd 96
+         (three 32-column sub-tiles under the 64-byte swizzle):
+         phi3-mini-3.8b's (96, 96) at its prefill shape (B=8 S=1024
+         H=K=32) and minicpm3-4b's MLA (96, 64) at its (H=K=40, v a
+         strided column slice), each causal (timed) and not, a ragged
+         S=1000 causal and not, S in {1, 63, 65, 129}, and 20 seeds of
+         each prefill shape causal and 20 not; two
          launches must give the same bits; 40 seeds of a
          non-causal S=1000 GQA head must all hold the limit in each type
          (20 more at hd 128, 20 at (192, 128) and 20 at hd 256 in bf16); the
          ptxas report of both kernels is printed, and cuobjdump must find
          HGMMA in each instantiation of each (bf16 (hd, hdv) (16, 16) to
-         (128, 128), (192, 128) and (256, 256), fp32 hd 16-64); every bf16 build must
+         (128, 128), (96, 64), (192, 128) and (256, 256), fp32 hd 16-64);
+         every bf16 build must
          spill nothing, hold USETMAXREG (its producer warpgroup's
          registers go to the consumers) and have no wgmma that ptxas
          serialised, and its registers and spills go on the kernels line
@@ -105,6 +112,12 @@ Phases:
          within S_LOGIT_TOL, and decoding at pos + 1 outside it; S3 prefill
          ms in each mode, decode ms a step over 127 steps (median, min,
          max), tokens per second and peak device memory;
+  H      phase S's checks and timings for phi3-mini-3.8b at full width
+         (32 layers, H=K=32 at hd 96; B=8, T=1024, 128 new tokens,
+         S_max=1152): 32 launches of the (96, 96) kernel a prefill;
+  N      the same for minicpm3-4b (62 layers of MLA, H=K=40 at q/k 96 and
+         v 64, the tied 73448-row embedding): 62 launches of the (96, 64)
+         kernel a prefill, v read in place from the up-projection;
   M1     deepseek-v2-lite-16b cut to its first 3 layers (the dense prefix
          and 2 MoE units) at full width, trained with single-pass RMNP
          (B=8, S=1024, bf16, seed 0): 3 timed steps, 13 apply launches
@@ -672,6 +685,18 @@ def phase_attention():
               ("paligemma_hd256_noncausal", 8, 1024, 8, 1, 256, bf16, False, False),
               ("ragged_hd256", 2, 1000, 8, 1, 256, bf16, True, True)]
     cases += [(f"s{S}_hd256", 2, S, 8, 1, 256, bf16, True, False) for S in (1, 63, 65, 129)]
+    # bf16 at hd 96 (three 32-column sub-tiles under the 64-byte swizzle):
+    # phi3-mini-3.8b's (96, 96) and minicpm3-4b's MLA (96, 64), v a strided
+    # column slice: each prefill shape causal (timed, rows 3 (96, 96) and (96,
+    # 64)) and not, a ragged S=1000 causal and not, and S around the tiles'
+    # edges
+    for tag, H, hdv in (("phi3_hd96", 32, 96), ("minicpm3_mla", 40, 64)):
+        cases += [(tag, 8, 1024, H, H, 96, bf16, True, True, hdv),
+                  (f"{tag}_noncausal", 8, 1024, H, H, 96, bf16, False, False, hdv),
+                  (f"ragged_{tag}", 2, 1000, H, H, 96, bf16, True, False, hdv),
+                  (f"ragged_{tag}_noncausal", 2, 1000, H, H, 96, bf16, False, False, hdv)]
+        cases += [(f"s{S}_{tag}", 2, S, 8, 8, 96, bf16, True, False, hdv)
+                  for S in (1, 63, 65, 129)]
     cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
               ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
               ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
@@ -748,7 +773,8 @@ def phase_attention():
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
-    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla", "paligemma_hd256"):
+    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla", "paligemma_hd256",
+                 "phi3_hd96", "minicpm3_mla"):
         q, k, v, causal = inputs[name]
         a = fa.flash_attention_fwd_kernel(q, k, v)
         b = fa.flash_attention_fwd_kernel(q, k, v)
@@ -793,21 +819,28 @@ def phase_attention():
               "bf16_hd256": seeds_over_limit(bf16, n=20, hd=256, kv_heads=1)}
     check(all(r["over_limit"] == 0 for r in stress.values()),
           f"attention: the non-causal seed sweep missed the limit {stress}")
-    # hd 256 at paligemma's prefill shape (B=8, S=1024, H=8, K=1, causal),
-    # 20 seeds, every element of each held at the limit
-    g = torch.Generator(device="cuda").manual_seed(4)
-    ratios = []
-    for _ in range(20):
-        q, k, v = attention_inputs(g, 8, 1024, 8, 1, 256, bf16)
-        got = fa.flash_attention_fwd_kernel(q, k, v, causal=True)
-        ratios.append(elementwise_err(got, fa.flash_attention_fwd_plain(q, k, v, causal=True),
-                                      rtol[bf16])[1])
-    del q, k, v, got
-    stress["bf16_hd256_paligemma_prefill"] = {
-        "seeds": 20, "reference": "plain", "over_limit": sum(r > 1.0 for r in ratios),
-        "worst_ratio": max(ratios)}
-    check(stress["bf16_hd256_paligemma_prefill"]["over_limit"] == 0,
-          f"attention: hd 256 at paligemma's prefill shape missed the limit {ratios}")
+    # 20 seeds of a prefill shape, every element of each held at the limit:
+    # hd 256 at paligemma's (B=8, S=1024, H=8, K=1, causal); hd 96 at
+    # phi3-mini's (H=K=32) and minicpm3's MLA (H=K=40, v 64, strided),
+    # causal and not
+    def prefill_seeds(key, H, K, hd, causal, seed, hdv=None):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ratios = []
+        for _ in range(20):
+            q, k, v = attention_inputs(g, 8, 1024, H, K, hd, bf16, hdv)
+            got = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
+            ratios.append(elementwise_err(
+                got, fa.flash_attention_fwd_plain(q, k, v, causal=causal), rtol[bf16])[1])
+        stress[key] = {"seeds": 20, "reference": "plain", "causal": causal,
+                       "over_limit": sum(r > 1.0 for r in ratios), "worst_ratio": max(ratios)}
+        check(stress[key]["over_limit"] == 0,
+              f"attention: {key} missed the limit over 20 seeds {ratios}")
+
+    prefill_seeds("bf16_hd256_paligemma_prefill", 8, 1, 256, True, 4)
+    for seed, (key, H, hdv) in enumerate((("phi3_hd96", 32, 96), ("minicpm3_mla", 40, 64))):
+        for causal in (True, False):
+            prefill_seeds(f"bf16_{key}_prefill" + ("" if causal else "_noncausal"), H, H, 96,
+                          causal, 5 + 2 * seed + (not causal), hdv)
     ptxas, hgmma = {}, {}
     for lib, kernel, dt in (("flash_attention_fwd", "fa_fwd_tc", bf16),
                             ("flash_attention_fwd_tf32", "fa_fwd_tf32_kernel", fp32)):
@@ -1688,13 +1721,15 @@ def phase_small():
         check(same and rel <= 1e-4, f"{arch} serving: tokens equal {same}, logits {rel}")
 
 
-def phase_serve():
+def phase_serve(arch, tag):
     """S: serving qwen3-4b at full width (bf16, seed 0, B=8, T=1024, 128
     new tokens, S_max=1152) through launch/serve.serve and the step
     functions. S1 the flash prefill against the dense one, and a non-causal
     control; S2 the decode steps' logits against a teacher-forced dense
     forward over the prompt and the first 16 generated tokens, and a
-    control decoding at pos + 1; S3 the timings and peak memory."""
+    control decoding at pos + 1; S3 the timings and peak memory. H and N
+    run the same for phi3-mini-3.8b and minicpm3-4b (``arch``; ``tag`` names
+    the phase in its record and its messages)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_paths
@@ -1704,7 +1739,8 @@ def phase_serve():
     from repro_torch.models.model import forward, init_cache, lm_head
     from repro_torch.train.step import make_prefill_step, make_serve_step
 
-    base = get_config(S_ARCH)
+    phase_t0 = time.perf_counter()
+    base = get_config(arch)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = init_params(base, seed=0, device="cuda")
@@ -1723,28 +1759,28 @@ def phase_serve():
     # which keeps no logits, so its peak memory is serving's own; then the
     # checked run keeps every step's logits for S1 and S2 and must generate
     # the timed run's tokens
-    serve(S_ARCH, full=True, batch=S_BATCH, prompt_len=S_PROMPT, tokens=4,
+    serve(arch, full=True, batch=S_BATCH, prompt_len=S_PROMPT, tokens=4,
           attn_impl="pallas", params=params, prompts=prompts)
     runs = {}
     for run, keep in (("timed", False), ("checked", True)):
         torch.cuda.empty_cache()
         reset_launches()
-        runs[run] = serve(S_ARCH, full=True, batch=S_BATCH, prompt_len=S_PROMPT,
+        runs[run] = serve(arch, full=True, batch=S_BATCH, prompt_len=S_PROMPT,
                           tokens=S_TOKENS, attn_impl="pallas", params=params, prompts=prompts,
                           keep_logits=keep)
         serve_launches = LAUNCHES["flash_attention_fwd"]
         check(serve_launches == base.num_layers,
-              f"S ({run}): {serve_launches} flash launches in a served batch, "
+              f"{tag} ({run}): {serve_launches} flash launches in a served batch, "
               f"want {base.num_layers}")
     checked, res = runs["checked"], runs["timed"]
     del runs
     seqs = checked["tokens"]
     check(seqs.shape == (S_BATCH, S_TOKENS) and int(seqs.min()) >= 0
-          and int(seqs.max()) < base.vocab, f"S: generated tokens {seqs.shape}")
+          and int(seqs.max()) < base.vocab, f"{tag}: generated tokens {seqs.shape}")
     check(torch.equal(seqs, res["tokens"]),
-          "S: the checked run's tokens differ from the timed run's")
+          f"{tag}: the checked run's tokens differ from the timed run's")
     check(all(torch.isfinite(x.float()).all().item() for x in checked["logits"]),
-          "S: non-finite logits")
+          f"{tag}: non-finite logits")
 
     # S1: the prefill in each mode from the same parameters, each timed
     # (CUDA events around 5 calls after one warm-up), and a non-causal
@@ -1769,13 +1805,13 @@ def phase_serve():
             layers.attention = dense_attention
         torch.cuda.empty_cache()
     check(launches == {"pallas": base.num_layers, "dense": 0, "control": 0},
-          f"S1: flash launches per prefill {launches}")
+          f"{tag}1: flash launches per prefill {launches}")
     s1 = rel(last["pallas"], last["dense"])
     s1_control = rel(last["control"], last["dense"])
     agree = float((last["pallas"][:, real].argmax(-1) == last["dense"][:, real].argmax(-1))
                   .float().mean())
     check(torch.equal(last["pallas"], checked["logits"][0]),
-          "S1: the served prefill's logits differ from the prefill step's")
+          f"{tag}1: the served prefill's logits differ from the prefill step's")
 
     # S2: teacher-force the prompt and the first S_FORCED generated tokens
     # through a dense forward; its logits at positions T .. T+F-1 against
@@ -1811,7 +1847,7 @@ def phase_serve():
 
     card = card_name()
     record = {
-        "card": card, "config": S_ARCH, "params": n_params, "batch": S_BATCH,
+        "card": card, "config": arch, "params": n_params, "batch": S_BATCH,
         "prompt_len": S_PROMPT, "new_tokens": S_TOKENS, "init_s": init_s,
         "S1_logits_rel_flash_vs_dense": s1, "S1_logits_rel_control": s1_control,
         "S1_greedy_agreement": agree, "S2_logits_rel_decode_vs_forced": s2,
@@ -1823,27 +1859,28 @@ def phase_serve():
         "decode_ms_per_step": summary(decode), "decode_steps": len(decode),
         "decode_samples_ms": decode, "decode_tokens_per_s": res["decode_tokens_per_s"],
         "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
-        "peak_mem_gb": res["peak_bytes"] / 2**30, "tokens_head": seqs[:, :8].tolist()}
-    emit("S_serve_qwen3_4b", record)
+        "peak_mem_gb": res["peak_bytes"] / 2**30, "tokens_head": seqs[:, :8].tolist(),
+        "phase_s": time.perf_counter() - phase_t0}
+    emit(f"{tag}_serve_" + arch.replace("-", "_").replace(".", "_"), record)
     for run, ms in prefill_ms.items():
         m = summary(ms)
-        print(f"S3 ({card}): prefill {run} {m['median']:.2f} ms ({m['min']:.2f}-"
+        print(f"{tag}3 ({card}): prefill {run} {m['median']:.2f} ms ({m['min']:.2f}-"
               f"{m['max']:.2f})", flush=True)
     d = summary(decode)
-    print(f"S3 ({card}): decode {d['median']:.3f} ms a step ({d['min']:.3f}-{d['max']:.3f}, "
+    print(f"{tag}3 ({card}): decode {d['median']:.3f} ms a step ({d['min']:.3f}-{d['max']:.3f}, "
           f"{len(decode)} steps)", flush=True)
-    print(f"S3 ({card}): {res['decode_tokens_per_s']:.1f} decode tokens/s, "
+    print(f"{tag}3 ({card}): {res['decode_tokens_per_s']:.1f} decode tokens/s, "
           f"{res['tokens_per_s']:.1f} tokens/s end to end", flush=True)
-    print(f"S3 ({card}): peak device memory {record['peak_mem_gb']:.2f} GiB", flush=True)
-    print(f"S1/S2: flash vs dense {s1:.3e} (control {s1_control:.3e}); decode vs forced "
+    print(f"{tag}3 ({card}): peak device memory {record['peak_mem_gb']:.2f} GiB", flush=True)
+    print(f"{tag}1/{tag}2: flash vs dense {s1:.3e} (control {s1_control:.3e}); decode vs forced "
           f"{s2:.3e} (control {s2_control:.3e}); tolerance {S_LOGIT_TOL}", flush=True)
-    check(s1 <= S_LOGIT_TOL, f"S1: flash prefill logits {s1} from dense > {S_LOGIT_TOL}")
+    check(s1 <= S_LOGIT_TOL, f"{tag}1: flash prefill logits {s1} from dense > {S_LOGIT_TOL}")
     check(s1_control > S_LOGIT_TOL,
-          f"S1: the non-causal control is only {s1_control} from dense, inside "
+          f"{tag}1: the non-causal control is only {s1_control} from dense, inside "
           f"the tolerance {S_LOGIT_TOL}")
-    check(s2 <= S_LOGIT_TOL, f"S2: decode logits {s2} from the forced forward > {S_LOGIT_TOL}")
+    check(s2 <= S_LOGIT_TOL, f"{tag}2: decode logits {s2} from the forced forward > {S_LOGIT_TOL}")
     check(s2_control > S_LOGIT_TOL,
-          f"S2: decoding at pos + 1 is only {s2_control} from the forced forward, inside "
+          f"{tag}2: decoding at pos + 1 is only {s2_control} from the forced forward, inside "
           f"the tolerance {S_LOGIT_TOL}")
     del params, res, last
     torch.cuda.empty_cache()
@@ -1854,6 +1891,10 @@ R_ARCH, R_BATCH, R_SEQ, R_STEPS = "llama-130m", 8, 1024, 6
 # Phase S, serving qwen3-4b at full width in bf16: B requests of a T-token
 # prompt, N new tokens, S_max = T + N; S2 teacher-forces the first F.
 S_ARCH, S_BATCH, S_PROMPT, S_TOKENS, S_FORCED = "qwen3-4b", 8, 1024, 128, 16
+# Phases H and N serve phi3-mini-3.8b (hd 96, H = K = 32, 32 layers) and
+# minicpm3-4b (MLA's q/k 96 and v 64, H = K = 40, 62 layers) the same way,
+# through the bf16 kernel's (96, 96) and (96, 64) builds
+H_ARCH, N_ARCH = "phi3-mini-3.8b", "minicpm3-4b"
 # S1 and S2 compare logits (the real vocabulary) by their relative Frobenius
 # distance. The flash prefill keeps P to fp32 accuracy where dense attention
 # rounds its probabilities to bf16, and a decode step runs dense attention's
@@ -1861,7 +1902,8 @@ S_ARCH, S_BATCH, S_PROMPT, S_TOKENS, S_FORCED = "qwen3-4b", 8, 1024, 128, 16
 # same products into other shapes: each pair differs by bf16 rounding (2^-8
 # of a value) carried through 36 layers. The tolerance sits a few times
 # above the readings on an H100 (PERF.md); each control (a non-causal
-# prefill; decoding at pos + 1) must land outside it.
+# prefill; decoding at pos + 1) must land outside it. H and N hold the same
+# tolerance over 32 and 62 layers.
 S_LOGIT_TOL = 5e-2
 # Phase D's reduced qwen3 keeps GQA (plain .reduced() gives H = K = 4)
 D_QWEN3 = dict(n_heads=8, n_kv_heads=2, head_dim=16, attn_impl="pallas")
@@ -3378,7 +3420,9 @@ def main():
     fp32_launches = phase_train_fp32()
     launches.update(phase_muon())
     phase_small()
-    serve_launches = phase_serve()
+    serve_launches = phase_serve(S_ARCH, "S")
+    h_launches = phase_serve(H_ARCH, "H")
+    n_launches = phase_serve(N_ARCH, "N")
     m2_launches = phase_mla_serve()
     m1 = phase_mla_train()
     x1 = phase_xlstm_train()
@@ -3456,6 +3500,18 @@ def main():
              "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get("hd256_256"),
              "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get("fa_fwd_tc_256_256")},
          "launches_P": p_launches, "launches_G": g_launches,
+         # hd 96: phi3-mini-3.8b's (96, 96) at its prefill shape (B=8,
+         # S=1024, H=K=32, causal), 32 launches a served prefill in H, and
+         # minicpm3-4b's MLA (96, 64) (H=K=40, v a strided view), 62 in N
+         **{key: {**{k: attn_cases[case][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
+             "worst_ratio")},
+             "ptxas": RESULTS["B_attention"]["ptxas"]["fa_fwd_tc"].get(f"hd{pair}"),
+             "hgmma": RESULTS["B_attention"]["hgmma"]["fa_fwd_tc"].get(f"fa_fwd_tc_{pair}")}
+            for key, case, pair in (("hd96", "phi3_hd96", "96_96"),
+                                    ("hd96_hdv64", "minicpm3_mla", "96_64"))},
+         "launches_H": h_launches, "launches_N": n_launches,
          # every bf16 build's registers, spill bytes and setmaxnreg/HGMMA
          # instructions (phase B: no spill, USETMAXREG beside HGMMA)
          "bf16_builds": RESULTS["B_attention"]["bf16_design"],

@@ -88,22 +88,27 @@ def tree_paths(tree: PyTree) -> List[Tuple[str, Any]]:
     return out
 
 
+# a module-level function, as _walk: a nested function that calls itself
+# is a reference cycle through its own closure, which keeps ``fn`` (and what
+# it captures, such as views of the stacked parameters) alive until the
+# garbage collector runs
+def _rebuild(fn, t, rs, prefix):
+    if isinstance(t, dict):
+        return {k: _rebuild(fn, t[k], [r[k] for r in rs], prefix + (str(k),)) for k in t}
+    if isinstance(t, (list, tuple)):
+        vals = [_rebuild(fn, x, [r[i] for r in rs], prefix + (key,))
+                for i, (key, x) in enumerate(zip(_child_keys(t), t, strict=True))]
+        return type(t)(vals) if not hasattr(t, "_fields") else type(t)(*vals)
+    if t is None:
+        return None
+    return fn("/".join(prefix), t, *rs)
+
+
 def map_with_path(fn: Callable[[str, Any], Any], tree: PyTree,
                   *rest: PyTree) -> PyTree:
     """Rebuild ``tree`` with ``fn(path, leaf, *matching leaves of rest)`` at
     every leaf; the structure (dict keys, sequence lengths) is ``tree``'s."""
-    def go(t, rs, prefix):
-        if isinstance(t, dict):
-            return {k: go(t[k], [r[k] for r in rs], prefix + (str(k),))
-                    for k in t}
-        if isinstance(t, (list, tuple)):
-            vals = [go(x, [r[i] for r in rs], prefix + (key,))
-                    for i, (key, x) in enumerate(zip(_child_keys(t), t, strict=True))]
-            return type(t)(vals) if not hasattr(t, "_fields") else type(t)(*vals)
-        if t is None:
-            return None
-        return fn("/".join(prefix), t, *rs)
-    return go(tree, list(rest), ())
+    return _rebuild(fn, tree, list(rest), ())
 
 
 def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:

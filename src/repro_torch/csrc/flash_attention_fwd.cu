@@ -7,12 +7,13 @@
 // h / (H/K) read in place; fp32 online softmax; masked scores are -1e30
 // after the 1/sqrt(hd) scale; l is summed from the unrounded fp32 p; out
 // (B,S,H,hdv) = acc / (l + 1e-30) in bf16. Any S: the ragged edge is masked,
-// not padded. (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128)
-// (qwen3-4b's and yi-9b's), (192, 128): MLA's q/k at nope 128 + rope 64
-// against its v at 128 (deepseek-v2-lite), or (256, 256) (paligemma-3b's 8
-// query heads on one kv head). v may be a strided view (MLA's v is a column
-// slice of the latent's up-projection): its head, row and batch strides go
-// into its tensor map.
+// not padded. (hd, hdv) is (16, 16), (32, 32), (64, 64), (96, 96)
+// (phi3-mini-3.8b's), (128, 128) (qwen3-4b's and yi-9b's), (96, 64) and
+// (192, 128): MLA's q/k at nope 64 + rope 32 against its v at 64
+// (minicpm3-4b) and at nope 128 + rope 64 against v at 128
+// (deepseek-v2-lite), or (256, 256) (paligemma-3b's 8 query heads on one kv
+// head). v may be a strided view (MLA's v is a column slice of the latent's
+// up-projection): its head, row and batch strides go into its tensor map.
 //
 // Numbers. P.V keeps p to fp32 accuracy, as the TPU kernel's fp32 P.V does:
 // P is split into three bf16 parts, hi = bf16(p), mid = bf16(p - hi) and
@@ -41,18 +42,26 @@
 //     0.078 ms.
 //   hd 256, paligemma-3b's prefill (B=8 S=1024 H=8 K=1 causal): 34.4 GFLOP
 //     (0.035 ms) against 75.5 MB (0.023 ms); three-part 68.8 GFLOP, 0.070 ms.
+//   hd 96, phi3-mini-3.8b's prefill (B=8 S=1024 H=K=32 causal): 51.5 GFLOP
+//     (0.052 ms) against 201 MB (0.060 ms); three-part 103.1 GFLOP, 0.104 ms.
+//   (96, 64), minicpm3-4b's prefill (B=8 S=1024 H=K=40 causal): 53.7 GFLOP
+//     (0.054 ms) against 210 MB (0.063 ms); three-part 96.6 GFLOP, 0.098 ms.
 // The tensor cores bound every build that keeps the three parts.
 //
 // Layout. One block per (128-row query tile, query head, batch), three
 // warpgroups. The tensor maps are 4-D over (hd, heads, S, B), so the query
 // head and the kv head are coordinates (no repeat or transpose is
 // materialised) and the hardware's zero fill past S serves the ragged edge.
-// Tiles are swizzled in shared memory (128 B for hd 64 and up, 64 B for hd
-// 32, 32 B for hd 16); the wgmma descriptors name the same swizzle. A
-// swizzle span holds at most 64 bf16 values and TMA's box is at most one
-// span wide, so an hd-128 tile is two column halves of 64, each its own
-// swizzled sub-tile loaded by its own box, an hd-192 tile three and an
-// hd-256 tile four. S =
+// Tiles are swizzled in shared memory (128 B for hd 64, 128, 192 and 256,
+// 64 B for hd 32 and 96, 32 B for hd 16); the wgmma descriptors name the
+// same swizzle. A swizzle span holds at most 64 bf16 values and TMA's box is
+// at most one span wide, so an hd-128 tile is two column halves of 64, each
+// its own swizzled sub-tile loaded by its own box, an hd-192 tile three and
+// an hd-256 tile four. A 192-byte row of hd 96 is no whole number of
+// 128-byte spans: its tile is three 32-column sub-tiles under the 64-byte
+// swizzle, as hd 32's one (Cols), each k-step of Q.K^T 32 bytes along a
+// sub-tile's row, and at hdv 96 P.V is one m64n96 product across the three
+// sub-tiles of V. S =
 // Q.K^T takes Q and K K-major from shared memory (bf16 x bf16 products are
 // exact in fp32); the fp32 accumulator layout of S is the A-register layout
 // of P.V, so P never goes to shared memory, and V is the MN-major B operand
@@ -186,12 +195,13 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&part
 // and stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64
 // B, 3: 32 B), chosen by the span. A tile of HD columns is stored as HD /
 // SPAN sub-tiles of SPAN columns, each row of a sub-tile exactly one swizzle
-// span (SPAN = hd up to 64, else 64), so a sub-tile's layout repeats every 8
-// rows. K-major operands (Q, K) step 8 rows by SBO and ignore LBO; a k-step
+// span (SPAN = 64, 32 or 16, the widest that divides hd), so a sub-tile's
+// layout repeats every 8 rows. K-major operands (Q, K) step 8 rows by SBO and ignore LBO; a k-step
 // of 16 columns adds 32 bytes inside a sub-tile, and the step into the next
 // sub-tile adds the sub-tile's bytes. The MN-major V steps 8 keys by SBO and
 // one sub-tile of columns by LBO (the sub-tile's bytes), which an m64n128
-// product over both sub-tiles of hdv 128 follows.
+// product over both sub-tiles of hdv 128 follows (m64n96 over the three of
+// hdv 96).
 template <int SPAN>
 struct Swizzle;
 template <>
@@ -219,20 +229,23 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "a P.V product's width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128, "a P.V product's width");
   if constexpr (N == 16) wgmma_bf16_m64n16k16_rs(d, a, db, scale_d);
   else if constexpr (N == 32) wgmma_bf16_m64n32k16_rs(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_bf16_m64n64k16_rs(d, a, db, scale_d);
+  else if constexpr (N == 96) wgmma_bf16_m64n96k16_rs(d, a, db, scale_d);
   else wgmma_bf16_m64n128k16_rs(d, a, db, scale_d);
 }
 
-// the columns of one operand's tile: HD / span sub-tiles of span columns
+// the columns of one operand's tile: HD / span sub-tiles of span columns,
+// span the widest swizzle span (64, 32 or 16 columns) that divides HD: hd
+// 96 is three 32-column sub-tiles under the 64-byte swizzle
 template <int HD>
 struct Cols {
-  static constexpr int span = HD < 64 ? HD : 64;  // columns of a sub-tile
-  static constexpr int nsub = HD / span;           // sub-tiles of a tile
-  static constexpr uint32_t row = span * 2;        // bytes of a sub-tile row
-  static_assert(HD % span == 0 && HD % 16 == 0, "whole sub-tiles of whole k-steps");
+  static constexpr int span = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  static constexpr int nsub = HD / span;     // sub-tiles of a tile
+  static constexpr uint32_t row = span * 2;  // bytes of a sub-tile row
+  static_assert(HD % 16 == 0, "whole sub-tiles of whole k-steps");
 };
 
 // Q and K have HDQ columns, V and the output HDV
@@ -662,8 +675,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
 // bf16 q (B,S,H,hd) and k (B,S,K,hd), contiguous; v (B,S,K,hdv) with unit
 // stride along hdv and head, row and batch strides vhs, vss, vbs (elements,
 // multiples of 8); o (B,S,H,hdv) contiguous; every base 16-byte aligned.
-// (hd, hdv) is (16, 16), (32, 32), (64, 64), (128, 128), (192, 128) or (256,
-// 256); fp32 is csrc/flash_attention_fwd_tf32.cu. Returns the cudaError_t of the launch,
+// (hd, hdv) is (16, 16), (32, 32), (64, 64), (96, 96), (128, 128), (96, 64),
+// (192, 128) or (256, 256); fp32 is csrc/flash_attention_fwd_tf32.cu. Returns the cudaError_t of the launch,
 // or TENSOR_MAP_ERROR + a CUresult (0 on success); the caller raises on
 // anything else, an unbuilt (hd, hdv) included.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
@@ -684,6 +697,10 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int 
     return launch_tc<192, 128>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
   if (hd == 256 && hdv == 256)
     return launch_tc<256, 256>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 96 && hdv == 96)
+    return launch_tc<96, 96>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
+  if (hd == 96 && hdv == 64)
+    return launch_tc<96, 64>(q, k, v, o, B, S, H, K, vhs, vss, vbs, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 

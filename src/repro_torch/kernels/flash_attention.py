@@ -27,11 +27,12 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 # each type's kernel instantiations as (hd, hdv), the q/k and the v head
 # dims: the bf16 kernel splits an hd-128 tile into two 64-column halves, an
-# hd-192 one into three and an hd-256 one into four, and takes MLA's (192,
-# 128) (deepseek-v2-lite) and paligemma's (256, 256); the fp32 kernel has no
-# hd-128 build and no hdv != hd
-HEAD_DIM_PAIRS = {torch.bfloat16: ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
-                                   (256, 256)),
+# hd-192 one into three and an hd-256 one into four, and an hd-96 one into
+# three 32-column sub-tiles; it takes phi3-mini's (96, 96), MLA's (96, 64)
+# (minicpm3) and (192, 128) (deepseek-v2-lite) and paligemma's (256, 256);
+# the fp32 kernel has no hd-96 or hd-128 build and no hdv != hd
+HEAD_DIM_PAIRS = {torch.bfloat16: ((16, 16), (32, 32), (64, 64), (96, 96), (128, 128),
+                                   (96, 64), (192, 128), (256, 256)),
                   torch.float32: ((16, 16), (32, 32), (64, 64))}
 # the C entries: bf16 (q, k, v, out, B, S, H, K, hd, hdv, v's head, row and
 # batch strides, causal, scale, stream); fp32 (q, k, v, out, B, S, H, K,

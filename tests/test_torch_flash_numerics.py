@@ -139,6 +139,25 @@ def test_three_part_split_holds_the_bf16_limit_at_hd192_hdv128(case):
     assert worst_ratio(got, exact_attention(q, k, v, causal=causal)) <= 1.0
 
 
+# hd 96: phi3-mini's (96, 96), H = K, and minicpm3's MLA (q/k 96, v 64);
+# Q.K^T over three 32-column sub-tiles, P.V over v's 96 or 64 columns
+HD96_CASES = [(1, 1000, 4, 4, 96, True), (1, 1000, 4, 4, 96, False), (2, 129, 4, 2, 96, True),
+              (1, 1000, 4, 4, 64, True), (1, 1000, 4, 4, 64, False), (1, 65, 2, 2, 64, False)]
+
+
+@pytest.mark.parametrize("case", HD96_CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd96_{}_{}".format(
+    *c[:5], "causal" if c[5] else "noncausal"))
+def test_three_part_split_holds_the_bf16_limit_at_hd96(case):
+    B, S, H, K, hdv, causal = case
+    q, k, v = _inputs(B, S, H, K, 96, seed=S * H + 96 + hdv, hdv=hdv)
+    got = kernel_model(q, k, v, causal=causal)
+    want = chunked_attention_ref(q, k, v, causal=causal, chunk_q=512, chunk_k=512)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, hdv)
+    assert torch.isfinite(got.float()).all()
+    assert worst_ratio(got, want) <= 1.0
+    assert worst_ratio(got, exact_attention(q, k, v, causal=causal)) <= 1.0
+
+
 def test_single_rounding_of_p_misses_the_limit():
     """Control: P rounded once to bf16 (FlashAttention's choice) misses the
     limit by two orders of magnitude at the main path's S."""

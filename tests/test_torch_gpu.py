@@ -208,6 +208,11 @@ ATTN += [(f"s{S}", 2, S, 8, 2, 64, torch.bfloat16, True) for S in (1, 63, 65, 12
 ATTN += [("hd128_g4", 2, 1024, 32, 8, 128, torch.bfloat16, True),
          ("hd128_g4_ragged_noncausal", 2, 1000, 8, 2, 128, torch.bfloat16, False),
          ("hd128_s65", 2, 65, 8, 2, 128, torch.bfloat16, True)]
+# bf16 at hd 96, phi3-mini-3.8b's heads (H = K = 32 at its prefill shape)
+ATTN += [("hd96_phi3_prefill", 8, 1024, 32, 32, 96, torch.bfloat16, True),
+         ("hd96_g2_ragged_noncausal", 2, 1000, 8, 4, 96, torch.bfloat16, False),
+         ("hd96_s65", 2, 65, 8, 8, 96, torch.bfloat16, True),
+         ("hd96_s1", 2, 1, 8, 8, 96, torch.bfloat16, True)]
 # bf16 at hd 256, paligemma-3b's heads (H = 8 on K = 1)
 ATTN += [("hd256_g8", 2, 1024, 8, 1, 256, torch.bfloat16, True),
          ("hd256_g8_ragged_noncausal", 2, 1000, 8, 1, 256, torch.bfloat16, False),
@@ -246,8 +251,8 @@ def test_flash_forward_matches_plain(cuda, case):
 
 def test_flash_two_launches_give_identical_bits(cuda):
     """The kernels use no atomics: the same input gives the same bits."""
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v = _qkv(8, 1024, 12, 12, 64, dt)
+    for dt, hd in ((torch.bfloat16, 64), (torch.float32, 64), (torch.bfloat16, 96)):
+        q, k, v = _qkv(8, 1024, 12, 12, hd, dt)
         first = fa.flash_attention_fwd_kernel(q, k, v)
         second = fa.flash_attention_fwd_kernel(q, k, v)
         assert torch.equal(first, second), dt
@@ -372,13 +377,17 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_fwd_kernel(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_fwd_kernel(q[:, :, :3].contiguous(), k, v)
-    # hd 128 is built for bf16 only, and hd 96 for neither type
+    # hd 128 and hd 96 are built for bf16 only, and hd 80 for neither type
     q128, k128, v128 = _qkv(1, 64, 2, 2, 128, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd_kernel(q128, k128, v128)
     q96, k96, v96 = _qkv(1, 64, 2, 2, 96, torch.bfloat16)
+    assert fa.flash_attention_fwd_kernel(q96, k96, v96).shape == (1, 64, 2, 96)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fwd_kernel(q96, k96, v96)
+        fa.flash_attention_fwd_kernel(q96.float(), k96.float(), v96.float())
+    q80, k80, v80 = _qkv(1, 64, 2, 2, 80, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd_kernel(q80, k80, v80)
 
 
 # (L, M, N, K, B transposed, C given, alpha, beta): the Newton-Schulz launch
@@ -639,47 +648,58 @@ def test_reduced_qwen3_serving_on_the_card_matches_the_cpu(cuda):
     assert card["peak_bytes"] > 0 and len(card["decode_ms"]) == 6
 
 
-# MLA's head dims, q/k 192 and v 128 (deepseek-v2-lite's), v a strided
-# column slice as MLA's is: (name, B, S, H, causal)
+# MLA's head dims, q/k 192 and v 128 (deepseek-v2-lite's) and q/k 96 and v
+# 64 (minicpm3-4b's), v a strided column slice as MLA's is: (name, B, S, H,
+# causal[, (hd, hdv)])
 MLA_ATTN = [("mla_prefill", 8, 1024, 16, True), ("mla_prefill_noncausal", 8, 1024, 16, False),
             ("mla_ragged", 2, 1000, 16, True), ("mla_ragged_noncausal", 2, 1000, 16, False)]
 MLA_ATTN += [(f"mla_s{S}", 2, S, 16, True) for S in (1, 63, 65, 129)]
+MLA_ATTN += [("mla96_prefill", 8, 1024, 40, True, (96, 64)),
+             ("mla96_noncausal", 2, 1024, 40, False, (96, 64)),
+             ("mla96_ragged", 2, 1000, 40, True, (96, 64)),
+             ("mla96_s129", 2, 129, 8, True, (96, 64))]
 
 
-def _mla_qkv(B, S, H, seed=1):
+def _mla_qkv(B, S, H, seed=1, hd=192, hdv=128):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k = (torch.randn(B, S, H, 192, generator=gen, device="cuda").bfloat16()
+    q, k = (torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
-    kv = torch.randn(B, S, H, 256, generator=gen, device="cuda").bfloat16()
-    return q, k, kv[..., 128:]
+    kv = torch.randn(B, S, H, 2 * hdv, generator=gen, device="cuda").bfloat16()
+    return q, k, kv[..., hdv:]
 
 
 @pytest.mark.parametrize("case", MLA_ATTN, ids=[c[0] for c in MLA_ATTN])
 def test_flash_mla_head_dims_match_plain(cuda, case):
-    """The (192, 128) build against the plain version at one bf16 step of
-    each element, and the strided v read in place: a contiguous copy gives
-    the same bits; two launches give the same bits."""
-    _, B, S, H, causal = case
-    q, k, v = _mla_qkv(B, S, H)
+    """The (192, 128) and (96, 64) builds against the plain version at one
+    bf16 step of each element, and the strided v read in place: a
+    contiguous copy gives the same bits; two launches give the same bits."""
+    _, B, S, H, causal, *dims = case
+    hd, hdv = dims[0] if dims else (192, 128)
+    q, k, v = _mla_qkv(B, S, H, hd=hd, hdv=hdv)
     assert not v.is_contiguous()
     out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
     ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert out.shape == (B, S, H, 128)
+    assert out.shape == (B, S, H, hdv)
     _close(out, ref)
     assert torch.equal(out, fa.flash_attention_fwd_kernel(q, k, v.contiguous(), causal=causal))
     assert torch.equal(out, fa.flash_attention_fwd_kernel(q, k, v, causal=causal))
 
 
 def test_flash_refuses_an_unbuilt_head_dim_pair(cuda):
-    """minicpm3-4b's MLA (q/k 96, v 64) and v at 192 are not built: the
+    """minicpm3-4b's MLA (q/k 96, v 64) is built in bf16 and launches; hd 80
+    in bf16, (96, 96) and (96, 64) in fp32 and v at 192 are not built: the
     wrapper raises instead of running a neighbouring instantiation, and so
     does the fp32 kernel at (192, 128)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q96, v64 = (torch.randn(1, 64, 2, d, generator=gen, device="cuda").bfloat16()
-                for d in (96, 64))
+    q96, v64, q80 = (torch.randn(1, 64, 2, d, generator=gen, device="cuda").bfloat16()
+                     for d in (96, 64, 80))
+    assert fa.flash_attention_fwd_kernel(q96, q96, v64).shape == (1, 64, 2, 64)
     with pytest.raises(ValueError, match="not built"):
-        fa.flash_attention_fwd_kernel(q96, q96, v64)
+        fa.flash_attention_fwd_kernel(q80, q80, q80)
+    for v in (q96, v64):
+        with pytest.raises(ValueError, match="not built"):
+            fa.flash_attention_fwd_kernel(q96.float(), q96.float(), v.float())
     q, k, v = _mla_qkv(1, 64, 2)
     with pytest.raises(ValueError, match="not built"):
         fa.flash_attention_fwd_kernel(q, k, q)
@@ -720,6 +740,35 @@ def test_mla_prefill_runs_the_kernel_once_a_layer(cuda):
         params, {"tokens": toks})
     assert float((flash.float() - dense.float()).abs().max()) <= \
         2.0 ** -5 * float(dense.float().abs().max())
+
+
+def test_hd96_prefills_run_the_kernel_once_a_layer(cuda):
+    """Reduced minicpm3-4b with MLA's full head dims (q/k 64 + 32, v 64) and
+    reduced phi3-mini at its head dim 96, in bf16 with attn_impl="pallas":
+    each prefill launches the (96, 64) or (96, 96) kernel once a layer, and
+    its last logits agree with dense attention's to the bf16 bound of the
+    MLA check above (2^-5 of the largest)."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_prefill_step
+
+    mla = MLAConfig(q_lora_rank=32, kv_lora_rank=64, qk_nope_head_dim=64, qk_rope_head_dim=32,
+                    v_head_dim=64)
+    for cfg in (get_config("minicpm3-4b").reduced(mla=mla),
+                get_config("phi3-mini-3.8b").reduced(head_dim=96)):
+        cfg = dataclasses.replace(cfg, dtype="bfloat16", attn_impl="pallas")
+        params = init_params(cfg, seed=0, device="cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 96), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+        reset_launches()
+        flash, _ = make_prefill_step(cfg)(params, {"tokens": toks})
+        assert LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+        dense, _ = make_prefill_step(dataclasses.replace(cfg, attn_impl="dense"))(
+            params, {"tokens": toks})
+        assert float((flash.float() - dense.float()).abs().max()) <= \
+            2.0 ** -5 * float(dense.float().abs().max())
 
 
 def test_frontend_prefills_run_the_kernel_once_a_layer(cuda):

@@ -1280,6 +1280,9 @@ inline void wgmma_bf16_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint
 inline void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int s) {
   wgmma_bf16_rs<64>(d, a, db, s);
 }
+inline void wgmma_bf16_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int s) {
+  wgmma_bf16_rs<96>(d, a, db, s);
+}
 inline void wgmma_bf16_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
                                      int s) {
   wgmma_bf16_rs<128>(d, a, db, s);
@@ -1346,7 +1349,9 @@ def _flash_bf16(fn, q, k, v, causal):
 # 32, each at S of 1, one past the 64-key tile and one past the 128-row
 # query tile, causal and not, G = 1, 2 and 4; (192, 128) with MLA's strided v;
 # (256, 256) at paligemma's G = 8 (K = 1), its two-stage ring and P.V in
-# 64-column pieces, with S = 63 and 130 besides
+# 64-column pieces, with S = 63 and 130 besides; (96, 96) (phi3-mini) and
+# (96, 64) (minicpm3's MLA, v strided): three 32-column sub-tiles under the
+# 64-byte swizzle, P.V at hdv 96 as one m64n96 product, G = 1 and 2
 BF16_FLASH_CASES = [(1, 1, 2, 2, 16, 16, True), (1, 65, 4, 1, 16, 16, False),
                     (1, 129, 4, 2, 16, 16, True), (1, 129, 2, 1, 64, 64, True),
                     (1, 65, 4, 2, 64, 64, True), (1, 129, 4, 1, 64, 64, False),
@@ -1355,7 +1360,13 @@ BF16_FLASH_CASES = [(1, 1, 2, 2, 16, 16, True), (1, 65, 4, 1, 16, 16, False),
                     (1, 65, 2, 2, 192, 128, False), (1, 1, 2, 2, 192, 128, True),
                     (1, 1, 8, 1, 256, 256, True), (1, 63, 8, 1, 256, 256, False),
                     (1, 65, 8, 1, 256, 256, True), (1, 130, 8, 1, 256, 256, True),
-                    (1, 130, 8, 1, 256, 256, False)]
+                    (1, 130, 8, 1, 256, 256, False), (1, 1, 2, 2, 96, 96, True),
+                    (1, 1, 4, 2, 96, 96, False), (1, 65, 2, 2, 96, 96, False),
+                    (1, 65, 4, 2, 96, 96, True), (1, 129, 4, 2, 96, 96, True),
+                    (1, 130, 2, 2, 96, 96, False), (1, 1, 2, 2, 96, 64, False),
+                    (1, 1, 4, 2, 96, 64, True), (1, 65, 2, 2, 96, 64, True),
+                    (1, 65, 4, 2, 96, 64, False), (1, 129, 2, 2, 96, 64, True),
+                    (1, 130, 4, 2, 96, 64, False)]
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES,
@@ -1395,7 +1406,17 @@ def test_emulated_flash_bf16_hd256_two_launches_give_identical_bits(flash_bf16):
                           _flash_bf16(flash_bf16, q, k, v, True))
 
 
-@pytest.mark.parametrize("hd, hdv", [(64, 64), (192, 128), (256, 256)])
+def test_emulated_flash_bf16_hd96_hdv64_two_launches_and_a_contiguous_v_give_identical_bits(
+        flash_bf16):
+    """minicpm3's (96, 64), v MLA's strided slice: two launches give the
+    same bits, and so does v copied into a contiguous array of its own."""
+    q, k, v = _flash_bf16_inputs(1, 130, 4, 2, 96, 64, seed=9)
+    first = _flash_bf16(flash_bf16, q, k, v, True)
+    assert np.array_equal(first, _flash_bf16(flash_bf16, q, k, v, True))
+    assert np.array_equal(first, _flash_bf16(flash_bf16, q, k, np.ascontiguousarray(v), True))
+
+
+@pytest.mark.parametrize("hd, hdv", [(64, 64), (192, 128), (256, 256), (96, 96), (96, 64)])
 def test_emulated_flash_bf16_ring_waits_for_a_late_consumer(flash_bf16_lib, hd, hdv):
     """The second consumer warpgroup held back 50 ms at the start of each
     block, S = 257 causal. In the block of query rows 128..255 the first

@@ -125,23 +125,29 @@ def test_entry_points_refuse_other_devices():
         fa.flash_attention_fwd(q, q, q)
 
 
-# (B, S, H, K, hd, block, dtype): G = H // K query heads per kv head
-ATTN = [(1, 32, 2, 2, 16, 16, "float32"),
-        (1, 32, 4, 2, 16, 16, "float32"),
-        (1, 32, 4, 2, 8, 32, "bfloat16")]
+# (B, S, H, K, hd, hdv, block, dtype): G = H // K query heads per kv head;
+# hd 96 as phi3-mini's (96, 96) and minicpm3's MLA (96, 64), v its own width
+ATTN = [(1, 32, 2, 2, 16, 16, 16, "float32"),
+        (1, 32, 4, 2, 16, 16, 16, "float32"),
+        (1, 32, 4, 2, 8, 8, 32, "bfloat16"),
+        (1, 32, 4, 2, 96, 96, 16, "float32"),
+        (1, 32, 4, 2, 96, 96, 16, "bfloat16"),
+        (1, 32, 4, 2, 96, 64, 16, "float32"),
+        (1, 32, 2, 2, 96, 64, 16, "bfloat16")]
 
 
-@pytest.mark.parametrize("case", ATTN, ids=["g1", "g2", "g2_bf16"])
+@pytest.mark.parametrize("case", ATTN, ids=["g1", "g2", "g2_bf16", "hd96_g2", "hd96_g2_bf16",
+                                            "hd96_hdv64_g2", "hd96_hdv64_bf16"])
 def test_flash_attention_matches_pallas(case):
     """Forward: the torch chunked oracle and the port's autograd Function
     (plain version on the CPU) against ``flash_attention_fwd`` in interpret
     mode. Backward: the Function's gradients against ``jax.vjp`` of the
     JAX custom-VJP wrapper, for the same cotangent."""
-    B, S, H, K, hd, blk, dt = case
+    B, S, H, K, hd, hdv, blk, dt = case
     rng = np.random.default_rng(S * H + K)
-    q, k, v, ct = (np.asarray(jnp.asarray(rng.standard_normal((B, S, h, hd)),
+    q, k, v, ct = (np.asarray(jnp.asarray(rng.standard_normal((B, S, h, d)),
                                           jnp.float32).astype(dt))
-                   for h in (H, K, K, H))
+                   for h, d in ((H, hd), (K, hd), (K, hdv), (H, hdv)))
     out, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, True, blk, blk, True),
                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     grads = vjp(jnp.asarray(ct))
@@ -154,4 +160,13 @@ def test_flash_attention_matches_pallas(case):
     _assert_close(out, chunked_attention_ref(tq.detach(), tk.detach(), tv.detach(),
                                              chunk_q=blk, chunk_k=blk), tol)
     for want, got in zip(grads, t_grads, strict=True):
+        if dt == "bfloat16" and hd == 96:
+            # each package rounds p, dp and ds to bf16 at its own places
+            # and sums 32 keys (and G heads, for dk and dv) of such terms:
+            # an element that comes out of cancellation lands a few bf16
+            # steps of its own from the other's (measured 1.8 steps on dk,
+            # 1.04 on dq, both under 6e-4 of the largest element), so
+            # beside one step of itself it may differ by 2^-8 of the
+            # largest; the forward holds the per-element limit above
+            tol = dict(BF16, atol=2.0 ** -8 * float(np.abs(np.asarray(want, np.float32)).max()))
         _assert_close(want, got, tol)

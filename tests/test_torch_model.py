@@ -132,3 +132,29 @@ def test_remat_changes_no_number():
     assert full[0] == none[0]
     for path in full[2]:
         assert torch.equal(full[2][path], none[2][path]), path
+
+
+@pytest.mark.parametrize("mode", ["prefill", "train"])
+def test_forward_leaves_no_reference_cycle_on_the_parameters(mode):
+    """Once a forward has returned and the caller drops the parameters,
+    they are freed at once, with the garbage collector off: no reference
+    cycle (such as a tree helper's recursive closure holding a lambda over
+    per-unit views of the stacked parameters) keeps them alive. On the card
+    such a cycle kept 6.8 GiB of a full-width model allocated after a
+    serving phase."""
+    import gc
+    import weakref
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    refs = [weakref.ref(t) for _, t in tree_paths(params)]
+    toks = torch.zeros(2, 8, dtype=torch.int64)
+    gc.disable()
+    try:
+        with torch.no_grad():
+            forward(cfg, params, {"tokens": toks}, mode)
+        del params
+        alive = [r for r in refs if r() is not None]
+    finally:
+        gc.enable()
+    assert not alive, f"{len(alive)} of {len(refs)} parameters outlive the forward"

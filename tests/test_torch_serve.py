@@ -5,7 +5,9 @@ Parameters come from the JAX package's ``init_params`` (exported as numpy,
 loaded with ``repro_torch.interop``), and so do the prompts. Reduced
 qwen3-4b keeps GQA with ``n_heads=8, n_kv_heads=2, head_dim=16`` (plain
 ``.reduced()`` gives H = K = 4); reduced phi3-mini is MHA, reduced
-gpt2-small ties its head, reduced llama-130m does not. Prefill runs
+gpt2-small ties its head, reduced llama-130m does not; phi3-mini also at
+its real head dim 96 and minicpm3-4b at its real MLA head dims (q/k 96, v
+64), the pairs of the bf16 flash kernel's hd-96 builds. Prefill runs
 ``attn_impl="dense"`` and ``"pallas"``: on the JAX side the Pallas kernel in
 interpret mode, on the port's side the kernel's plain version (CPU
 tensors); blocks of 8 over T = 16 make the online softmax cross tiles.
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import MLAConfig as JaxMLAConfig
 from repro.configs import get_config as jax_get_config
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_fwd
 from repro.models import init_cache as jax_init_cache
@@ -42,7 +45,7 @@ from repro.models.model import build_param_specs as jax_build_param_specs
 from repro.train.step import eval_step as jax_eval_step
 from repro.train.step import make_prefill_step as jax_make_prefill_step
 from repro.train.step import make_serve_step as jax_make_serve_step
-from repro_torch.configs import get_config
+from repro_torch.configs import MLAConfig, get_config
 from repro_torch.core.types import tree_paths
 from repro_torch.interop import to_numpy, to_tensor, tree_from_numpy
 from repro_torch.kernels import flash_attention as fa
@@ -61,12 +64,21 @@ RTOL, ATOL_FRAC = 1e-5, 2e-6
 BF16_FRAC = 2.0 ** -6
 B, T, S_MAX, DECODE_STEPS = 2, 16, 24, 4
 GQA = dict(n_heads=8, n_kv_heads=2, head_dim=16)
+# minicpm3-4b's MLA head dims (q/k nope 64 + rope 32, v 64) on reduced
+# ranks; each package gets its own MLAConfig
+MINICPM3_MLA = dict(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=64,
+                    qk_rope_head_dim=32, v_head_dim=64)
 MODELS = {"qwen3_gqa": ("qwen3-4b", GQA), "phi3_mha": ("phi3-mini-3.8b", {}),
-          "gpt2_tied": ("gpt2-small", {}), "llama": ("llama-130m", {})}
+          "gpt2_tied": ("gpt2-small", {}), "llama": ("llama-130m", {}),
+          "phi3_hd96": ("phi3-mini-3.8b", dict(head_dim=96)),
+          "minicpm3_hd96": ("minicpm3-4b", dict(mla=MINICPM3_MLA))}
 
 
 def _configs(arch, overrides):
-    return jax_get_config(arch).reduced(**overrides), get_config(arch).reduced(**overrides)
+    jo, to = dict(overrides), dict(overrides)
+    if "mla" in overrides:
+        jo["mla"], to["mla"] = JaxMLAConfig(**overrides["mla"]), MLAConfig(**overrides["mla"])
+    return jax_get_config(arch).reduced(**jo), get_config(arch).reduced(**to)
 
 
 def _np_tree(tree):

@@ -2,8 +2,9 @@
 """The bf16 flash kernel's design choices at its wide-head builds: build
 variants of csrc/flash_attention_fwd.cu that each change one choice, and
 time each at qwen3-4b's prefill shape (hd 128), deepseek-v2-lite's
-((192, 128), v a strided column slice) or paligemma-3b's (hd 256, H = 8 on
-K = 1) beside its ptxas report.
+((192, 128), v a strided column slice), paligemma-3b's (hd 256, H = 8 on
+K = 1), phi3-mini-3.8b's (hd 96, H = K = 32) or minicpm3-4b's ((96, 64),
+H = K = 40, v strided) beside its ptxas report.
 
     python3 tools/flash_hd128_variants.py                # needs one CUDA card and nvcc
     python3 tools/flash_hd128_variants.py --build-only   # ptxas and SASS only, no launch
@@ -15,8 +16,10 @@ Variants (patches of the source's constants, each a correct kernel):
                    hd 256, where 3 do not fit), a tile's P.V at hdv <= 128
                    as one product a part and k-step, S_t beside P_{t-1}.V;
                    at hdv 256 P.V in four 64-column pieces and each tile's
-                   S, softmax and P.V in turn; the producer warpgroup at 24
-                   registers and the consumers at 240;
+                   S, softmax and P.V in turn; hd 96 as three 32-column
+                   sub-tiles under the 64-byte swizzle, P.V at hdv 96 as one
+                   m64n96 product; the producer warpgroup at 24 registers
+                   and the consumers at 240;
   nstage_2         a ring of 2 K/V stages (hd 128 and (192, 128));
   pv_n_64          P.V at hdv 128 as two 64-column products, the second
                    issued once the first is added into the running sum;
@@ -25,14 +28,22 @@ Variants (patches of the source's constants, each a correct kernel):
   hd256_pv_halves  hd 256 with P.V in two 128-column pieces, in turn;
   hd256_bk32       hd 256 with 32-key tiles (S as m64n32 products), three
                    stages, the overlap, P.V in 64-column pieces: its running
-                   sum is grouped by 32 keys, so its bits differ.
+                   sum is grouped by 32 keys, so its bits differ;
+  hd96_pv_n_32     hdv 96 with P.V in three 32-column pieces, each added
+                   into the running sum before the next is issued;
+  hd96_pad128      hd 96 padded to 128 columns under the 128-byte swizzle
+                   (two boxes a tile, the second half past the tensor's
+                   edge, zero-filled by TMA), Q.K^T over the 6 real k-steps,
+                   P.V at hdv 96 as one m64n128 product.
 The first three run at the hd-128 and (192, 128) shapes, the hd256 ones at
-paligemma's; each but hd256_bk32 must give the kernel's bits.
+paligemma's, hd96_pv_n_32 at phi3-mini's and hd96_pad128 at phi3-mini's and
+minicpm3's; each but hd256_bk32 must give the kernel's bits.
 With ``--parent DIR`` the flash source and sm90.cuh in DIR (another
 commit's csrc/, unpacked with git archive) are built as ``parent`` and
 timed against ``kernel`` also at gpt2-small's hd-64 shapes (causal and
-not) and a ragged GQA shape, in turns parent, kernel, kernel, parent (a
-parent without the hd-256 build refuses that shape).
+not), a ragged GQA shape and hd 32 and 16 (G = 4), so that every older
+build is held to the parent's bits, in turns parent, kernel, kernel, parent
+(a parent without the hd-96 builds refuses those shapes).
 
 Each is built with the package's own nvcc flags into
 build/kernels/variants/, called through the same C entry as the kernel,
@@ -84,6 +95,26 @@ __device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 2], uint64_t da, uint6
 }
 
 """
+# hd 96 padded to 128 columns: 64-column sub-tiles under the 128-byte
+# swizzle, the last box half past the map's 96 columns (TMA fills zeros),
+# Q.K^T over the 6 real k-steps, P.V at hdv 96 as one m64n128 product
+PAD128 = [
+    ("  static constexpr int span = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;\n"
+     "  static constexpr int nsub = HD / span;     // sub-tiles of a tile\n",
+     "  static constexpr int span = HD < 64 ? HD : 64;\n"
+     "  static constexpr int nsub = (HD + span - 1) / span;\n"),
+    ("q_bytes = BQ * HDQ * 2;", "q_bytes = BQ * QK::nsub * QK::span * 2;"),
+    ("k_bytes = bk * HDQ * 2;", "k_bytes = bk * QK::nsub * QK::span * 2;"),
+    ("v_bytes = bk * HDV * 2;", "v_bytes = bk * V::nsub * V::span * 2;"),
+    ("  static constexpr int pv_n = wide ? 64 : HDV;",
+     "  static constexpr int pv_n = wide ? 64 : V::nsub * V::span;"),
+    ("static_assert(HDV % pv_n == 0", "static_assert(V::nsub * V::span % pv_n == 0"),
+    ("    float acc[HDV / 2];\n#pragma unroll\n    for (int i = 0; i < HDV / 2; ++i)",
+     "    float acc[V::nsub * V::span / 2];\n#pragma unroll\n"
+     "    for (int i = 0; i < V::nsub * V::span / 2; ++i)"),
+    ("      for (int c = 0; c < HDV / PN; ++c) {",
+     "      for (int c = 0; c < V::nsub * V::span / PN; ++c) {"),
+]
 BK = "  static constexpr int bk = 64;"
 OVERLAP = "  static constexpr bool overlap = !wide;"
 PV_N = "  static constexpr int pv_n = wide ? 64 : HDV;"
@@ -91,7 +122,7 @@ VARIANTS = {
     "kernel": [],
     "nstage_2": [("  static constexpr int nstage = alloc_for(3) <= SMEM_LIMIT ? 3 : 2;",
                   "  static constexpr int nstage = 2;")],
-    "pv_n_64": [(PV_N, "  static constexpr int pv_n = HDV < 64 ? HDV : 64;")],
+    "pv_n_64": [(PV_N, "  static constexpr int pv_n = HDV % 64 ? HDV : 64;")],
     "producer_40": [("constexpr int PRODUCER_REGS = 24;", "constexpr int PRODUCER_REGS = 40;")],
     # the hd-256 candidates (the kernel: 64-key tiles, two stages, each
     # tile's S, softmax and P.V in turn, P.V in 64-column pieces)
@@ -102,12 +133,17 @@ VARIANTS = {
                    ("template <int HDQ, int HDV>\n__global__", BK32_SS
                     + "template <int HDQ, int HDV>\n__global__"),
                    ("wgmma_bf16_m64n64k16_ss(s, q_desc", "wgmma_ss_n<BK>(s, q_desc")],
+    # hd 96 (the kernel: one m64n96 product a part and k-step at hdv 96)
+    "hd96_pv_n_32": [(PV_N, "  static constexpr int pv_n = wide ? 64 : HDV == 96 ? 32 : HDV;")],
+    "hd96_pad128": PAD128,
 }
 # the shapes each variant runs besides the kernel (the parent runs all)
 HD256 = ["paligemma_hd256"]
 WIDE = ["qwen3_hd128", "deepseek_mla"]
+HD96 = ["phi3_hd96", "minicpm3_mla"]
 VARIANT_SHAPES = {"nstage_2": WIDE, "pv_n_64": WIDE, "producer_40": WIDE,
-                  "hd256_overlap": HD256, "hd256_pv_halves": HD256, "hd256_bk32": HD256}
+                  "hd256_overlap": HD256, "hd256_pv_halves": HD256, "hd256_bk32": HD256,
+                  "hd96_pv_n_32": HD96[:1], "hd96_pad128": HD96}
 # the trace: clock64 at the phases of the consumers' main loop (one record
 # per block < 4, warpgroup and tile < 24), written by lane 0 of each
 # warpgroup's first warp, read through fa_trace_get
@@ -131,13 +167,17 @@ TRACE = [("namespace {\n\nusing namespace sm90;",
          ("        split_p();\n      }\n      // the last",
           "        split_p();\n        TR(6);\n      }\n      // the last")]
 # (name, B, S, H, K, hd, hdv, causal); the kernel and each variant run the
-# first three (VARIANT_SHAPES), the parent all of them
+# first five (VARIANT_SHAPES), the parent all of them
 SHAPES = [("qwen3_hd128", 8, 1024, 32, 8, 128, 128, True),
           ("deepseek_mla", 8, 1024, 16, 16, 192, 128, True),
           ("paligemma_hd256", 8, 1024, 8, 1, 256, 256, True),
+          ("phi3_hd96", 8, 1024, 32, 32, 96, 96, True),
+          ("minicpm3_mla", 8, 1024, 40, 40, 96, 64, True),
           ("main", 8, 1024, 12, 12, 64, 64, True),
           ("main_noncausal", 8, 1024, 12, 12, 64, 64, False),
-          ("gqa_ragged", 2, 1000, 8, 2, 64, 64, True)]
+          ("gqa_ragged", 2, 1000, 8, 2, 64, 64, True),
+          ("hd32_g4", 2, 1024, 8, 2, 32, 32, True),
+          ("hd16_g4", 2, 1024, 8, 2, 16, 16, True)]
 
 
 def build(name, source, header, out_dir):
@@ -301,7 +341,7 @@ def main():
         names = [n for n in built if built[n][0] is not None and n != "trace"]
         # the kernel at the wide shapes, each variant at its own; the parent
         # everywhere
-        plan = {n: VARIANT_SHAPES.get(n, WIDE + HD256) for n in names}
+        plan = {n: VARIANT_SHAPES.get(n, WIDE + HD256 + HD96) for n in names}
         if "parent" in plan:
             plan["parent"] = plan["kernel"] = [s[0] for s in SHAPES]
         reference = {}
