@@ -46,17 +46,25 @@ Phases:
          H=K=32) and minicpm3-4b's MLA (96, 64) at its (H=K=40, v a
          strided column slice), each causal (timed) and not, a ragged
          S=1000 causal and not, S in {1, 63, 65, 129}, and 20 seeds of
-         each prefill shape causal and 20 not; two
+         each prefill shape causal and 20 not; fp32 also at each of its
+         wide builds (FP32_WIDE): qwen3-4b's (128, 128) (H=32 K=8),
+         phi3-mini's (96, 96) (H=K=32), minicpm3-4b's (96, 64) (H=K=40)
+         and deepseek-v2-lite's (192, 128) (H=K=16), v a strided column
+         slice at both MLA pairs, and paligemma-3b's (256, 256) (H=8 K=1),
+         each at B=8 S=1024 causal (timed) and not, a ragged S=1000 causal
+         and not and S in {1, 63, 65, 129}; two
          launches must give the same bits; 40 seeds of a
          non-causal S=1000 GQA head must all hold the limit in each type
-         (20 more at hd 128, 20 at (192, 128) and 20 at hd 256 in bf16); the
+         (20 more at hd 128, 20 at (192, 128) and 20 at hd 256 in bf16; 10
+         at each fp32 wide build); the
          ptxas report of both kernels is printed, and cuobjdump must find
-         HGMMA in each instantiation of each (bf16 (hd, hdv) (16, 16) to
-         (128, 128), (96, 64), (192, 128) and (256, 256), fp32 hd 16-64);
+         HGMMA in each instantiation of each (both kernels' (hd, hdv)
+         (16, 16) to (128, 128), (96, 64), (192, 128) and (256, 256));
          every bf16 build must
          spill nothing, hold USETMAXREG (its producer warpgroup's
          registers go to the consumers) and have no wgmma that ptxas
-         serialised, and its registers and spills go on the kernels line
+         serialised, every fp32 build must spill nothing, and the
+         registers and spills of both go on the kernels line
          (kernels/report.py reads both); an fp32 row's bound is that of
          its 3xTF32 products on the tensor cores, the FFMA bound is
          recorded beside it, and a bf16 row's kernel floor with P.V as three
@@ -75,6 +83,13 @@ Phases:
          kernel, 24 launches) against dense attention from one init, loss
          and final hidden state within 1e-4, the non-causal control 10x
          outside; then 3 more steps of each, timed, and peak memory;
+  T1     the same for qwen3-4b cut to its first 2 layers at full width in
+         fp32 (B=8, S=1024, seed 0) through the fp32 kernel's (128, 128)
+         build (4 launches a step; yi-9b, olmoe-1b-7b and jamba take the
+         same build): C3f's checks and tolerances, then 2 timed steps;
+  T2     the same for deepseek-v2-lite-16b cut to 3 layers (m1_config)
+         through the (192, 128) build, v read in place (5 launches a step:
+         the dense first layer is a prefix, not recomputed);
   E      the GEMM kernel (csrc/matmul.cu) in the three launches of a
          Newton-Schulz step (Gram, polynomial, apply) at gpt2-small's four
          buckets, each against a float64 product on the card, with a
@@ -101,7 +116,11 @@ Phases:
          deepseek-v2-lite-16b and minicpm3-4b (MLA, MoE; fp32, the fp32
          flash kernel) card against CPU: loss and aux, every gradient,
          the MoE routing, served tokens and logits; and the same for
-         reduced xlstm-350m and jamba-v0.1-52b (the SSM mixers);
+         reduced xlstm-350m and jamba-v0.1-52b (the SSM mixers), and for
+         reduced models at their full configs' head dims (full_head_dims),
+         each fp32 wide build through a whole model: qwen3-4b at hd
+         128, phi3-mini at 96, paligemma-3b at 256, minicpm3-4b's MLA at
+         (96, 64) and deepseek-v2-lite's at (192, 128);
   S      serving qwen3-4b at full width (bf16, seed 0, B=8, T=1024, 128 new
          tokens, S_max=1152) through repro_torch.launch.serve.serve and the
          step functions: S1 the prefill with attn_impl="pallas" (the bf16
@@ -285,6 +304,10 @@ C3_HIDDEN_TOL = 5e-2
 # least 10 times past the hidden-state tolerance.
 C3F_LOSS_TOL = 1e-4
 C3F_HIDDEN_TOL = 1e-4
+# Phases T1 and T2 (qwen3-4b and deepseek-v2-lite-16b cut in depth, fp32)
+# hold C3f's tolerances: both sides compute in fp32 through 2 and 3 layers,
+# against C3f's 12. Steps of each (the first, counted, then the timed ones).
+T_STEPS = 3
 # Newton-Schulz at gpt2-small's buckets, smaller side first: (L, m, n)
 NS_BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 768, 3072), (1, 768, 50432)]
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
@@ -591,6 +614,15 @@ def rmnp_bitwise(shape, gen, beta, eps):
     return rec
 
 
+# the fp32 kernel's wide builds, as (case tag, H, K, hd, hdv) at their
+# models' heads: qwen3-4b (yi-9b, olmoe-1b-7b and jamba take the same
+# build), phi3-mini-3.8b, minicpm3-4b's MLA, deepseek-v2-lite-16b's MLA and
+# paligemma-3b
+FP32_WIDE = [("qwen3_hd128", 32, 8, 128, 128), ("phi3_hd96", 32, 32, 96, 96),
+             ("minicpm3_mla", 40, 40, 96, 64), ("deepseek_mla", 16, 16, 192, 128),
+             ("paligemma_hd256", 8, 1, 256, 256)]
+
+
 def attention_flops(B, S, H, hd, causal=True, hdv=None, pv_parts=1):
     """Q.K^T over hd and P.V over hdv (``pv_parts`` products, as the bf16
     kernel's three parts of P) for each (query, key) pair attended."""
@@ -703,6 +735,16 @@ def phase_attention():
               ("hd32_g4_fp32", 2, 1024, 8, 2, 32, fp32, True, False),
               ("hd16_g4_fp32", 2, 1024, 8, 2, 16, fp32, True, False)]
     cases += [(f"s{S}_fp32", 2, S, 8, 2, 64, fp32, True, False) for S in (1, 63, 65, 129)]
+    # fp32 at each wide build (FP32_WIDE): the model's prefill shape
+    # causal (timed, a row 3f) and not, a ragged S=1000 causal and not, and
+    # S around the 64-key tile and the 64- and 128-row query tiles
+    for tag, H, K, hd, hdv in FP32_WIDE:
+        cases += [(f"{tag}_fp32", 8, 1024, H, K, hd, fp32, True, True, hdv),
+                  (f"{tag}_fp32_noncausal", 8, 1024, H, K, hd, fp32, False, False, hdv),
+                  (f"ragged_{tag}_fp32", 2, 1000, H, K, hd, fp32, True, False, hdv),
+                  (f"ragged_{tag}_fp32_noncausal", 2, 1000, H, K, hd, fp32, False, False, hdv)]
+        cases += [(f"s{S}_{tag}_fp32", 2, S, 8, max(1, 8 * K // H), hd, fp32, True, False, hdv)
+                  for S in (1, 63, 65, 129)]
     # Each output element is held at 1e-6 * max|want| + rtol * |want|
     # (elementwise_err). fp32: the plain version sums fp32 products, the
     # kernel 3xTF32 products (to about 2^-22 each) in its own order, and
@@ -774,7 +816,7 @@ def phase_attention():
 
     # two launches on the same input give the same bits (no atomics)
     for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla", "paligemma_hd256",
-                 "phi3_hd96", "minicpm3_mla"):
+                 "phi3_hd96", "minicpm3_mla", *(f"{w[0]}_fp32" for w in FP32_WIDE)):
         q, k, v, causal = inputs[name]
         a = fa.flash_attention_fwd_kernel(q, k, v)
         b = fa.flash_attention_fwd_kernel(q, k, v)
@@ -817,6 +859,11 @@ def phase_attention():
               "bf16_hd128": seeds_over_limit(bf16, n=20, hd=128),
               "bf16_hd192_hdv128": seeds_over_limit(bf16, n=20, hd=192, hdv=128, kv_heads=4),
               "bf16_hd256": seeds_over_limit(bf16, n=20, hd=256, kv_heads=1)}
+    # 10 seeds of each fp32 wide build, its models' kv grouping (at most
+    # G = 4 on the 4 heads of the sweep's shape)
+    for tag, H, K, hd, hdv in FP32_WIDE:
+        stress[f"fp32_{tag}"] = seeds_over_limit(fp32, n=10, hd=hd, hdv=hdv,
+                                                 kv_heads=max(1, 4 * K // H))
     check(all(r["over_limit"] == 0 for r in stress.values()),
           f"attention: the non-causal seed sweep missed the limit {stress}")
     # 20 seeds of a prefill shape, every element of each held at the limit:
@@ -847,8 +894,8 @@ def phase_attention():
         lines = kreport.ptxas_lines(build.PTXAS_REPORTS.get(lib, ""), kernel, "hd")
         counts = kreport.sass_counts(build.library_path(lib))
         ours = {n: c for n, c in counts.items() if n.startswith(kernel)}
-        # the bf16 kernel is a template over (hd, hdv), the fp32 one over hd
-        keys = [f"{hd}_{hdv}" if dt == bf16 else f"{hd}" for hd, hdv in fa.HEAD_DIM_PAIRS[dt]]
+        # both kernels are templates over (hd, hdv)
+        keys = [f"{hd}_{hdv}" for hd, hdv in fa.HEAD_DIM_PAIRS[dt]]
         check(len(ours) == len(keys) and all(c > 0 for c in ours.values())
               and all(f"{kernel}_{key}" in ours for key in keys),
               f"attention: HGMMA missing from {kernel}'s SASS: {counts}")
@@ -861,8 +908,8 @@ def phase_attention():
     # to the consumers (setmaxnreg in the SASS), no build that spills, and
     # no wgmma that ptxas serialised
     report = build.PTXAS_REPORTS.get("flash_attention_fwd", "")
-    design = kreport.bf16_flash_design(
-        report, kreport.sass_functions(build.library_path("flash_attention_fwd")))
+    design = kreport.flash_design(
+        report, kreport.sass_functions(build.library_path("flash_attention_fwd")), "fa_fwd_tc")
     serialized = kreport.wgmma_serialized(report)
     for key, d in design.items():
         print(f"bf16 flash {key}: {d['registers']} registers, {d['spill_stores']} bytes spill "
@@ -873,8 +920,23 @@ def phase_attention():
     check(all(d["usetmaxreg"] > 0 and d["hgmma"] > 0 for d in design.values()),
           f"attention: USETMAXREG or HGMMA missing from fa_fwd_tc's SASS {design}")
     check(not serialized, f"attention: ptxas serialised the bf16 kernel's wgmma {serialized}")
+    # every fp32 build: HGMMA (3xTF32 on wgmma) and no spill; the builds
+    # with two consumer warpgroups hold USETMAXREG (reported, not required:
+    # hd 256's one consumer takes none)
+    fp32_design = kreport.flash_design(
+        build.PTXAS_REPORTS.get("flash_attention_fwd_tf32", ""),
+        kreport.sass_functions(build.library_path("flash_attention_fwd_tf32")),
+        "fa_fwd_tf32_kernel")
+    for key, d in fp32_design.items():
+        print(f"fp32 flash {key}: {d['registers']} registers, {d['spill_stores']} bytes spill "
+              f"stores, {d['spill_loads']} bytes spill loads, {d['usetmaxreg']} USETMAXREG, "
+              f"{d['hgmma']} HGMMA", flush=True)
+    check(sorted(fp32_design) == sorted(f"hd{hd}_{hdv}" for hd, hdv in fa.HEAD_DIM_PAIRS[fp32])
+          and all(d["spill_stores"] == 0 and d["spill_loads"] == 0 and d["hgmma"] > 0
+                  for d in fp32_design.values()),
+          f"attention: an fp32 flash build spills or lacks HGMMA {fp32_design}")
     emit("B_attention", {"cases": rows, "noncausal_seeds": stress, "ptxas": ptxas,
-                         "hgmma": hgmma, "bf16_design": design})
+                         "hgmma": hgmma, "bf16_design": design, "fp32_design": fp32_design})
     del inputs
     torch.cuda.empty_cache()
     return {r["case"]: r for r in rows}
@@ -1154,24 +1216,30 @@ def phase_train():
     return main_launches
 
 
-def phase_train_fp32():
-    """C3f: gpt2-small at full width in fp32 with attn_impl="pallas", the
-    fp32 flash kernel on the main path, against dense attention from one
-    init: the final hidden state (and a non-causal control), one single-pass
-    RMNP step under remat="full" (24 launches: 12 layers' forward and each
-    again in the recompute) and its loss, then 3 more steps of each, timed
-    on the host clock (each ends in a host read of the loss)."""
+def train_flash_fp32(tag, base, steps, record):
+    """One config in fp32 with attn_impl="pallas", the fp32 flash kernel on
+    the main path, against dense attention from one init (seed 0, B=8,
+    S=1024): the final hidden state (and a non-causal control), one
+    single-pass RMNP step under remat="full" (a launch for each attention
+    layer's forward and one for each that the stacked units recompute) and
+    its loss, then ``steps - 1`` more steps of each, timed on the host clock
+    (each ends in a host read of the loss), and peak memory. Emits
+    ``record`` and returns the flash launches of the first step."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import cosine_with_warmup, make_optimizer
     from repro_torch.data.pipeline import make_stream
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.train import batch_to_device
     from repro_torch.models import init_params, layers
-    from repro_torch.models.model import forward
+    from repro_torch.models.model import forward, plan_stack
     from repro_torch.train.step import make_train_step
 
-    base = dataclasses.replace(get_config("gpt2-small"), dtype="float32")
+    base = dataclasses.replace(base, dtype="float32")
+    # each attention layer's forward, and again in the recompute of the
+    # stacked units (a prefix layer, deepseek's dense first one, is not
+    # recomputed)
+    attn = [m in ("gqa", "mla") for m, _ in base.pattern]
+    want = sum(attn) + sum(attn[plan_stack(base.pattern)[0]:])
     batch = batch_to_device(make_stream(base, 1024, 8, seed=0).sample(0), "cuda")
     dense_attention = layers.attention
     hidden, loss, step_s, peak, counts = {}, {}, {}, {}, {}
@@ -1197,7 +1265,7 @@ def phase_train_fp32():
         state = opt.init(params)
         step_fn = make_train_step(cfg, opt, remat="full")
         secs = []
-        for i in range(4):
+        for i in range(steps):
             torch.cuda.synchronize()
             if i == 0:
                 reset_launches()
@@ -1207,10 +1275,11 @@ def phase_train_fp32():
             secs.append(time.perf_counter() - t)
             if i == 0:
                 counts[run], loss[run] = dict(LAUNCHES), value
-            check(math.isfinite(value), f"C3f {run} step {i}: loss {value}")
+            check(math.isfinite(value), f"{tag} {run} step {i}: loss {value}")
         step_s[run] = secs
         peak[run] = torch.cuda.max_memory_allocated() / 2**30
-        del params, state
+        del params, state, opt, step_fn, metrics
+        gc.collect()
     torch.cuda.empty_cache()
 
     def rel(a, b):
@@ -1218,29 +1287,56 @@ def phase_train_fp32():
 
     rel_flash = rel(hidden["pallas"], hidden["auto"])
     rel_control = rel(hidden["control"], hidden["auto"])
+    del hidden
     diff = abs(loss["auto"] - loss["pallas"])
     timing = {run: {"first_step_s": secs[0], "median_s": statistics.median(secs[1:]),
                     "min_s": min(secs[1:]), "max_s": max(secs[1:]), "step_s": secs}
               for run, secs in step_s.items()}
-    emit("C3f_train_flash_fp32", {
+    emit(record, {
+        "config": f"{base.name}, {base.num_layers} layers, full width, fp32, B=8, S=1024",
         "loss_dense": loss["auto"], "loss_flash": loss["pallas"], "loss_abs_diff": diff,
         "loss_tolerance": C3F_LOSS_TOL, "hidden_rel_flash": rel_flash,
         "hidden_rel_control": rel_control, "hidden_tolerance": C3F_HIDDEN_TOL,
         "launches": counts["pallas"], "steps": timing, "peak_mem_gb": peak})
     for run, t in timing.items():
-        print(f"C3f {run}: first step {t['first_step_s']:.3f} s, then median "
+        print(f"{tag} {run}: first step {t['first_step_s']:.3f} s, then median "
               f"{t['median_s']:.3f} s ({t['min_s']:.3f}-{t['max_s']:.3f}), peak "
               f"{peak[run]:.2f} GiB", flush=True)
-    check(counts["pallas"]["flash_attention_fwd"] == 2 * base.num_layers,
-          f"C3f flash launches {counts['pallas']}")
-    check(counts["auto"]["flash_attention_fwd"] == 0, f"C3f dense launches {counts['auto']}")
-    check(diff <= C3F_LOSS_TOL, f"C3f pallas loss {loss['pallas']} vs dense {loss['auto']}")
+    check(counts["pallas"]["flash_attention_fwd"] == want,
+          f"{tag} flash launches {counts['pallas']}, want {want}")
+    check(counts["auto"]["flash_attention_fwd"] == 0, f"{tag} dense launches {counts['auto']}")
+    check(diff <= C3F_LOSS_TOL, f"{tag} pallas loss {loss['pallas']} vs dense {loss['auto']}")
     check(rel_flash <= C3F_HIDDEN_TOL,
-          f"C3f hidden state: flash {rel_flash} > {C3F_HIDDEN_TOL}")
+          f"{tag} hidden state: flash {rel_flash} > {C3F_HIDDEN_TOL}")
     check(rel_control >= 10 * C3F_HIDDEN_TOL,
-          f"C3f hidden state: the non-causal control is only {rel_control} from dense, "
+          f"{tag} hidden state: the non-causal control is only {rel_control} from dense, "
           f"less than 10x the tolerance {C3F_HIDDEN_TOL}")
     return counts["pallas"]["flash_attention_fwd"]
+
+
+def phase_train_fp32():
+    """C3f: gpt2-small at full width in fp32 (the fp32 flash kernel's hd-64
+    build, 24 launches a step), 1 + 3 steps."""
+    from repro_torch.configs import get_config
+    return train_flash_fp32("C3f", get_config("gpt2-small"), 4, "C3f_train_flash_fp32")
+
+
+def phase_train_fp32_wide():
+    """T1: qwen3-4b cut to its first 2 layers at full width in fp32 through
+    the fp32 kernel's (128, 128) build (4 launches a step; the build that
+    qwen3-4b, yi-9b, olmoe-1b-7b and jamba take); T2: deepseek-v2-lite-16b
+    cut to 3 layers (m1_config) through its (192, 128) build, v MLA's
+    strided slice read in place (5 launches a step: its dense first layer
+    is a prefix outside the recomputed stack). Each 1 + 2 steps, as
+    C3f, under the allocator's expandable segments."""
+    from repro_torch.configs import cut_layers, get_config
+    out = {}
+    with expandable_segments():
+        out["T1"] = train_flash_fp32("T1", cut_layers(get_config(S_ARCH), "0:2"), T_STEPS,
+                                     "T1_train_flash_fp32_qwen3_4b")
+        out["T2"] = train_flash_fp32("T2", m1_config(), T_STEPS,
+                                     "T2_train_flash_fp32_deepseek_v2_lite")
+    return out
 
 
 def phase_muon():
@@ -1677,14 +1773,31 @@ def phase_small():
     from repro_torch.models import moe
     from repro_torch.models.model import loss_fn
     # reduced xlstm-350m (mLSTM and sLSTM) and jamba-v0.1-52b (mamba, GQA
-    # with the fp32 kernel at hd 16, MoE) under the same checks
-    for arch in ("deepseek-v2-lite-16b", "minicpm3-4b", "xlstm-350m", "jamba-v0.1-52b"):
-        cfg = get_config(arch).reduced(attn_impl="pallas")
+    # with the fp32 kernel at hd 16, MoE) under the same checks; then each
+    # fp32 wide build through a whole reduced model at its full
+    # config's head dims (full_head_dims): qwen3-4b at hd 128 (G = 4),
+    # phi3-mini-3.8b at 96, minicpm3-4b's MLA at 64 + 32 / 64, deepseek's
+    # at 128 + 64 / 128, paligemma-3b at 256 (the prompt's image embeddings
+    # from launch/serve.prompt_batch)
+    from repro_torch.launch.serve import prompt_batch
+    configs = [(arch, get_config(arch).reduced(attn_impl="pallas")) for arch in (
+        "deepseek-v2-lite-16b", "minicpm3-4b", "xlstm-350m", "jamba-v0.1-52b")]
+    for arch in (*D_GQA_HEADS, *D_MLA_HEADS):
+        cfg = full_head_dims(arch)
+        m = cfg.mla
+        hd, hdv = (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim) if m else (
+            cfg.head_dim, cfg.head_dim)
+        configs.append((f"{arch}_hd{hd}_{hdv}", cfg))
+    d_launches = {}  # flash launches of each config's loss on the card
+    for arch, cfg in configs:
         n_attn = sum(m in ("gqa", "mla") for m, _ in cfg.pattern)
         init = init_params(cfg, seed=0, device="cpu")
         batch = make_stream(cfg, 64, 4, seed=0).sample(0)
-        prompts = torch.randint(0, cfg.vocab, (4, 32),
-                                generator=torch.Generator().manual_seed(1))
+        if cfg.frontend == "none":
+            prompts = torch.randint(0, cfg.vocab, (4, 32),
+                                    generator=torch.Generator().manual_seed(1))
+        else:
+            prompts = prompt_batch(cfg, 4, 32, seed=1, device="cpu")
         runs = {}
         for device in ("cuda", "cpu"):
             params = tree_map(lambda t, d=device: t.to(d).requires_grad_(True), init)
@@ -1698,9 +1811,11 @@ def phase_small():
             launches = LAUNCHES["flash_attention_fwd"]
             with torch.no_grad():
                 served = generate(cfg, tree_map(lambda t: t.detach(), params),
-                                  prompts.to(device), 9, keep_logits=True)
+                                  tree_map(lambda t, d=device: t.to(d), prompts), 9,
+                                  keep_logits=True)
             runs[device] = (float(loss.detach()), float(metrics["aux"].detach()),
                             [g.float().cpu() for g in grads], served, routes, launches)
+        d_launches[arch] = runs["cuda"][5]
         (lc, ac, gc, sc, rc, nc), (lp, ap, gp, sp, rp, _) = runs["cuda"], runs["cpu"]
         g_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(gc, gp, strict=True))
@@ -1719,6 +1834,7 @@ def phase_small():
         check(g_err <= 1e-4, f"{arch}: gradients {g_err} of the largest apart")
         check(routes_equal, f"{arch}: MoE routing differs between the card and the CPU")
         check(same and rel <= 1e-4, f"{arch} serving: tokens equal {same}, logits {rel}")
+    return d_launches
 
 
 def phase_serve(arch, tag):
@@ -1907,6 +2023,24 @@ H_ARCH, N_ARCH = "phi3-mini-3.8b", "minicpm3-4b"
 S_LOGIT_TOL = 5e-2
 # Phase D's reduced qwen3 keeps GQA (plain .reduced() gives H = K = 4)
 D_QWEN3 = dict(n_heads=8, n_kv_heads=2, head_dim=16, attn_impl="pallas")
+# Phase D at the full configs' head dims: GQA archs (with the reduced heads'
+# overrides) and MLA archs
+D_GQA_HEADS = {"qwen3-4b": dict(n_heads=8, n_kv_heads=2), "phi3-mini-3.8b": {},
+               "paligemma-3b": {}}
+D_MLA_HEADS = ("minicpm3-4b", "deepseek-v2-lite-16b")
+
+
+def full_head_dims(arch):
+    """``arch`` reduced (width, depth, vocab) with attn_impl="pallas" and its
+    full config's head dims: hd for GQA, MLA's nope, rope and v head dims."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = full.reduced(attn_impl="pallas", **D_GQA_HEADS.get(arch, {}))
+    if full.mla is None:
+        return dataclasses.replace(cfg, head_dim=full.head_dim)
+    return dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, qk_nope_head_dim=full.mla.qk_nope_head_dim,
+        qk_rope_head_dim=full.mla.qk_rope_head_dim, v_head_dim=full.mla.v_head_dim))
 
 
 M_ARCH = "deepseek-v2-lite-16b"
@@ -3418,8 +3552,9 @@ def main():
     ns = phase_ns()
     launches = phase_train()
     fp32_launches = phase_train_fp32()
+    t_launches = phase_train_fp32_wide()
     launches.update(phase_muon())
-    phase_small()
+    d_launches = phase_small()
     serve_launches = phase_serve(S_ARCH, "S")
     h_launches = phase_serve(H_ARCH, "H")
     n_launches = phase_serve(N_ARCH, "N")
@@ -3536,6 +3671,25 @@ def main():
          "bound_ms": attn_fp32["bound_ms"], "bound_by": attn_fp32["bound_by"],
          "library_ms": attn_fp32["library_ms"]},
     ]
+    # the fp32 kernel's wide builds, one entry each: its model's prefill
+    # shape (phase B), launches on the main path's run that takes it (T1,
+    # T2, or phase D's card run of a reduced model at the full head dims),
+    # registers and spills
+    fp32_runs = {(128, 128): ("T1", t_launches["T1"]), (192, 128): ("T2", t_launches["T2"]),
+                 **{(hd, hdv): (f"D {tag}", d_launches[tag]) for tag, hd, hdv in (
+                     ("phi3-mini-3.8b_hd96_96", 96, 96), ("minicpm3-4b_hd96_64", 96, 64),
+                     ("paligemma-3b_hd256_256", 256, 256))}}
+    for tag, _, _, hd, hdv in FP32_WIDE:
+        case, (run, n) = attn_cases[f"{tag}_fp32"], fp32_runs[(hd, hdv)]
+        kernels.append({
+            "name": f"flash_attention_fwd_fp32_hd{hd}_{hdv}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_fwd_tf32.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:37", "launches": n,
+            "launches_in": run, **{k: case[k] for k in (
+                "max_abs_err", "worst_ratio", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bound_ffma_ms", "B", "S", "H", "K", "causal")},
+            "ms": case["kernel_ms"],
+            "build": RESULTS["B_attention"]["fp32_design"][f"hd{hd}_{hdv}"]})
     replaces = {"matmul": "src/repro/kernels/matmul.py:19",
                 "matmul3": "src/repro/kernels/matmul.py:69",
                 "ns_poly": "src/repro/kernels/newton_schulz.py:26",

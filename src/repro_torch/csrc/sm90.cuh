@@ -2,14 +2,14 @@
 // inline-PTX operation they use sits behind one of these small helpers.
 //
 //   shared memory   smem_u32, dynamic_smem, fence_proxy_async
-//   named barriers  bar_sync, bar_arrive
+//   named barriers  bar_sync
 //   mbarrier        mbar_init, mbar_init_fence, mbar_expect_tx, mbar_arrive,
 //                   mbar_wait, mbar_spin
 //   TMA             tma_load_4d, encode_fn (cuTensorMapEncodeTiled)
 //   wgmma           make_desc, wgmma_fence / wgmma_commit / wgmma_wait_all /
 //                   wgmma_wait_group<N>, fence_regs; the tf32 products
 //                   wgmma_tf32_m64n128k8 and wgmma_tf32_m64n64k8 (A and B in
-//                   shared memory) and wgmma_tf32_m64n{16,32,64}k8_rs (A in
+//                   shared memory) and wgmma_tf32_m64n{16,32}k8_rs (A in
 //                   registers); the bf16 products wgmma_bf16_m64n64k16_ss (A
 //                   and B K-major in shared memory) and
 //                   wgmma_bf16_m64n{16,32,64,96,128}k16_rs (A in registers, B
@@ -50,12 +50,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // named barrier id (1-15): bar_sync waits until `threads` threads (a
-// multiple of 32) have arrived at it, bar_arrive counts this thread and goes on
+// multiple of 32) have arrived at it
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ------------------------------------------------------------ mbarrier ---
@@ -194,6 +191,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 __device__ __forceinline__ void fence_regs(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// the same for an integer, also to keep what is computed from it (say, a
+// loop-invariant wgmma descriptor) where it is used, not hoisted out of the
+// loop into registers held across it
+__device__ __forceinline__ void fence_regs(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -276,22 +277,6 @@ __device__ __forceinline__ void wgmma_tf32_m64n32k8_rs(float (&d)[16], const uin
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                       uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

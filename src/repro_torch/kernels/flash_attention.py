@@ -28,23 +28,21 @@ DEFAULT_BLOCK_K = 512
 # each type's kernel instantiations as (hd, hdv), the q/k and the v head
 # dims: the bf16 kernel splits an hd-128 tile into two 64-column halves, an
 # hd-192 one into three and an hd-256 one into four, and an hd-96 one into
-# three 32-column sub-tiles; it takes phi3-mini's (96, 96), MLA's (96, 64)
-# (minicpm3) and (192, 128) (deepseek-v2-lite) and paligemma's (256, 256);
-# the fp32 kernel has no hd-96 or hd-128 build and no hdv != hd
-HEAD_DIM_PAIRS = {torch.bfloat16: ((16, 16), (32, 32), (64, 64), (96, 96), (128, 128),
-                                   (96, 64), (192, 128), (256, 256)),
-                  torch.float32: ((16, 16), (32, 32), (64, 64))}
-# the C entries: bf16 (q, k, v, out, B, S, H, K, hd, hdv, v's head, row and
-# batch strides, causal, scale, stream); fp32 (q, k, v, out, B, S, H, K,
-# hd, causal, scale, stream)
-BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
-                 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_FP32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                  + [ctypes.c_float, ctypes.c_void_p])
-# each type's library, C entry, error string and argument types
-_LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string", BF16_ARGTYPES),
-         torch.float32: ("flash_attention_fwd_tf32", "fa_fwd_tf32", "fa_tf32_error_string",
-                         _FP32_ARGTYPES)}
+# three 32-column sub-tiles; the fp32 kernel streams K and V^T through a
+# ring of spans of at most 32 columns beside a resident Q. Both take
+# phi3-mini's (96, 96), qwen3-4b's (128, 128), MLA's (96, 64) (minicpm3)
+# and (192, 128) (deepseek-v2-lite) and paligemma's (256, 256).
+HEAD_DIM_PAIRS = {dt: ((16, 16), (32, 32), (64, 64), (96, 96), (128, 128), (96, 64),
+                       (192, 128), (256, 256)) for dt in (torch.bfloat16, torch.float32)}
+# the C entry of each type: (q, k, v, out, B, S, H, K, hd, hdv, v's head,
+# row and batch strides, causal, scale, stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+# each type's library, C entry and error string
+_LIBS = {torch.bfloat16: ("flash_attention_fwd", "fa_fwd", "fa_error_string"),
+         torch.float32: ("flash_attention_fwd_tf32", "fa_fwd_tf32", "fa_tf32_error_string")}
+# v's strides must be multiples of this many elements (16 bytes)
+_V_STRIDE = {torch.bfloat16: 8, torch.float32: 4}
 
 _FN = {}
 
@@ -52,10 +50,10 @@ _FN = {}
 def _kernel(dtype):
     if dtype not in _FN:
         from repro_torch.kernels.build import load_library
-        name, entry, error, argtypes = _LIBS[dtype]
+        name, entry, error = _LIBS[dtype]
         lib = load_library(name)
         fn = getattr(lib, entry)
-        fn.argtypes = argtypes
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         err_str = getattr(lib, error)
         err_str.argtypes = [ctypes.c_int]
@@ -75,16 +73,16 @@ def _check(q, k, v):
             raise ValueError("q, k and v must share dtype and device")
     if q.dtype not in _LIBS:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    # q and k contiguous; the bf16 kernel reads v through a tensor map that
-    # takes its head, row and batch strides (16-byte multiples), so a column
-    # slice such as MLA's v is read in place
-    bf16 = q.dtype == torch.bfloat16
-    for name, t in (("q", q), ("k", k)) + (() if bf16 else (("v", v),)):
+    # q and k contiguous; both kernels read v through its head, row and
+    # batch strides (bf16: in its tensor map; fp32: in its 16-byte loads),
+    # so a column slice such as MLA's v is read in place
+    for name, t in (("q", q), ("k", k)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if bf16 and (v.stride(3) != 1 or any(st % 8 for st in v.stride()[:3])):
+    step = _V_STRIDE[q.dtype]
+    if v.stride(3) != 1 or any(st % step for st in v.stride()[:3]):
         raise ValueError(f"v must have unit stride along hdv and its other strides in "
-                         f"multiples of 8 elements; got strides {v.stride()}")
+                         f"multiples of {step} elements; got strides {v.stride()}")
     B, S, H, hd = q.shape
     hdv = v.shape[3]
     if k.shape[:2] != (B, S) or k.shape[3] != hd or v.shape[:3] != k.shape[:3]:
@@ -109,21 +107,13 @@ def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
     (B,S,H,hdv) in q's type, scaled by 1/sqrt(hd); both types on the tensor
     cores: bf16 with P in three bf16 parts, fp32 as 3xTF32. Raises on
     anything the kernel does not take, an unbuilt (hd, hdv) included."""
-    if q.dtype == torch.float32 and v.is_cuda:
-        # the fp32 kernel reads v's rows at hdv's stride: a column slice
-        # (MLA's v) is copied into place first
-        v = v.contiguous()
     _check(q, k, v)
     B, S, H, hd = q.shape
     out = q.new_empty((B, S, H, v.shape[3]))
     fn, err_str = _kernel(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    scale = 1.0 / (hd ** 0.5)
-    if q.dtype == torch.bfloat16:  # v's head, row and batch strides
-        args = (B, S, H, k.shape[2], hd, v.shape[3], v.stride(2), v.stride(1), v.stride(0),
-                int(causal), scale)
-    else:
-        args = (B, S, H, k.shape[2], hd, int(causal), scale)
+    args = (B, S, H, k.shape[2], hd, v.shape[3], v.stride(2), v.stride(1), v.stride(0),
+            int(causal), 1.0 / (hd ** 0.5))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args, stream)
     if err != 0:

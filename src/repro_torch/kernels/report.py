@@ -81,16 +81,16 @@ def sass_counts(library, opcode="HGMMA"):
             for name, lines in sass_functions(library).items()}
 
 
-def bf16_flash_design(report, sass):
-    """Per bf16 flash build (ptxas key ``hd<hd>_<hdv>``): registers and
-    spill bytes from the ptxas ``report``, and the HGMMA and USETMAXREG
-    instructions in its SASS (``sass``: ``sass_functions`` of the
-    library)."""
+def flash_design(report, sass, kernel):
+    """Per build of a flash kernel (``fa_fwd_tc``, bf16; ``fa_fwd_tf32_kernel``,
+    fp32; ptxas key ``hd<hd>_<hdv>``): registers and spill bytes from the
+    ptxas ``report``, and the HGMMA and USETMAXREG instructions in its SASS
+    (``sass``: ``sass_functions`` of the library)."""
     out = {}
-    for key, line in ptxas_lines(report, "fa_fwd_tc", "hd").items():
+    for key, line in ptxas_lines(report, kernel, "hd").items():
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        code = sass.get("fa_fwd_tc_" + key[2:], [])
+        code = sass.get(f"{kernel}_" + key[2:], [])
         named = [int(r) for ln in code for r in re.findall(r"\bR(\d+)\b", ln)]
         # an HGMMA names the first register of its accumulator's N / 2
         for ln in code:

@@ -14,7 +14,9 @@ against a float64 softmax attention:
   cores as their top 19 bits;
 - per key tile of 64, S as three products lo.hi, hi.lo, hi.hi (the small
   ones first) over k-steps of 8, a fresh accumulator for each 32 of hd
-  (hd 64: two, added in fp32), each k-step's sum added as the emulation's
+  (hd 64: two; hd 256: eight), added in turn in fp32 (the kernel's ring
+  brings K one span at a time in that order), each k-step's
+  sum added as the emulation's
   pessimistic model of the tensor cores adds (``_tc_sum`` of
   ``tests/test_torch_kernel_emulation.py``: every addend cut toward zero at
   the last fp32 bit of the largest, the sum cut toward zero);
@@ -22,13 +24,16 @@ against a float64 softmax attention:
   p = exp2(s - m) in fp32, l summed from that unrounded p;
 - P.V as the three products P_lo.V_hi, P_hi.V_lo, P_hi.V_hi over k-steps of
   8 keys into a fresh tile accumulator, and the running sum
-  acc = acc * corr + tile in fp32; out = acc / (l + 1e-30).
+  acc = acc * corr + tile in fp32; out = acc / (l + 1e-30). The kernel
+  takes hdv in pieces of 32 columns, each its own accumulator: a cut along
+  hdv changes no element's sum, so the model computes all of hdv at once.
 
-Two controls show why: one TF32 product for each of S and P.V misses the
-limit by orders of magnitude, and S summed over all 64 of hd in one
-accumulator misses it on near-zero elements of non-causal rows (the
-truncation of 24 k-steps at the size of the scores). Inputs are fp32, made
-with numpy from a seed.
+Every (hd, hdv) the kernel builds is held here, v at its own width where
+hdv != hd (MLA's). Two controls show why: one TF32 product for each of S and
+P.V misses the limit by orders of magnitude, and S summed over all of hd in
+one accumulator misses it on near-zero elements of non-causal rows (the
+truncation of 24 k-steps at the size of the scores at hd 64; 96 at hd 256).
+Inputs are fp32, made with numpy from a seed.
 """
 import math
 
@@ -93,7 +98,8 @@ def products(a, b, parts, slab):
 
 
 def kernel_model(q, k, v, *, causal, three=True, slab_hd=SLAB_HD):
-    """The kernel's arithmetic: q (B,S,H,hd), k/v (B,S,K,hd) fp32 -> fp32.
+    """The kernel's arithmetic: q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hdv)
+    fp32 -> (B,S,H,hdv) fp32.
     ``three=False``: one TF32 product (hi.hi) for S and for P.V;
     ``slab_hd``: the hd summed in one of S's accumulators."""
     B, S, H, hd = q.shape
@@ -105,7 +111,7 @@ def kernel_model(q, k, v, *, causal, three=True, slab_hd=SLAB_HD):
     scale_log2 = torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.float32)
     m = torch.full((B, H, S), NEG)
     ell = torch.zeros(B, H, S)
-    acc = torch.zeros(B, H, S, hd)
+    acc = torch.zeros(B, H, S, v.shape[-1])
     for kv0 in range(0, S, TILE_K):
         kv1 = min(S, kv0 + TILE_K)
         r0 = kv0 if causal else 0  # rows before kv0 see no key of the tile
@@ -148,27 +154,33 @@ def worst_ratio(got, want):
     return float((diff / (ATOL_FRAC * mag.max() + RTOL * mag)).max())
 
 
-def _inputs(B, S, H, K, hd, seed):
+def _inputs(B, S, H, K, hd, seed, hdv=None):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((B, S, h, hd)).astype(np.float32))
-            for h in (H, K, K)]
+    return [torch.from_numpy(rng.standard_normal((B, S, h, d)).astype(np.float32))
+            for h, d in ((H, hd), (K, hd), (K, hdv or hd))]
 
 
-# (B, S, H, K, hd, causal): phase B's GQA shape with a ragged S at batch 1,
-# gpt2-small's head shape (hd 64, G = 1) at S = 1024 with two of its heads,
-# both causal and not, and the narrow head dims with G = 4
+# (B, S, H, K, hd, causal[, hdv]): phase B's GQA shape with a ragged S at
+# batch 1, gpt2-small's head shape (hd 64, G = 1) at S = 1024 with two of its
+# heads, both causal and not, and the narrow head dims with G = 4; each wide
+# build non-causal over a ragged S of 1000 keys (where near-zero elements
+# show), one head (the model computes each head alone; G changes nothing
+# here), qwen3-4b's hd 128 also causal, MLA's (96, 64) and (192, 128)
 CASES = [(1, 1000, 8, 2, 64, True), (1, 1000, 8, 2, 64, False),
          (1, 1024, 2, 2, 64, True), (1, 1024, 2, 2, 64, False),
-         (1, 1000, 4, 1, 32, False), (1, 1000, 4, 1, 16, True)]
+         (1, 1000, 4, 1, 32, False), (1, 1000, 4, 1, 16, True),
+         (1, 1000, 1, 1, 128, False), (1, 1000, 1, 1, 128, True),
+         (1, 1000, 1, 1, 96, False), (1, 1000, 1, 1, 96, False, 64),
+         (1, 1000, 1, 1, 192, False, 128), (1, 1000, 1, 1, 256, False)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}".format(
-    *c[:5], "causal" if c[5] else "noncausal"))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}{}".format(
+    *c[:5], f"hdv{c[6]}_" if len(c) > 6 else "", "causal" if c[5] else "noncausal"))
 def test_three_tf32_products_hold_the_fp32_limit(case):
-    B, S, H, K, hd, causal = case
-    q, k, v = _inputs(B, S, H, K, hd, seed=S * H + hd + causal)
+    B, S, H, K, hd, causal, *rest = case
+    q, k, v = _inputs(B, S, H, K, hd, seed=S * H + hd + causal, hdv=rest[0] if rest else None)
     got = kernel_model(q, k, v, causal=causal)
-    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert got.dtype == torch.float32 and got.shape == q.shape[:3] + v.shape[3:]
     assert torch.isfinite(got).all()
     ratio = worst_ratio(got, exact_attention(q, k, v, causal=causal))
     print(f"model reading {case}: {ratio:.3f} of the limit")
@@ -193,4 +205,15 @@ def test_one_accumulator_over_hd_64_misses_the_limit():
     q, k, v = _inputs(*case[:5], seed=1024 * 2 + 64 + 0)
     want = exact_attention(q, k, v, causal=False)
     assert worst_ratio(kernel_model(q, k, v, causal=False, slab_hd=64), want) > 1.0
+    assert worst_ratio(kernel_model(q, k, v, causal=False), want) <= 1.0
+
+
+def test_one_accumulator_over_hd_256_misses_the_limit():
+    """Control at paligemma's (256, 256): S over all 256 of hd in one
+    accumulator (96 k-steps) misses the limit on the non-causal CASES entry
+    that eight accumulators of 32, added in turn, hold."""
+    case = (1, 1000, 1, 1, 256, False)
+    q, k, v = _inputs(*case[:5], seed=1000 * 1 + 256 + 0)
+    want = exact_attention(q, k, v, causal=False)
+    assert worst_ratio(kernel_model(q, k, v, causal=False, slab_hd=256), want) > 1.0
     assert worst_ratio(kernel_model(q, k, v, causal=False), want) <= 1.0

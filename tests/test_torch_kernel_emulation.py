@@ -16,8 +16,9 @@ compiled with the host C++ compiler against two small headers written below
   helper the kernel calls. ``tf32_rna`` rounds to 10 mantissa bits, to
   nearest with ties away; the dynamic shared memory is one static buffer
   and ``smem_u32`` an offset into it; an mbarrier is a count of pending
-  arrivals and a phase in that buffer, and a wait spins until the phase of
-  its parity is over; ``wgmma_tf32_m64n128k8`` decodes its
+  arrivals and a phase in that buffer, and a wait blocks (on a condition
+  variable that every completed phase signals) until the phase of its
+  parity is over; ``wgmma_tf32_m64n128k8`` decodes its
   two descriptors (start address, stride byte offset, the 128-byte swizzle
   on address bits 4-6 against bits 7-9), reads each K-major operand as the
   PTX ISA lays it out, ignores the low 13 bits of each tf32 operand, and
@@ -295,6 +296,7 @@ SM90_MODEL = r"""
 #include <cuda_runtime.h>
 #include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -322,10 +324,13 @@ inline void mbar_init(uint32_t bar, uint32_t count) {
   *mbar(bar) = {count, count, 0, 0};
 }
 inline void mbar_init_fence() {}
+// signalled on every completed phase (with mbar_lock held)
+inline std::condition_variable mbar_cv;
 inline void mbar_complete_if_done(Mbar* m) {
   if (m->pending == 0 && m->tx == 0) {
     m->pending = m->count;
     ++m->phase;
+    mbar_cv.notify_all();
   }
 }
 inline void mbar_arrive(uint32_t bar) {
@@ -352,19 +357,15 @@ inline void mbar_complete_tx(uint32_t bar, uint32_t bytes) {
 }
 // the phase of the given parity has completed once the current one
 // differs; a wait that sees none for 60 s aborts, as the card's wait traps,
-// so a broken ring fails instead of hanging
+// so a broken ring fails instead of hanging. A waiting thread blocks until a
+// phase completes somewhere: hundreds of emulated threads wait on a ring at
+// once, and spinning kept every core of the machine busy
 inline void mbar_wait(uint32_t bar, uint32_t parity) {
   const auto until = std::chrono::steady_clock::now() + std::chrono::seconds(60);
-  for (;;) {
-    {
-      std::lock_guard<std::mutex> g(mbar_lock);
-      if ((mbar(bar)->phase & 1) != parity) return;
-    }
-    if (std::chrono::steady_clock::now() > until) {
-      std::fprintf(stderr, "mbar_wait: no phase of parity %u in 60 s\n", parity);
-      std::abort();
-    }
-    std::this_thread::yield();
+  std::unique_lock<std::mutex> g(mbar_lock);
+  if (!mbar_cv.wait_until(g, until, [&] { return (mbar(bar)->phase & 1) != parity; })) {
+    std::fprintf(stderr, "mbar_wait: no phase of parity %u in 60 s\n", parity);
+    std::abort();
   }
 }
 inline void wgmma_fence() {}
@@ -904,21 +905,41 @@ def test_rmnp_split(d_in, d_out):
 # (SM90_MODEL), with the helpers it adds: named barriers (a count and a
 # generation each; bar_sync waits for the generation to turn), the tf32
 # wgmma forms m64n64k8 (A and B from shared memory, read as the GEMM's) and
-# m64n{16,32,64}k8 with A from registers (the warpgroup's threads put their
+# m64n{16,32}k8 with A from registers (the warpgroup's threads put their
 # A fragments in a common buffer and meet at a barrier of the warpgroup, so
 # each thread reads the rows it needs from the threads that hold them: row g
 # and g + 8 of warp w, column c and c + 4, from lane 4 (row % 8) + c % 4),
-# ex2 as exp2 in fp32, and __shfl_xor_sync through a buffer and a barrier of
-# the warp.
+# ex2 as exp2 in fp32, __shfl_xor_sync and __shfl_sync through a buffer and
+# a barrier of the warp; mbar_spin is mbar_wait, and setmaxnreg and
+# wait_group are no-ops, since the model computes at issue.
+# ``emulate_hold_second_consumer`` holds the second consumer warpgroup
+# (threads 128..255) back at its first Q.K^T product of each block, so the
+# producer and the first consumer run ahead of it through the ring. Every
+# build runs here, (16, 16) to (256, 256), v through its strides (MLA's
+# column slice where hdv != hd).
 
 FLASH_SOURCE = SOURCE.with_name("flash_attention_fwd_tf32.cu")
 
 FLASH_MODEL = r"""
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <condition_variable>
 #include <memory>
 #include <vector>
+// microseconds that each thread of the second consumer warpgroup sleeps
+// before its first Q.K^T product of a block
+inline std::atomic<int> hold_second_consumer_us{0};
+extern "C" void emulate_hold_second_consumer(int us) { hold_second_consumer_us = us; }
 namespace sm90 {
+// the hold, in the threads of warpgroup wg (the second consumer)
+inline void hold_consumer(int wg) {
+  thread_local bool held = false;  // a block's threads are made anew
+  if (!held && int(threadIdx.x / 128) == wg && hold_second_consumer_us > 0) {
+    held = true;
+    std::this_thread::sleep_for(std::chrono::microseconds(hold_second_consumer_us.load()));
+  }
+}
 struct GroupBarriers {
   std::vector<std::unique_ptr<std::barrier<>>> warp, warpgroup;
   GroupBarriers() {
@@ -940,18 +961,24 @@ inline bool named_arrive(int id, int threads) {
   named_cv.notify_all();
   return true;
 }
-inline void bar_arrive(int id, int threads) {
-  std::lock_guard<std::mutex> g(named_lock);
-  named_arrive(id, threads);
-}
 inline void bar_sync(int id, int threads) {
   std::unique_lock<std::mutex> g(named_lock);
   const unsigned gen = named_gen[id];
   if (!named_arrive(id, threads)) named_cv.wait(g, [&] { return named_gen[id] != gen; });
 }
 template <int N> inline void fence_regs(uint32_t (&)[N][4]) {}
+inline void fence_regs(uint32_t&) {}
 inline float ex2(float x) { return std::exp2(x); }
+template <int N> inline void wgmma_wait_group() {}
+inline void mbar_spin(uint32_t bar, uint32_t parity) { mbar_wait(bar, parity); }
+template <int N> inline void setmaxnreg_inc() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
+}
+template <int N> inline void setmaxnreg_dec() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
+}
 inline void wgmma_tf32_m64n64k8(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  hold_consumer(1);  // the producer is the last warpgroup
   const int t = threadIdx.x % 128, lane = t % 32;
   for (int i = 0; i < 32; ++i) {
     const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
@@ -990,9 +1017,6 @@ inline void wgmma_tf32_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4], uint64
 inline void wgmma_tf32_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int s) {
   wgmma_tf32_rs<32>(d, a, db, s);
 }
-inline void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int s) {
-  wgmma_tf32_rs<64>(d, a, db, s);
-}
 }  // namespace sm90
 inline float shfl_buffer[1024];
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
@@ -1016,14 +1040,16 @@ inline int __shfl_sync(unsigned, int v, int src_lane) {
 
 
 @pytest.fixture(scope="module")
-def flash_tf32(tmp_path_factory):
+def flash_tf32_lib(tmp_path_factory):
+    """The emulated library: ``fa_fwd_tf32`` and ``emulate_hold_second_consumer``."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
+    from repro_torch.kernels import flash_attention as fa
     out = tmp_path_factory.mktemp("flash_emulation")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
     (out / "sm90.cuh").write_text(SM90_MODEL + FLASH_MODEL)
-    src = re.sub(r"(\w+<\w+>)<<<(\w+), (\w+), [^>]*>>>\((\w+)\)",
+    src = re.sub(r"(\w+<[\w, ]+>)<<<(\w+), (\w+), [^>]*>>>\((\w+)\)",
                  r"emulate_launch(\1, \2, \3, \4)", FLASH_SOURCE.read_text())
     assert src.count("emulate_launch(") == 1, "the launch site of flash_attention_fwd_tf32.cu changed"
     (out / "flash.cpp").write_text(src)
@@ -1031,57 +1057,142 @@ def flash_tf32(tmp_path_factory):
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-Wno-unknown-pragmas",
                     "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
                     str(out / "flash.cpp")], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).fa_fwd_tf32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    lib.fa_fwd_tf32.argtypes = fa.ARGTYPES
+    lib.fa_fwd_tf32.restype = ctypes.c_int
+    lib.emulate_hold_second_consumer.argtypes = [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def flash_tf32(flash_tf32_lib):
+    return flash_tf32_lib.fa_fwd_tf32
 
 
 def _flash(fn, q, k, v, causal):
-    """The kernel's C entry on contiguous numpy fp32 (B, S, heads, hd)."""
+    """The kernel's C entry on numpy fp32 (B, S, heads, hd): q and k
+    contiguous, v by its strides."""
     B, S, H, hd = q.shape
-    out = np.full_like(q, np.nan)
+    hdv = v.shape[3]
+    out = np.full((B, S, H, hdv), np.nan, np.float32)
+    vs = [st // 4 for st in v.strides]
     err = fn(q.ctypes.data, k.ctypes.data, v.ctypes.data, out.ctypes.data, B, S, H, k.shape[2],
-             hd, int(causal), 1.0 / hd ** 0.5, None)
+             hd, hdv, vs[2], vs[1], vs[0], int(causal), 1.0 / hd ** 0.5, None)
     assert err == 0
     return out
 
 
-def _flash_inputs(B, S, H, K, hd, seed):
+def _flash_inputs(B, S, H, K, hd, seed, hdv=None):
+    """q, k, v in fp32; with hdv != hd, v is MLA's strided column slice: the
+    last hdv columns of a (B, S, K, 2 hdv) array."""
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, S, h, hd)).astype(np.float32) for h in (H, K, K)]
+    q, k = (rng.standard_normal((B, S, h, hd)).astype(np.float32) for h in (H, K))
+    if hdv is None or hdv == hd:
+        return q, k, rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    return q, k, rng.standard_normal((B, S, K, 2 * hdv)).astype(np.float32)[..., hdv:]
 
 
-# (B, S, H, K, hd, causal): S of 1, one short of and one past the 64-key
-# tile, and past the 128-row query tile; hd 16, 32 and 64; G = 1 and 4;
-# causal and not
-FLASH_CASES = [(1, 1, 4, 1, 64, True), (2, 1, 2, 2, 16, False), (2, 63, 2, 2, 64, False),
-               (1, 63, 4, 1, 32, True), (1, 65, 4, 1, 32, False), (1, 65, 2, 2, 16, True),
-               (1, 129, 2, 2, 64, True), (1, 129, 4, 1, 16, False), (1, 129, 4, 1, 64, False)]
-
-
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}".format(
-    *c[:5], "causal" if c[5] else "noncausal"))
-def test_emulated_flash_tf32_matches_plain(flash_tf32, case):
-    """Against the plain version (torch, CPU) at the fp32 limit of phase B,
+def _flash_limit(got, want):
+    """Worst ratio of |got - want| to phase B's fp32 limit,
     1e-5 * |want| + 1e-6 * max|want| per element."""
+    lim = 1e-6 * np.abs(want).max() + 1e-5 * np.abs(want)
+    return float(np.max(np.abs(got - want) / lim))
+
+
+def _flash_plain(q, k, v, causal):
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, K, hd, causal = case
-    q, k, v = _flash_inputs(B, S, H, K, hd, seed=S * H + hd)
+    return fa.flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+
+
+# (B, S, H, K, hd, hdv, causal). hd 16, 32 and 64: S of 1, one short of
+# and one past the 64-key tile, and past the 128-row query tile; G = 1 and
+# 4; causal and not. The wide builds: each pair at S of 1 and past the
+# 64-key tile (S = 130 also past the 128-row query tile; S = 65 past hd
+# 256's 64-row one), causal and not; G = 1, 2, 4 and 8 (paligemma's K = 1);
+# v strided at (96, 64) and (192, 128)
+FLASH_CASES = [(1, 1, 4, 1, 64, 64, True), (2, 1, 2, 2, 16, 16, False),
+               (2, 63, 2, 2, 64, 64, False), (1, 63, 4, 1, 32, 32, True),
+               (1, 65, 4, 1, 32, 32, False), (1, 65, 2, 2, 16, 16, True),
+               (1, 129, 2, 2, 64, 64, True), (1, 129, 4, 1, 16, 16, False),
+               (1, 129, 4, 1, 64, 64, False)]
+FLASH_CASES += [(1, 1, 4, 2, 96, 96, True), (1, 130, 4, 2, 96, 96, True),
+                (1, 65, 4, 1, 128, 128, True), (1, 130, 4, 2, 128, 128, False),
+                (1, 1, 2, 2, 96, 64, False), (1, 65, 2, 2, 96, 64, True),
+                (1, 1, 2, 2, 192, 128, True), (1, 130, 2, 1, 192, 128, True),
+                (1, 1, 8, 1, 256, 256, False), (1, 65, 8, 1, 256, 256, True),
+                (1, 65, 4, 1, 256, 256, False)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}{}".format(
+    *c[:5], "" if c[5] == c[4] else f"hdv{c[5]}_", "causal" if c[6] else "noncausal"))
+def test_emulated_flash_tf32_matches_plain(flash_tf32, case):
+    """Against the plain version (torch, CPU) at the fp32 limit of phase B,
+    1e-5 * |want| + 1e-6 * max|want| per element."""
+    B, S, H, K, hd, hdv, causal = case
+    q, k, v = _flash_inputs(B, S, H, K, hd, seed=S * H + hd, hdv=hdv)
     got = _flash(flash_tf32, q, k, v, causal)
-    want = fa.flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    want = _flash_plain(q, k, v, causal)
     assert np.isfinite(got).all()
-    lim = 1e-6 * np.abs(want).max() + 1e-5 * np.abs(want)
-    print(f"emulated {case}: {float(np.max(np.abs(got - want) / lim)):.3f} of the limit")
-    assert np.all(np.abs(got - want) <= lim)
+    ratio = _flash_limit(got, want)
+    print(f"emulated {case}: {ratio:.3f} of the limit")
+    assert ratio <= 1.0
 
 
 def test_emulated_flash_tf32_two_launches_give_identical_bits(flash_tf32):
     q, k, v = _flash_inputs(1, 129, 4, 1, 64, seed=3)
     first = _flash(flash_tf32, q, k, v, True)
     assert np.array_equal(first, _flash(flash_tf32, q, k, v, True))
+
+
+def test_emulated_flash_tf32_wide_two_launches_and_a_contiguous_v_give_identical_bits(
+        flash_tf32):
+    """deepseek's (192, 128), v MLA's strided slice: two launches give the
+    same bits, and so does v copied into a contiguous array of its own."""
+    q, k, v = _flash_inputs(1, 65, 2, 1, 192, seed=11, hdv=128)
+    first = _flash(flash_tf32, q, k, v, True)
+    assert np.array_equal(first, _flash(flash_tf32, q, k, v, True))
+    assert np.array_equal(first, _flash(flash_tf32, q, k, np.ascontiguousarray(v), True))
+
+
+def test_emulated_flash_tf32_builds_cut_no_bit(flash_tf32):
+    """Each output element takes the same operations in the same order in
+    every build: hd 64 (two spans, two pieces, 128-row blocks of two
+    consumer warpgroups) equals (256, 256) (eight of each, 64-row blocks of
+    one) on q, k and v whose columns past 64 are zero (at hd 64's scale),
+    in its first 64 columns, and the rest of its output is zero."""
+    wide, S = 256, 130
+    q, k, v = _flash_inputs(1, S, 2, 1, 64, seed=13)
+    want = _flash(flash_tf32, q, k, v, True)
+    pad = [np.zeros(x.shape[:3] + (wide,), np.float32) for x in (q, k, v)]
+    for z, x in zip(pad, (q, k, v), strict=True):
+        z[..., :64] = x
+    out = np.full((1, S, 2, wide), np.nan, np.float32)
+    err = flash_tf32(*(x.ctypes.data for x in pad), out.ctypes.data, 1, S, 2, 1, wide, wide,
+                     wide, wide, S * wide, 1, 1 / 8, None)
+    assert err == 0
+    assert np.array_equal(out[..., :64], want)
+    assert not out[..., 64:].any()
+
+
+def test_emulated_flash_tf32_ring_waits_for_a_late_consumer(flash_tf32_lib):
+    """The second consumer warpgroup held back 50 ms at the start of each
+    block, S = 257 causal, at (192, 128), whose ring has 2 slots: in the
+    block of query rows 128..255 the first consumer visits key tiles 0..2
+    and skips tile 3, whose slots it must release only once they are
+    filled; a release made early completes a phase the second consumer has
+    not read. The held launch must give the free launch's bits and hold the
+    limit."""
+    q, k, v = _flash_inputs(1, 257, 1, 1, 192, seed=192, hdv=128)
+    free = _flash(flash_tf32_lib.fa_fwd_tf32, q, k, v, True)
+    flash_tf32_lib.emulate_hold_second_consumer(50_000)
+    try:
+        held = _flash(flash_tf32_lib.fa_fwd_tf32, q, k, v, True)
+    finally:
+        flash_tf32_lib.emulate_hold_second_consumer(0)
+    assert _flash_limit(held, _flash_plain(q, k, v, True)) <= 1.0
+    assert np.array_equal(held, free)
 
 
 # --------------------------------------------------- flash attention, bf16 ---
@@ -1155,12 +1266,6 @@ inline CUresult cuTensorMapEncodeTiled(CUtensorMap* map, CUtensorMapDataType typ
 
 BF16_FLASH_MODEL = r"""
 #include <cuda.h>
-#include <atomic>
-#include <chrono>
-// microseconds that each thread of the second consumer warpgroup (threads
-// 256..383) sleeps before its first Q.K^T product of a block
-inline std::atomic<int> hold_second_consumer_us{0};
-extern "C" void emulate_hold_second_consumer(int us) { hold_second_consumer_us = us; }
 namespace sm90 {
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1170,14 +1275,6 @@ constexpr int TENSOR_MAP_ERROR = 100000;
 inline cudaError_t encode_fn(EncodeTiled* out) {
   *out = cuTensorMapEncodeTiled;
   return cudaSuccess;
-}
-template <int N> inline void wgmma_wait_group() {}
-inline void mbar_spin(uint32_t bar, uint32_t parity) { mbar_wait(bar, parity); }
-template <int N> inline void setmaxnreg_inc() {
-  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
-}
-template <int N> inline void setmaxnreg_dec() {
-  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24..256 in 8s");
 }
 // a shared-memory byte address through the swizzle of `span` bytes
 inline uint32_t swizzled(uint32_t at, uint32_t span) {
@@ -1234,11 +1331,7 @@ inline double mn_major(uint64_t desc, int k, int n) {
                             2 * (n % atom), span));
 }
 inline void wgmma_bf16_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  thread_local bool held = false;  // a block's threads are made anew
-  if (!held && threadIdx.x / 128 == 2 && hold_second_consumer_us > 0) {
-    held = true;
-    std::this_thread::sleep_for(std::chrono::microseconds(hold_second_consumer_us.load()));
-  }
+  hold_consumer(2);  // warpgroup 0 is the producer
   const int t = threadIdx.x % 128, lane = t % 32;
   for (int i = 0; i < 32; ++i) {
     const int row = 16 * (t / 32) + lane / 4 + 8 * ((i >> 1) & 1);
@@ -1312,7 +1405,7 @@ def flash_bf16_lib(tmp_path_factory):
                     "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
                     str(out / "flash.cpp")], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib))
-    lib.fa_fwd.argtypes = fa.BF16_ARGTYPES
+    lib.fa_fwd.argtypes = fa.ARGTYPES
     lib.fa_fwd.restype = ctypes.c_int
     lib.emulate_hold_second_consumer.argtypes = [ctypes.c_int]
     return lib

@@ -1,12 +1,13 @@
 """``repro_torch.kernels.report`` reads ptxas reports and ``cuobjdump -sass``
 listings; phase B of ``chip_smoke.py`` gates the bf16 flash builds on what it
-reads (no spill, USETMAXREG beside HGMMA, no serialised wgmma). Here it
-reads text shaped as the tools print it."""
+reads (no spill, USETMAXREG beside HGMMA, no serialised wgmma) and the fp32
+ones (no spill, HGMMA). Here it reads text shaped as the tools print it."""
 from repro_torch.kernels import report
 
 FA128 = "_ZN12_GLOBAL__N_19fa_fwd_tcILi128ELi128EEEvNS_4ArgsE"
 FA192 = "_ZN12_GLOBAL__N_19fa_fwd_tcILi192ELi128EEEvNS_4ArgsE"
 GEMM = "_ZN12_GLOBAL__N_111gemm_kernelILb1ELb0EEEvPKfS2_Pfiiii"
+TF32 = "_ZN12_GLOBAL__N_118fa_fwd_tf32_kernelILi192ELi128EEEvNS_4ArgsE"
 
 PTXAS = f"""ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '{FA128}' for 'sm_90a'
@@ -20,6 +21,10 @@ ptxas info    : Function properties for {FA192}
 ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
 ptxas info    : Compiling entry function '{GEMM}' for 'sm_90a'
 ptxas info    : Used 154 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '{TF32}' for 'sm_90a'
+ptxas info    : Function properties for {TF32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 400 bytes cmem[0]
 """
 
 SASS = f"""
@@ -33,6 +38,10 @@ SASS = f"""
         /*0040*/                   FADD R200, R3, R7 ;
 		Function : {GEMM}
         /*0000*/                   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR4], RZ, !UPT ;
+		Function : {TF32}
+        /*0000*/                   USETMAXREG.DEALLOC.CTAPOOL 0x60 ;
+        /*0010*/                   HGMMA.64x64x8.F32.TF32 R40, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x32x8.F32.TF32 R24, R120, gdesc[UR8], R24 ;
 """
 
 
@@ -56,12 +65,12 @@ def test_wgmma_serialized_names_the_function():
 
 def test_parse_sass_names_kernels_by_kind_and_template_args():
     sass = report.parse_sass(SASS)
-    assert set(sass) == {"fa_fwd_tc_128_128", "gemm_kernel_1_0"}
+    assert set(sass) == {"fa_fwd_tc_128_128", "gemm_kernel_1_0", "fa_fwd_tf32_kernel_192_128"}
     assert sum("HGMMA" in ln for ln in sass["gemm_kernel_1_0"]) == 1
 
 
 def test_bf16_flash_design_reads_registers_spills_and_opcodes():
-    design = report.bf16_flash_design(PTXAS, report.parse_sass(SASS))
+    design = report.flash_design(PTXAS, report.parse_sass(SASS), "fa_fwd_tc")
     assert design["hd128_128"] == {"registers": 168, "spill_stores": 0, "spill_loads": 0,
                                    "hgmma": 2, "usetmaxreg": 2,
                                    # R24 of an m64n128 accumulator spans R24..R87
@@ -70,3 +79,12 @@ def test_bf16_flash_design_reads_registers_spills_and_opcodes():
     assert design["hd192_128"]["spill_stores"] == 12
     assert design["hd192_128"]["spill_loads"] == 16
     assert design["hd192_128"]["hgmma"] == design["hd192_128"]["usetmaxreg"] == 0
+
+
+def test_flash_design_reads_the_fp32_kernel_by_its_pairs():
+    """The fp32 kernel's builds are keyed by (hd, hdv) as the bf16 kernel's."""
+    design = report.flash_design(PTXAS, report.parse_sass(SASS), "fa_fwd_tf32_kernel")
+    assert design == {"hd192_128": {"registers": 168, "spill_stores": 0, "spill_loads": 0,
+                                    "hgmma": 2, "usetmaxreg": 1,
+                                    # R40 of an m64n64 accumulator spans R40..R71
+                                    "sass_max_register": 120}}

@@ -134,10 +134,19 @@ ATTN = [(1, 32, 2, 2, 16, 16, 16, "float32"),
         (1, 32, 4, 2, 96, 96, 16, "bfloat16"),
         (1, 32, 4, 2, 96, 64, 16, "float32"),
         (1, 32, 2, 2, 96, 64, 16, "bfloat16")]
+IDS = ["g1", "g2", "g2_bf16", "hd96_g2", "hd96_g2_bf16", "hd96_hdv64_g2", "hd96_hdv64_bf16"]
+# fp32 at every head-dim pair wider than 64 that the fp32 kernel builds: qwen3-4b's
+# hd 128 with G = 4, phi3-mini's 96, MLA's (96, 64) and (192,
+# 128), paligemma's 256 on one kv head (G = 8); "ragged": S = 45, one block
+# of 45 rows (no multiple of 8 or 16); hd 128 at S = 32 in blocks of 16
+ATTN += [(1, 32, 8, 2, 128, 128, 16, "float32"), (1, 45, 4, 4, 96, 96, 512, "float32"),
+         (1, 45, 4, 2, 96, 64, 512, "float32"), (1, 45, 4, 2, 192, 128, 512, "float32"),
+         (1, 45, 8, 1, 256, 256, 512, "float32")]
+IDS += ["hd128_g4_fp32", "hd96_ragged_fp32", "hd96_hdv64_g2_ragged_fp32",
+        "hd192_hdv128_g2_ragged_fp32", "hd256_g8_ragged_fp32"]
 
 
-@pytest.mark.parametrize("case", ATTN, ids=["g1", "g2", "g2_bf16", "hd96_g2", "hd96_g2_bf16",
-                                            "hd96_hdv64_g2", "hd96_hdv64_bf16"])
+@pytest.mark.parametrize("case", ATTN, ids=IDS)
 def test_flash_attention_matches_pallas(case):
     """Forward: the torch chunked oracle and the port's autograd Function
     (plain version on the CPU) against ``flash_attention_fwd`` in interpret
@@ -169,4 +178,12 @@ def test_flash_attention_matches_pallas(case):
             # beside one step of itself it may differ by 2^-8 of the
             # largest; the forward holds the per-element limit above
             tol = dict(BF16, atol=2.0 ** -8 * float(np.abs(np.asarray(want, np.float32)).max()))
+        elif hd == 256:
+            # paligemma's G = 8: dk and dv each sum 8 heads' terms, every
+            # term a dot product over 256 columns, in each package's own
+            # fp32 order; they differ by up to 2e-6 at magnitude 3
+            # (measured 1.97e-6 on 3 of 8192 elements), so beside 1e-5 of
+            # itself an element may differ by 2e-6 of the largest, the fp32
+            # bound of tests/test_torch_serve.py
+            tol = dict(rtol=1e-5, atol=2e-6 * float(np.abs(np.asarray(want)).max()))
         _assert_close(want, got, tol)

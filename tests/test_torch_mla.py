@@ -182,14 +182,14 @@ def test_flash_plain_version_at_hd192_hdv128_matches_pallas(dtype, causal):
 
 
 def test_flash_kernel_pairs_and_refusals():
-    """(192, 128) and minicpm3-4b's (96, 64) are built for bf16 only, and
-    the wrapper raises on an unbuilt pair before it reaches any kernel (on
-    CPU tensors it refuses to launch at all)."""
-    assert (192, 128) in fa.HEAD_DIM_PAIRS[torch.bfloat16]
-    assert (192, 128) not in fa.HEAD_DIM_PAIRS[torch.float32]
-    assert (96, 64) in fa.HEAD_DIM_PAIRS[torch.bfloat16]  # minicpm3-4b's MLA
-    assert (96, 64) not in fa.HEAD_DIM_PAIRS[torch.float32]
-    assert (80, 80) not in fa.HEAD_DIM_PAIRS[torch.bfloat16]
+    """(192, 128) and minicpm3-4b's (96, 64) are built for bf16 and fp32,
+    and the wrapper raises on an unbuilt pair before it reaches any kernel
+    (on CPU tensors it refuses to launch at all)."""
+    for dt in (torch.bfloat16, torch.float32):
+        assert (192, 128) in fa.HEAD_DIM_PAIRS[dt]
+        assert (96, 64) in fa.HEAD_DIM_PAIRS[dt]  # minicpm3-4b's MLA
+        assert (80, 80) not in fa.HEAD_DIM_PAIRS[dt]
+        assert (192, 192) not in fa.HEAD_DIM_PAIRS[dt]
     q, v = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 128)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd_kernel(q, q, v)

@@ -383,10 +383,11 @@ def test_flash_plain_version_at_hd128_matches_pallas(dtype, causal):
 
 
 def test_flash_kernel_admits_hd128_in_bf16_only():
-    """hd 128 is built for bf16; the fp32 kernel stops at 64. On CPU tensors
-    the wrapper refuses to launch either way (the check comes first)."""
+    """hd 128 is built for bf16 and, through its ring of spans, for fp32 too
+    (the name predates the fp32 build). On CPU tensors the wrapper refuses
+    to launch either way (the check comes first)."""
     assert (128, 128) in fa.HEAD_DIM_PAIRS[torch.bfloat16]
-    assert (128, 128) not in fa.HEAD_DIM_PAIRS[torch.float32]
+    assert (128, 128) in fa.HEAD_DIM_PAIRS[torch.float32]
     q = torch.zeros(1, 8, 2, 128)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd_kernel(q, q, q)

@@ -194,7 +194,7 @@ def build(name, source, header, out_dir):
     if proc.returncode:
         return None, proc.stderr[-3000:]
     fn = ctypes.CDLL(str(d / "lib.so")).fa_fwd
-    fn.argtypes = fa.BF16_ARGTYPES
+    fn.argtypes = fa.ARGTYPES
     fn.restype = ctypes.c_int
     return fn, proc.stderr
 
@@ -226,7 +226,7 @@ def design_report(report, library):
     """Per bf16 build: registers, spills and the setmaxnreg and HGMMA
     instructions in its SASS; and any wgmma that ptxas serialised."""
     from repro_torch.kernels import report as kreport
-    return {"builds": kreport.bf16_flash_design(report, kreport.sass_functions(library)),
+    return {"builds": kreport.flash_design(report, kreport.sass_functions(library), "fa_fwd_tc"),
             "wgmma_serialized": kreport.wgmma_serialized(report)}
 
 
