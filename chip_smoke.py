@@ -100,6 +100,22 @@ Phases:
          HGMMA in all four; each launch's bound is that of its 3xTF32
          products on the tensor cores, the FFMA bound is recorded beside
          it; torch.bmm/baddbmm are timed beside it as yardsticks only;
+  K      the launch census at gpt2-small's full width (bf16, seed 0): a
+         single-pass RMNP step, a two-pass one, a bucketed Muon step
+         (optimizer calls on random gradients) and a forward with
+         attn_impl="pallas" (B=8, S=1024), each once under torch.profiler:
+         per launch key the count recorded on meta tensors
+         (kernels/introspect.py; optimizer_launches for the steps),
+         LAUNCHES and the profiler's kernel events agree, and each event's
+         instantiation, grid, block and shared memory are the recorded
+         launch's (kernels/census.py); optimizer_fp32_buffers is 2 for the
+         single-pass step at each bucket (the gathered fp32 gradient the
+         kernel reads and the fp32 momentum it writes) and more for the
+         two-pass one; one update_apply's device peak above what it returns
+         stays within one fp32 copy of the largest bucket (the two-pass
+         update's, the control, does not), its rise and the old values it
+         leaves alive beside the new are printed, and the apply kernel alone
+         raises the peak by its outputs only; at most K_SECONDS;
   C4     Muon on the main path at full width: 3 single-pass steps with 40
          matmul3 and 20 ns_poly3 launches each, one per-leaf step (the 2-D
          kernels for the embedding), one bucketed step each of NorMuon,
@@ -249,10 +265,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
-TF32_FLOPS = 495e12         # H100 SXM, dense TF32 tensor cores
+# The card's peaks and the bound formulas (rmnp_bytes, attention_flops,
+# attention_bounds, gemm_bound) live in src/repro_torch/launch/roofline.py.
 BUCKETS = [(48, 768, 768), (12, 768, 6144), (12, 3072, 768), (1, 50432, 768)]
 # llama-130m's five (its 2048x768 bucket takes split K = 6, which no gpt2
 # bucket does; the untied head and the embedding are buckets of one)
@@ -420,12 +434,6 @@ def phase_build():
                    "ptxas": {"matmul": build.PTXAS_REPORTS.get("matmul", "")[-1500:]}})
 
 
-def rmnp_bytes(shape, v_bytes, w_bytes, apply):
-    n = math.prod(shape)
-    out = w_bytes * 2 if apply else 4  # w read + written, or d written
-    return n * (4 + 2 * v_bytes + out)
-
-
 def rmnp_instantiation(mangled):
     """``C32_apply_one_read_v32_w16`` for the mangled name of
     ``rmnp_kernel<C, APPLY, ONE_READ, TV, TW>``."""
@@ -444,6 +452,7 @@ def rmnp_instantiation(mangled):
 def phase_rmnp():
     import torch
     from repro_torch.kernels import build
+    from repro_torch.launch.roofline import HBM_BW, rmnp_bytes
     from repro_torch.kernels import report as kreport
     from repro_torch.kernels import rmnp_update as rm
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -540,7 +549,7 @@ def phase_rmnp():
                 rec.update(max_abs_err=err, worst_ratio=ratio,
                            kernel_ms=time_ms(lambda: kernel(g, v, w, scalars)),
                            plain_ms=time_ms(lambda: plain(g, v, w, scalars)),
-                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                           bound_ms=nbytes / HBM_BW * 1e3, bound_by="bytes",
                            split=layout._asdict(), path=path, clusters_at_once=clusters)
                 rec["gb_s"] = nbytes / rec["kernel_ms"] / 1e6
                 rows[name].append(rec)
@@ -623,30 +632,6 @@ FP32_WIDE = [("qwen3_hd128", 32, 8, 128, 128), ("phi3_hd96", 32, 32, 96, 96),
              ("paligemma_hd256", 8, 1, 256, 256)]
 
 
-def attention_flops(B, S, H, hd, causal=True, hdv=None, pv_parts=1):
-    """Q.K^T over hd and P.V over hdv (``pv_parts`` products, as the bf16
-    kernel's three parts of P) for each (query, key) pair attended."""
-    pairs = S * (S + 1) // 2 if causal else S * S  # causal: the lower triangle
-    return 2 * B * H * pairs * (hd + pv_parts * (hdv or hd))
-
-
-def attention_bounds(B, S, H, K, hd, dtype, causal, hdv=None):
-    """(bound_ms, bound_by, ffma_ms or None): q/k/v read once and the output
-    written once over the memory rate, against the FLOP at the peak of the
-    units the kernel runs them on: bf16 on the tensor cores; fp32 as three
-    TF32 products per fp32 product on the tensor cores (3xTF32). For fp32
-    also the same with the FLOP at the CUDA cores' FFMA rate, for the
-    record only. ``hdv``: v's and the output's head dim, if not hd."""
-    import torch
-    hdv = hdv or hd
-    size = 2 if dtype == torch.bfloat16 else 4
-    t_bytes = (B * S * H * (hd + hdv) + B * S * K * (hd + hdv)) * size / HBM_BYTES_PER_S * 1e3
-    flops = attention_flops(B, S, H, hd, causal, hdv)
-    t_ops = (flops / BF16_FLOPS if size == 2 else 3 * flops / TF32_FLOPS) * 1e3
-    ffma = None if size == 2 else max(flops / FP32_FLOPS * 1e3, t_bytes)
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ffma
-
-
 def exact_attention(q, k, v, causal):
     """Softmax attention in float64 (dense, kv head h // G), (B,S,H,hd)."""
     import torch
@@ -677,6 +662,7 @@ def phase_attention():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16, attention_bounds, attention_flops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import report as kreport
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -806,7 +792,7 @@ def phase_attention():
                 rec["flops"] = attention_flops(B, S, H, hd, causal, hdv)
                 rec["flops_three_part"] = attention_flops(B, S, H, hd, causal, hdv, pv_parts=3)
                 rec["bound_three_part_ms"] = max(bound,
-                                                 rec["flops_three_part"] / BF16_FLOPS * 1e3)
+                                                 rec["flops_three_part"] / PEAK_FLOPS_BF16 * 1e3)
             rec["tflops"] = attention_flops(B, S, H, hd, causal, hdv) / rec["kernel_ms"] / 1e9
             print(f"attention {name}: {rec['kernel_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
                   + (f", FFMA bound {ffma:.4f} ms" if ffma is not None else "")
@@ -942,19 +928,6 @@ def phase_attention():
     return {r["case"]: r for r in rows}
 
 
-def gemm_bound(L, M, N, K, reads):
-    """(bound_ms, bound_by, ffma_ms) of one GEMM launch: ``reads`` input
-    elements read once and the (L, M, N) output written once over the
-    memory rate, against the 2MNK FLOP as the kernel runs them, three TF32
-    products per fp32 product at the TF32 tensor-core rate (3xTF32); and,
-    for the record only, the same with 2MNK FLOP plus the epilogue at the
-    fp32 CUDA-core (FFMA) rate."""
-    t_ops = 3 * L * 2 * M * N * K / TF32_FLOPS * 1e3
-    t_bytes = 4 * (reads + L * M * N) / HBM_BYTES_PER_S * 1e3
-    t_ffma = max(L * (2 * M * N * K + 3 * M * N) / FP32_FLOPS * 1e3, t_bytes)
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_ffma
-
-
 def phase_ns():
     """The GEMM kernel in its three Newton-Schulz launches, each against a
     float64 product on the card, with a mutation control; five iterations
@@ -963,6 +936,7 @@ def phase_ns():
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import newton_schulz as nsk
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import gemm_bound
     a, b, c = NS_COEFFS
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -1337,6 +1311,171 @@ def phase_train_fp32_wide():
         out["T2"] = train_flash_fp32("T2", m1_config(), T_STEPS,
                                      "T2_train_flash_fp32_deepseek_v2_lite")
     return out
+
+
+# Phase K, the launch census: the largest fp32 buffer the single-pass
+# update may hold beside what it returns is one fp32 copy of the bucket it is
+# on (the gathered gradient); a margin for the AdamW leaves' temporaries and
+# the allocator's rounding
+K_SCRATCH_MARGIN = 4 * 2 ** 20
+# ... and the apply kernel alone: its outputs plus the [scale, wd] tensor,
+# each as the caching allocator counts it (a large block is kept whole when
+# less than 1 MiB of it would remain: 256 KiB on the embedding's momentum)
+K_KERNEL_SLACK = 2 * 2 ** 20 + 4096
+K_SECONDS = 30.0
+
+
+def phase_census():
+    """Phase K: what the tools predict on meta tensors against the card.
+
+    At gpt2-small's full width (bf16, seed 0) four runs, each once under
+    torch.profiler with the launch counts set to 0: a single-pass RMNP step
+    (update_apply), a two-pass one (update), a bucketed Muon step
+    (update_apply) and one forward with attn_impl="pallas" (B=8, S=1024).
+    Per launch key the meta-traced count (introspect.collect_kernel_launches
+    on meta copies of the same arguments; optimizer_launches for the
+    optimizer steps), LAUNCHES and the profiler's kernel events must agree,
+    and each event's instantiation, grid and block must equal the recorded
+    launch's (kernels/census.py). optimizer_fp32_buffers at each bucket: the
+    single-pass step holds 2 (the gathered fp32 gradient the kernel reads
+    and the fp32 momentum it writes, no d and no update), the two-pass step
+    more. The device peak during one update_apply, above what the step
+    returns, stays within one fp32 copy of the largest bucket; the rise, the
+    new values held beside the old ones (eager PyTorch donates nothing) and
+    the two-pass update's scratch, the control, are printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.core.types import map_with_path, tree_paths
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import census, introspect
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import init_params
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import optimizer_fp32_buffers, optimizer_launches
+
+    t0 = time.perf_counter()
+    cfg = get_config("gpt2-small")
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grads = map_with_path(lambda _p, x: (torch.randn(x.shape, generator=gen, device="cuda")
+                                         * 1e-3).to(x.dtype), params)
+
+    def build(rule, **kw):
+        return make_optimizer(rule, dict(lr_matrix=cosine_with_warmup(2e-3, 3),
+                                         lr_adamw=cosine_with_warmup(1e-3, 3), fused=True,
+                                         **kw))
+    single, two, muon = build("rmnp", fused_apply=True), build("rmnp"), build(
+        "muon", fused_apply=True)
+    cfg_flash = dataclasses.replace(cfg, attn_impl="pallas")
+    batch = batch_to_device(make_stream(cfg, 1024, 8, seed=0).sample(0), "cuda")
+
+    def forward_flash(p, b):
+        with torch.no_grad():
+            return forward(cfg_flash, p, b, return_hidden=True)[0]
+
+    runs = {}
+    for tag, opt, fn in (("rmnp_single_pass", single, "update_apply"),
+                         ("rmnp_two_pass", two, "update"),
+                         ("muon_bucketed", muon, "update_apply")):
+        state = opt.init(params)
+        step = getattr(opt, fn)
+        args = (grads, state, params, 0)
+        runs[tag] = (lambda step=step, args=args: step(*args), step, args,
+                     optimizer_launches(opt, params))
+    runs["forward_flash"] = (lambda: forward_flash(params, batch), forward_flash,
+                             (params, batch), None)
+    out = {}
+    for tag, (run, fn, args, n_meta) in runs.items():
+        run()  # the libraries are loaded; the census run is the second
+        predicted = introspect.collect_kernel_launches(fn, *args)
+        res = census.census(run, predicted)
+        check(res["ok"], f"K {tag}: {res['mismatches'][:5]}")
+        check(n_meta is None or n_meta == len(predicted),
+              f"K {tag}: optimizer_launches {n_meta}, recorded {len(predicted)}")
+        out[tag] = {"kernels": res["kernels"], "events": res["events"],
+                    "smem": res["smem"],
+                    "launches": [{"signature": r.signature, "grid": r.grid, "block": r.block,
+                                  "cluster": r.cluster, "smem_bytes": r.smem_bytes}
+                                 for r in dict.fromkeys(predicted)]}
+        print(f"K {tag}: " + ", ".join(f"{k} meta/LAUNCHES/profiler {c['meta']}/"
+                                      f"{c['launches']}/{c['profiler']}"
+                                      for k, c in res["kernels"].items())
+              + f"; shared memory (trace, recorded) {res['smem']}", flush=True)
+    del runs
+    check(out["rmnp_single_pass"]["kernels"]["rmnp_apply"]["meta"] == 4
+          and out["rmnp_two_pass"]["kernels"]["rmnp_precondition"]["meta"] == 4
+          and out["forward_flash"]["kernels"]["flash_attention_fwd"]["meta"] == cfg.num_layers,
+          f"K launch counts {out}")
+
+    buffers = {}
+    for L, d_in, d_out in BUCKETS:
+        one = optimizer_fp32_buffers(single, params, (L, d_in, d_out))
+        many = optimizer_fp32_buffers(two, params, (L, d_in, d_out))
+        buffers[f"{L}x{d_in}x{d_out}"] = {"single_pass": one, "two_pass": many}
+        check(one == 2 and many > one, f"K fp32 buffers at {(L, d_in, d_out)}: single-pass "
+                                       f"{one}, two-pass {many}")
+
+    largest = 4 * max(math.prod(b) for b in BUCKETS)
+
+    def scratch(opt, fn):
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        new = getattr(opt, fn)(grads, state, params, 0)
+        torch.cuda.synchronize()
+        peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        old = {t.data_ptr(): t.numel() * t.element_size()
+               for _, t in tree_paths((params, state)) if isinstance(t, torch.Tensor)}
+        kept = {t.data_ptr() for _, t in tree_paths(new) if isinstance(t, torch.Tensor)}
+        alive = sum(n for ptr, n in old.items() if ptr not in kept)
+        del new, state
+        return {"rise_bytes": peak - before, "held_bytes": after - before,
+                "scratch_bytes": peak - after, "old_values_alive_bytes": alive}
+    mem = {"single_pass": scratch(single, "update_apply"), "two_pass": scratch(two, "update"),
+           "largest_bucket_fp32_bytes": largest}
+    check(mem["single_pass"]["scratch_bytes"] <= largest + K_SCRATCH_MARGIN,
+          f"K single-pass scratch {mem['single_pass']} above one fp32 copy of the largest "
+          f"bucket ({largest} bytes)")
+    check(mem["two_pass"]["scratch_bytes"] > largest + K_SCRATCH_MARGIN,
+          f"K control: the two-pass update's scratch {mem['two_pass']} is within one fp32 "
+          f"bucket; the check would not see a d bucket")
+    # the apply kernel alone allocates its two outputs and nothing else: at
+    # each bucket, on operands gathered beforehand, the peak rises by the
+    # bytes of v_new and w_new (plus the 8-byte [scale, wd] tensor)
+    from repro_torch.kernels import ops as kops
+    kernel_rise = {}
+    for L, d_in, d_out in BUCKETS:
+        g = torch.randn((L, d_in, d_out), generator=gen, device="cuda")
+        v = torch.zeros_like(g)
+        w = torch.zeros((L, d_in, d_out), dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        v_new, w_new = kops.rmnp_bucket_update_apply(g, v, w, torch.tensor(1e-3), 0.1,
+                                                     beta=0.95)
+        torch.cuda.synchronize()
+        outputs = v_new.numel() * 4 + w_new.numel() * 2
+        rise = torch.cuda.max_memory_allocated() - before
+        kernel_rise[f"{L}x{d_in}x{d_out}"] = {"rise_bytes": rise, "outputs_bytes": outputs}
+        check(outputs <= rise <= outputs + K_KERNEL_SLACK,
+              f"K apply kernel at {(L, d_in, d_out)}: peak rose {rise} bytes for "
+              f"{outputs} bytes of outputs")
+        del g, v, w, v_new, w_new
+    mem["apply_kernel"] = kernel_rise
+    print(f"K update_apply peak rise {mem['single_pass']['rise_bytes'] / 2**20:.1f} MiB, "
+          f"scratch {mem['single_pass']['scratch_bytes'] / 2**20:.1f} MiB (limit "
+          f"{largest / 2**20:.1f}), old values alive beside the new "
+          f"{mem['single_pass']['old_values_alive_bytes'] / 2**20:.1f} MiB; two-pass "
+          f"scratch {mem['two_pass']['scratch_bytes'] / 2**20:.1f} MiB", flush=True)
+    del params, grads, single, two, muon
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    emit("K_census", {"runs": out, "fp32_buffers": buffers, "memory": mem,
+                      "seconds": secs, "card": card_name()})
+    check(secs <= K_SECONDS, f"K took {secs:.1f} s, more than {K_SECONDS}")
+    return {tag: {k: c["launches"] for k, c in r["kernels"].items()} for tag, r in out.items()}
 
 
 def phase_muon():
@@ -3550,6 +3689,7 @@ def main():
     attn_cases = phase_attention()
     attn, attn_fp32 = attn_cases["main"], attn_cases["main_fp32"]
     ns = phase_ns()
+    census = phase_census()
     launches = phase_train()
     fp32_launches = phase_train_fp32()
     t_launches = phase_train_fp32_wide()
@@ -3699,6 +3839,13 @@ def main():
                         "replaces": where, "launches": launches[name], **ns[name]})
         if name in zero_launches:
             kernels[-1]["launches_Z3"] = zero_launches[name]
+    # phase K's census: the launches of each kernel in the run that took it
+    census_runs = {"rmnp_apply": "rmnp_single_pass", "rmnp_precondition": "rmnp_two_pass",
+                   "flash_attention_fwd": "forward_flash", "matmul3": "muon_bucketed",
+                   "ns_poly3": "muon_bucketed"}
+    for entry in kernels:
+        if entry["name"] in census_runs:
+            entry["launches_K"] = census[census_runs[entry["name"]]][entry["name"]]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

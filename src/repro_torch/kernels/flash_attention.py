@@ -17,10 +17,11 @@ chunk sizes the caller passed as blocks.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, introspect
 from repro_torch.kernels.ref import chunked_attention_ref
 
 DEFAULT_BLOCK_Q = 512
@@ -47,6 +48,67 @@ _V_STRIDE = {torch.bfloat16: 8, torch.float32: 4}
 _FN = {}
 
 
+class FlashLayout(NamedTuple):
+    """A block's share of one flash launch: ``bq`` query rows of one (batch,
+    head), ``threads`` threads, ``smem_bytes`` of dynamic shared memory, and
+    the ``stages`` of its K/V ring (bf16) or slots (fp32)."""
+    bq: int
+    threads: int
+    smem_bytes: int
+    stages: int
+
+
+_SMEM = 227 * 1024  # both sources' SMEM_LIMIT
+_BK = 64  # keys per K/V tile, both types
+
+
+def flash_layout(dtype, hd: int, hdv: int) -> FlashLayout:
+    """The layout the C side picks for a (dtype, hd, hdv) build, mirrored
+    from ``Layout`` in ``csrc/flash_attention_fwd.cu`` (bf16: 128 query rows
+    a block, a producer and two consumer warpgroups, 3 K/V stages or 2
+    where 3 do not fit) and ``csrc/flash_attention_fwd_tf32.cu`` (fp32: one
+    or two consumer warpgroups of 64 rows beside the producer, as many
+    16 KB slots as fit beside Q). ``chip_smoke.py`` phase K holds the grids
+    and blocks built from it against the card's profiler."""
+    if dtype == torch.bfloat16:
+        q, k, v = 128 * hd * 2, _BK * hd * 2, _BK * hdv * 2
+
+        def alloc(n):
+            return q + n * (k + v) + (1 + 3 * n) * 8 + 1024
+        stages = 3 if alloc(3) <= _SMEM else 2
+        return FlashLayout(128, 384, alloc(stages), stages)
+    span, slot = 128, 2 * _BK * 128  # a swizzled row of 32 fp32; hi and lo of 64 rows
+    spans = hd // min(hd, 32)
+    cw = 2 if 2 * spans * 128 * span + 2 * slot + 256 + 1024 <= _SMEM else 1
+    bq = 64 * cw
+    ring = 2 * spans * bq * span
+    nslot = (_SMEM - 1024 - 256 - ring) // slot
+    return FlashLayout(bq, 128 * cw + 128, ring + nslot * slot + 2 * nslot * 8 + 1024, nslot)
+
+
+def describe(q, k, v, out) -> introspect.KernelLaunch:
+    """The launch ``flash_attention_fwd_kernel`` makes: one block per
+    ``bq`` query rows of each (batch, head), a one-dimensional grid."""
+    B, S, H, hd = q.shape
+    K, hdv = k.shape[2], v.shape[3]
+    lay = flash_layout(q.dtype, hd, hdv)
+    nq = -(-S // lay.bq)
+    bf16 = q.dtype == torch.bfloat16
+    nk = -(-S // _BK)
+    # a block of query head h reads kv head h // (H / K): all K are read
+    tiles = (introspect.Tiling("q", (B, S, H, hd), (1, lay.bq, 1, hd), (B, nq, H, 1)),
+             introspect.Tiling("k", (B, S, K, hd), (1, _BK, 1, hd), (B, nk, K, 1)),
+             introspect.Tiling("v", (B, S, K, hdv), (1, _BK, 1, hdv), (B, nk, K, 1)),
+             introspect.Tiling("out", (B, S, H, hdv), (1, lay.bq, 1, hdv), (B, nq, H, 1)))
+    return introspect.KernelLaunch(
+        name="flash_attention_fwd", kernel="fa_fwd_tc" if bf16 else "fa_fwd_tf32_kernel",
+        template=(str(hd), str(hdv)), grid=(nq * H * B, 1, 1), block=(lay.threads, 1, 1),
+        cluster=(1, 1, 1), smem_bytes=lay.smem_bytes,
+        operands=tuple(introspect.Operand.of(n, t) for n, t in
+                       (("q", q), ("k", k), ("v", v), ("out", out))),
+        tiles=tiles, layout=lay)
+
+
 def _kernel(dtype):
     if dtype not in _FN:
         from repro_torch.kernels.build import load_library
@@ -64,7 +126,7 @@ def _kernel(dtype):
 
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if not (t.is_cuda or introspect.tracing(t)):
             raise ValueError(f"the flash-attention kernel takes CUDA tensors; "
                              f"{name} is on {t.device}")
         if t.ndim != 4:
@@ -110,6 +172,9 @@ def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
     _check(q, k, v)
     B, S, H, hd = q.shape
     out = q.new_empty((B, S, H, v.shape[3]))
+    if q.is_meta:
+        introspect.record(describe(q, k, v, out))
+        return out
     fn, err_str = _kernel(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (B, S, H, k.shape[2], hd, v.shape[3], v.stride(2), v.stride(1), v.stride(0),
@@ -136,7 +201,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         block_k: int = DEFAULT_BLOCK_K):
     """Kernel for CUDA tensors, plain version for CPU tensors; any other
     device raises."""
-    if q.is_cuda:
+    if q.is_cuda or introspect.tracing(q):
         return flash_attention_fwd_kernel(q, k, v, causal=causal)
     if q.device.type != "cpu":
         raise ValueError(f"the flash-attention kernel takes CUDA tensors and its "

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, introspect
 from repro_torch.kernels.ref import matmul_ref
 
 _FN = None
@@ -35,6 +35,11 @@ _INT32_MAX = 2 ** 31 - 1
 _MAX_L = 65535  # gridDim.z
 _TILE = 128  # the kernel's output tile (rows and columns)
 _SLAB = 32  # the kernel's k-slab
+_THREADS = 256  # two warpgroups
+# the kernel's dynamic shared memory (csrc/matmul.cu::SMEM_BYTES): two
+# stages of A and B in TF32 hi and lo, the finished chunks' sum (64 floats
+# a thread), four mbarriers, and 1 KB to align the base
+SMEM_BYTES = 2 * 4 * _TILE * _SLAB * 4 + 64 * _THREADS * 4 + 4 * 8 + 1024
 # K is cut into chunks, each summed apart and the chunks added in order. No
 # chunk is longer than K_CHUNK: on the H100 a serial fp32 chain over a Gram's
 # K = 3072 landed 7.7x further from the exact sum than cuBLAS (PERF.md), and
@@ -87,7 +92,7 @@ def _kernel():
 def _check(a, b, c):
     operands = [("a", a), ("b", b)] + ([("c", c)] if c is not None else [])
     for name, t in operands:
-        if not t.is_cuda:
+        if not (t.is_cuda or introspect.tracing(t)):
             raise ValueError(f"the GEMM kernel takes CUDA tensors; {name} is on {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the GEMM kernel takes float32; {name} is {t.dtype}")
@@ -127,6 +132,10 @@ def gemm(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0,
     if split:  # scratch of the chunk sums and the tiles' arrival counters
         work = torch.empty(L * -(-K // chunk) * M * N, dtype=torch.float32, device=a.device)
         arrivals = torch.zeros(L * _tiles(M, N), dtype=torch.int32, device=a.device)
+    if a.is_meta:
+        if L and M and N:  # the C side launches nothing for an empty product
+            introspect.record(describe(a, b, c, out, count=count, chunk=chunk, split=split))
+        return out
     fn, err_str = _kernel()
     cs = c.stride() if c is not None else (0, 0, 0)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -139,6 +148,32 @@ def gemm(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0,
         raise RuntimeError(f"GEMM kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES[count] += 1
     return out
+
+
+def describe(a, b, c, out, *, count: str, chunk: int, split: bool) -> introspect.KernelLaunch:
+    """The launch ``gemm`` makes (``csrc/matmul.cu::gemm_f32``):
+    ``gemm_kernel<A_K, B_K>`` (each operand read along k or along its rows,
+    from its strides) on a grid of ``(ceil(N / 128) * chunks if split,
+    ceil(M / 128), L)`` blocks of 256 threads, ``chunks = ceil(K / chunk)``."""
+    L, M, K = a.shape
+    N = b.shape[2]
+    chunks = -(-K // chunk) if K > chunk else 1
+    per_tile = chunks if split and chunks > 1 else 1
+    tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
+    grid = (tiles_n * per_tile, tiles_m, L)
+    a_k = not (a.stride(1) == 1 and a.stride(2) != 1)
+    b_k = not (b.stride(2) == 1 and b.stride(1) != 1)
+    ops = [("a", a), ("b", b)] + ([("c", c)] if c is not None else []) + [("d", out)]
+    tiles = [introspect.Tiling("a", (L, M, K), (1, _TILE, chunk), (L, tiles_m, chunks)),
+             introspect.Tiling("b", (L, K, N), (1, chunk, _TILE), (L, chunks, tiles_n))]
+    tiles += [introspect.Tiling(n, (L, M, N), (1, _TILE, _TILE), (L, tiles_m, tiles_n))
+              for n, _ in ops[2:]]
+    return introspect.KernelLaunch(
+        name=count, kernel="gemm_kernel",
+        template=("true" if a_k else "false", "true" if b_k else "false"),
+        grid=grid, block=(_THREADS, 1, 1), cluster=(1, 1, 1), smem_bytes=SMEM_BYTES,
+        operands=tuple(introspect.Operand.of(n, t) for n, t in ops), tiles=tuple(tiles),
+        layout=(chunk, split))
 
 
 def gemm_plain(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):

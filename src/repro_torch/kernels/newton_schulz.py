@@ -23,12 +23,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import introspect
 from repro_torch.kernels.matmul import gemm, gemm_plain
 from repro_torch.kernels.ref import ns_step_ref
 
 
 def _check(x, ndim):
-    if not x.is_cuda:
+    if not (x.is_cuda or introspect.tracing(x)):
         raise ValueError(f"the Newton-Schulz kernels take CUDA tensors; x is on {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"Newton-Schulz runs in float32; x is {x.dtype}")

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, introspect
 from repro_torch.kernels.ref import rmnp_momentum_rownorm_ref, rmnp_rownorm_apply_ref
 
 _FN = None
@@ -111,7 +111,7 @@ _FLOATS = (torch.float32, torch.bfloat16)
 
 
 def _check(g, v, w=None, scalars=None):
-    if not g.is_cuda:
+    if not (g.is_cuda or introspect.tracing(g)):
         raise ValueError("the RMNP kernel takes CUDA tensors")
     if g.ndim < 2:
         raise ValueError(f"RMNP operands are (..., d_in, d_out); got {tuple(g.shape)}")
@@ -150,6 +150,9 @@ def _launch(g, v, w, v_out, out, scalars, *, beta, eps, apply, layout=None):
     if L == 0:
         return
     s = layout or split(d_in, d_out)
+    if g.is_meta:
+        introspect.record(describe(g, v, w, v_out, out, apply=apply, layout=s))
+        return
     tensors = [t for t in (g, v, w, v_out, out) if t is not None]
     vec = d_out % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
     v_bf16 = v.dtype == torch.bfloat16
@@ -165,6 +168,35 @@ def _launch(g, v, w, v_out, out, scalars, *, beta, eps, apply, layout=None):
     if err != 0:
         raise RuntimeError(f"RMNP kernel launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES["rmnp_apply" if apply else "rmnp_precondition"] += 1
+
+
+def describe(g, v, w, v_out, out, *, apply: bool, layout=None) -> introspect.KernelLaunch:
+    """The launch ``_launch`` makes over this bucket: ``rmnp_kernel<C,
+    APPLY, ONE_READ, TV, TW>`` on a grid of ``(K, min(items, 65535))``
+    blocks in clusters of ``K`` along ``d_in`` (``csrc/rmnp_update.cu::
+    configure``), each cluster row walking the ``L * ceil(d_out / C)``
+    column blocks with a stride of ``gridDim.y``."""
+    d_in, d_out = g.shape[-2], g.shape[-1]
+    L = g.numel() // (d_in * d_out) if g.numel() else 0
+    s = layout or split(d_in, d_out)
+    blocks = -(-d_out // s.C)
+    grid = (s.K, min(L * blocks, 65535), 1)
+
+    def ctype(t):
+        return "__nv_bfloat16" if t is not None and t.dtype == torch.bfloat16 else "float"
+    template = (str(s.C), "true" if apply else "false", "true" if s.one_read else "false",
+                ctype(v), ctype(w) if apply else "float")
+    names = ("g", "v", "w", "v_out", "w_out" if apply else "d")
+    tensors = [(n, t) for n, t in zip(names, (g, v, w, v_out, out), strict=True)
+               if t is not None]
+    return introspect.KernelLaunch(
+        name="rmnp_apply" if apply else "rmnp_precondition", kernel="rmnp_kernel",
+        template=template, grid=grid, block=(s.threads, 1, 1), cluster=(s.K, 1, 1),
+        smem_bytes=s.smem_bytes(),
+        operands=tuple(introspect.Operand.of(n, t) for n, t in tensors),
+        tiles=tuple(introspect.Tiling(n, (L, d_in, d_out), (1, s.R, s.C), (L, grid[0], blocks))
+                    for n, _ in tensors),
+        layout=s)
 
 
 def max_active_clusters(shape, v_dtype, w_dtype=None, *, apply: bool, layout=None) -> int:

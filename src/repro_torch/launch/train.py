@@ -182,6 +182,15 @@ def train(arch: str, optimizer: str = "rmnp", steps: int = 100,
     layout = elastic.state_layout(opt, params, mesh_size=n_dev, rule=optimizer,
                                   compress=compress and zero2, opt_state=opt_state)
 
+    if main_rank and log_every and (fused or fused_apply or zero2 or use_kernel):
+        # what one step will launch, from a run on meta tensors; the logged
+        # ``launches`` are counted where the kernels really launch
+        from repro_torch.train.step import optimizer_launches
+        n = optimizer_launches(opt, params)
+        detail = (f" ({len(opt_state.buckets)} shape buckets)"
+                  if hasattr(opt_state, "buckets") else "")
+        print(f"[train] preconditioner kernel launches/step: {n}{detail}", flush=True)
+
     mgr = CheckpointManager(ckpt_dir, comm=comm) if ckpt_dir else None
     latest = mgr.latest_step() if mgr is not None else None
     if latest is not None:

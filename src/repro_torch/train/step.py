@@ -1,6 +1,7 @@
 """Training, serving and evaluation steps of the port (mirror of
 ``repro.train.step``: ``make_train_step``, ``make_serve_step``,
-``make_prefill_step`` and ``eval_step``).
+``make_prefill_step``, ``eval_step``, ``optimizer_launches`` and
+``optimizer_fp32_buffers``).
 
 ``make_train_step`` builds ``(params, opt_state, batch, step) -> (params,
 opt_state, metrics)`` with optional microbatch gradient accumulation (fp32
@@ -20,6 +21,38 @@ from repro_torch.core.mixed import clip_by_global_norm
 from repro_torch.core.types import Optimizer, apply_updates, map_with_path
 from repro_torch.models.model import forward, lm_head, loss_fn
 from repro_torch.train import pipeline
+
+
+def _meta_step(opt: Optimizer, params, step: int):
+    """(step function, args) of one optimizer step on meta copies of
+    ``params``: ``opt.update_apply`` where the optimizer has the single-pass
+    path, else ``opt.update``; the gradients are meta tensors like the
+    parameters and the state is ``opt.init`` of the meta parameters."""
+    from repro_torch.kernels.introspect import to_meta
+    meta = to_meta(params)
+    fn = opt.update_apply if opt.update_apply is not None else opt.update
+    return fn, (meta, opt.init(meta), meta, step)
+
+
+def optimizer_launches(opt: Optimizer, params, step: int = 0) -> int:
+    """Kernel launches one optimizer step makes: the per-leaf engine
+    launches once per matrix parameter, the bucketed ones once per shape
+    bucket (three per Newton-Schulz iteration and bucket under Muon). The
+    step runs on meta tensors under ``kernels/introspect.recording()``:
+    nothing is launched, allocated on a device or built."""
+    from repro_torch.kernels.ops import count_kernel_launches
+    fn, args = _meta_step(opt, params, step)
+    return count_kernel_launches(fn, *args)
+
+
+def optimizer_fp32_buffers(opt: Optimizer, params, shape, step: int = 0) -> int:
+    """fp32 buffers of exactly ``shape`` that one optimizer step allocates
+    (op outputs with new storage, on meta tensors): the two-pass engine
+    writes the fp32 ``d`` bucket and the update, the single-pass kernel
+    neither."""
+    from repro_torch.kernels.ops import count_buffer_allocs
+    fn, args = _meta_step(opt, params, step)
+    return count_buffer_allocs(fn, shape, torch.float32, *args)
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,

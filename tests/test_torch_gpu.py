@@ -842,3 +842,53 @@ def test_frontend_prefills_run_the_kernel_once_a_layer(cuda):
         dense, _ = make_prefill_step(dataclasses.replace(cfg, attn_impl="dense"))(params, batch)
         assert float((flash.float() - dense.float()).abs().max()) <= \
             2.0 ** -5 * float(dense.float().abs().max())
+
+
+# the runs of chip_smoke.py phase K: (rule, optimizer settings, method)
+CENSUS = {"rmnp_single_pass": ("rmnp", {"fused_apply": True}, "update_apply"),
+          "rmnp_two_pass": ("rmnp", {}, "update"),
+          "muon_bucketed": ("muon", {"fused_apply": True}, "update_apply"),
+          "forward_flash": None}
+
+
+@pytest.mark.parametrize("kind", list(CENSUS))
+def test_launch_census_on_the_card(cuda, kind):
+    """chip_smoke.py phase K on reduced gpt2-small (fp32: the fp32 flash
+    kernel at hd 16): the launches recorded on meta tensors, LAUNCHES and
+    the profiler's kernel events agree per key, and each event's
+    instantiation, grid and block are the recorded launch's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.types import map_with_path
+    from repro_torch.kernels import census, introspect
+    from repro_torch.models import init_params
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import optimizer_launches
+
+    cfg = get_config("gpt2-small").reduced()
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if CENSUS[kind] is None:
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 200), generator=gen,
+                                         device="cuda", dtype=torch.int32)}
+
+        def fn(p, b):
+            with torch.no_grad():
+                return forward(cfg, p, b)
+        args, n = (params, batch), cfg.num_layers
+    else:
+        rule, kw, method = CENSUS[kind]
+        opt = make_optimizer(rule, dict(lr_matrix=1e-3, fused=True, **kw))
+        grads = map_with_path(lambda _p, x: torch.randn(x.shape, generator=gen, device="cuda"),
+                              params)
+        fn, args = getattr(opt, method), (grads, opt.init(params), params, 0)
+        n = optimizer_launches(opt, params)
+    predicted = introspect.collect_kernel_launches(fn, *args)
+    assert len(predicted) == n > 0
+    fn(*args)  # the libraries are built and loaded before the census
+    res = census.census(lambda: fn(*args), predicted)
+    assert res["ok"], res["mismatches"]
+    assert sum(c["profiler"] for c in res["kernels"].values()) == n
