@@ -11,12 +11,15 @@ Phases:
          bucket shapes, llama-130m's five (2048x768 at split K = 6),
          the 13 of deepseek-v2-lite-16b cut to 3 layers (the expert
          stacks 2048x2816 and 1408x2048 at L = 128 among them), the 7 of
-         xlstm-350m (the 2048x4 gate matrices, the r_gates stack at L =
-         48) and the 10 of jamba cut to layers 3-4 (the expert stacks at L
-         = 17, x_proj 8192x288; 17x4096x28672 in the main path's types
-         only and without the bit-for-bit checks) and paligemma-3b's tied
+         xlstm-350m cut to 12 layers (the 2048x4 gate matrices, the
+         r_gates stack at L = 24) and the 10 of jamba cut to layers 3-4
+         (the expert stacks at L = 17, x_proj 8192x288; 17x4096x28672 in
+         the main path's types only and without the bit-for-bit checks),
+         paligemma-3b's tied
          embedding 1x257280x2048 (the two-sweep path: its slab exceeds a
-         cluster's shared memory), fp32 and bf16
+         cluster's shared memory), the 6 of yi-9b cut to 2 layers (the
+         64000x4096 embedding, 4096x22016) and the 5 of olmoe-1b-7b cut to
+         2 layers (the expert stacks at L = 128 and 136), fp32 and bf16
          momentum, bf16 weights (the main
          path's), and for the apply kernel also fp32 weights, whose update
          w_new - w is held against the plain version's at its own
@@ -34,7 +37,10 @@ Phases:
          129}, each fp32 case also against a float64 softmax; bf16 also at
          hd 128: qwen3-4b's prefill shape (B=8 S=1024 H=32 K=8) causal and
          not, the ragged GQA shape causal and not, and S in {1, 63, 65,
-         129}; bf16 also at MLA's q/k 192, v 128 with v a strided column
+         129}; bf16 also at hd 128 at yi-9b's prefill shape (H=32 on K=4,
+         G = 8) and olmoe-1b-7b's (H=K=16, G = 1), causal (timed) and not,
+         and 20 seeds of each causal and 20 not; bf16 also at MLA's q/k 192,
+         v 128 with v a strided column
          slice: deepseek-v2-lite's prefill shape (B=8 S=1024 H=K=16) causal
          and not, a ragged S causal and not, and S in {1, 63, 65, 129},
          each also against a contiguous copy of v bit for bit; bf16 also
@@ -153,6 +159,9 @@ Phases:
   N      the same for minicpm3-4b (62 layers of MLA, H=K=40 at q/k 96 and
          v 64, the tied 73448-row embedding): 62 launches of the (96, 64)
          kernel a prefill, v read in place from the up-projection;
+  Y      phase S's checks and timings for yi-9b at full width and depth
+         (48 layers, H=32 on K=4 at hd 128; 8,829,407,232 parameters):
+         48 launches of the hd-128 kernel a prefill;
   M1     deepseek-v2-lite-16b cut to its first 3 layers (the dense prefix
          and 2 MoE units) at full width, trained with single-pass RMNP
          (B=8, S=1024, bf16, seed 0): 3 timed steps, 13 apply launches
@@ -169,13 +178,23 @@ Phases:
          dense forward within M_LOGIT_TOL, each control (non-causal;
          pos + 1) at least 4x outside, and the share of routings on
          which the flash and dense prefills agree;
-  X1     xlstm-350m at full width and depth (24 layers of mLSTM and sLSTM,
-         468,497,504 parameters, bf16, seed 0, B=8, S=1024) trained with
-         single-pass RMNP through launch.train.train: 2 timed steps with 7
-         apply launches each, tokens/s, peak memory; a second run equal bit
-         for bit; one step under torch.profiler (device ops a step, idle
-         share); one sLSTM and one mLSTM layer alone under the profiler,
-         whose device ops 12 times over give their share of the step;
+  O      M2 for olmoe-1b-7b at full width and depth (16 layers, H=K=16 at
+         hd 128 with qk_norm, 64 experts top-8; 6,919,624,704 parameters;
+         16 launches of the hd-128 kernel a prefill): its controls must land
+         outside the tolerance and 4x past the reading each controls;
+  O2     olmoe-1b-7b cut to layers 0:2 trained as M1 (5 apply launches a
+         step, the expert stacks at L = 128; per-leaf against single-pass
+         on them);
+  Y2     yi-9b cut to layers 0:2 trained as M1 (6 apply launches a step);
+  X1     xlstm-350m cut to layers 0:12 at full width (6 layers each of
+         mLSTM and sLSTM, 285,891,632 parameters, bf16, seed 0, B=8,
+         S=1024; cut in depth to keep the script inside its time limit)
+         trained with single-pass RMNP through launch.train.train: 2 timed
+         steps with 7 apply launches each, tokens/s, peak memory; a second
+         run equal bit for bit; one step
+         under torch.profiler (device ops a step, idle share); one sLSTM
+         and one mLSTM layer alone under the profiler, whose device ops 6
+         times over give their share of the step;
   X2     serving xlstm-350m at full width (B=8, T=1024, 128 new tokens):
          prefill ms, decode ms a step, tokens/s, peak; 128 decode steps'
          logits against a teacher-forced forward, in bf16 (reported: the
@@ -213,6 +232,12 @@ Phases:
          request (48 flash launches a prefill); G2's forced forward takes
          the prompt's frames followed by the generated tokens' embeddings;
          G4 trains it (3 apply launches a step);
+  Q      the four examples of examples_torch/ on the card through their
+         main(argv): quickstart card against CPU from one CPU init (every
+         logged loss and grad norm and the dominance ratios within 1e-4),
+         serve_batched's tokens equal to the CPU's, the faceoff at full
+         width (--full --steps 20 --only adamw muon rmnp; each step's
+         launches), and act 1 of fault_tolerant_restart (bit for bit);
   R      checkpointing and the non-finite guard on llama-130m at full width
          (B=8, S=1024, bf16, single-pass RMNP, 6 steps of
          repro_torch.launch.train.train, 5 apply launches a step):
@@ -245,10 +270,12 @@ Phases:
          bucket's gradient and one world-1 reduce-scatter on the card equal
          the CPU's, and a Muon ZeRO-2 step equals its ZeRO-0 step.
 
-Every phase prints one JSON line; then a line with the card's name and power
-limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``. Any
-failed check raises, and the script exits non-zero without the last line.
-Details go to chiprun_out/chip_smoke.json.
+Every phase prints one JSON line per record, each with the seconds since its
+phase began (``phase_s``), and a line with its total seconds; then a line
+with the card's name and power limit, a line of every phase's seconds, a
+``kernels`` line, and last ``{"ok": true, "device": ...}``. Any failed check
+raises, and the script exits non-zero without the last line. Details go to
+chiprun_out/chip_smoke.json (``phase_seconds`` beside the records).
 """
 from __future__ import annotations
 
@@ -279,12 +306,12 @@ DS_BUCKETS = [(3, 512, 4096), (128, 1408, 2048), (2, 2048, 64), (3, 2048, 576),
               (3, 2048, 2048), (128, 2048, 2816), (3, 2048, 3072), (2, 2048, 5632),
               (1, 2048, 21888), (1, 2048, 102400), (2, 2816, 2048), (1, 10944, 2048),
               (1, 102400, 2048)]
-# xlstm-350m whole (phase X1): 7 buckets, the mLSTM gate matrices 2048x4
-# (w_igate and w_fgate, L = 24), the sLSTM recurrent r_gates (12, 4, 256,
-# 1024) at L = 48, the untied head and the embedding (468,385,792 matrix
-# elements)
-XLSTM_BUCKETS = [(48, 256, 1024), (36, 1024, 4096), (1, 1024, 50432), (24, 2048, 4),
-                 (24, 2048, 1024), (36, 2048, 2048), (1, 50432, 1024)]
+# xlstm-350m cut to layers 0:12 (phase X1): 7 buckets, the mLSTM gate
+# matrices 2048x4 (w_igate and w_fgate, L = 12), the sLSTM recurrent r_gates
+# (6, 4, 256, 1024) at L = 24, the untied head and the embedding
+# (285,835,264 matrix elements)
+XLSTM_BUCKETS = [(24, 256, 1024), (18, 1024, 4096), (1, 1024, 50432), (12, 2048, 4),
+                 (12, 2048, 1024), (18, 2048, 2048), (1, 50432, 1024)]
 # jamba-v0.1-52b cut to layers 3-4 (phase J2): 10 buckets, the 16-expert
 # stacks with the dense FFN at L = 17, mamba's x_proj 8192x288 (ragged
 # columns), the router 4096x16, the untied head and the embedding
@@ -299,6 +326,17 @@ J2_BUCKETS = [(1, 4096, 16), (2, 4096, 1024), (2, 4096, 4096), (1, 4096, 16384),
 P_BUCKETS = [(1, 257280, 2048), (18, 2048, 32768), (18, 16384, 2048), (36, 2048, 256),
              (36, 2048, 2048)]
 G_BUCKETS = [(48, 2048, 16384), (48, 8192, 2048), (194, 2048, 2048)]
+# yi-9b cut to layers 0:2 (phase Y2): 6 buckets, the fused gate and up
+# projection 4096x22016, the kv projections 4096x512 (K = 4 heads of 128),
+# the untied head and the 64000-row embedding (870,318,080 matrix elements)
+YI_BUCKETS = [(4, 4096, 512), (4, 4096, 4096), (2, 4096, 22016), (1, 4096, 64000),
+              (2, 11008, 4096), (1, 64000, 4096)]
+# olmoe-1b-7b cut to layers 0:2 (phase O2): 5 buckets, the expert stacks at
+# L = 2 units x 64 experts (w_in 2048x2048 beside the 8 attention
+# projections, w_out 1024x2048), the router 2048x64, the untied head and the
+# embedding (1,045,692,416 matrix elements)
+O_BUCKETS = [(128, 1024, 2048), (2, 2048, 64), (136, 2048, 2048), (1, 2048, 50432),
+             (1, 50432, 2048)]
 # Phase A runs a bucket above this many elements in the main path's types
 # only (fp32 momentum, bf16 weights) and without the bit-for-bit checks,
 # which hold several fp32 copies of it: jamba's 17x4096x28672 (2.0 G).
@@ -344,11 +382,30 @@ E_ERR_FACTOR = 8.0
 NS_REL_TOL = 5e-4
 RESULTS = {}
 C1_FINAL = {}  # phase C1's final params and momentum (host copies), for phase Z
+# each phase's seconds (its function, start to end; run_phase), and the
+# start of the phase that runs now: every record a phase emits carries the
+# seconds since its phase began as "phase_s" (unless it set its own)
+PHASE_SECONDS = {}
+PHASE_T0 = [None]
 
 
 def emit(name, record):
+    # a new dict: the caller may go on reading the record it passed
+    if PHASE_T0[0] is not None:
+        record = {"phase_s": time.perf_counter() - PHASE_T0[0], **record}
     RESULTS[name] = record
     print(json.dumps({"phase": name, **record}), flush=True)
+
+
+def run_phase(label, fn, *args):
+    """Run one phase, timing it into PHASE_SECONDS[label]."""
+    PHASE_T0[0] = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[label] = time.perf_counter() - PHASE_T0[0]
+        PHASE_T0[0] = None
+        print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -489,17 +546,21 @@ def phase_rmnp():
                       "plain_ms": 0.0, "bound_ms": 0.0,
                       **{other: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                  "max_abs_err": 0.0}
-                    for other in ("llama", "deepseek", "xlstm", "jamba", "paligemma")}}
+                    for other in ("llama", "deepseek", "xlstm", "jamba", "paligemma",
+                                  "yi", "olmoe")}}
                for name in kernels}
     others = {"llama-130m": "llama", "deepseek-v2-lite-16b-3L": "deepseek",
-              "xlstm-350m": "xlstm", "jamba-v0.1-52b-2L": "jamba",
-              "paligemma-3b-embedding": "paligemma"}
+              "xlstm-350m-12L": "xlstm", "jamba-v0.1-52b-2L": "jamba",
+              "paligemma-3b-embedding": "paligemma", "yi-9b-2L": "yi",
+              "olmoe-1b-7b-2L": "olmoe"}
     for model, shape in ([("gpt2-small", b) for b in BUCKETS]
                          + [("llama-130m", b) for b in LLAMA_BUCKETS]
                          + [("deepseek-v2-lite-16b-3L", b) for b in DS_BUCKETS]
-                         + [("xlstm-350m", b) for b in XLSTM_BUCKETS]
+                         + [("xlstm-350m-12L", b) for b in XLSTM_BUCKETS]
                          + [("jamba-v0.1-52b-2L", b) for b in J2_BUCKETS]
-                         + [("paligemma-3b-embedding", P_BUCKETS[0])]):
+                         + [("paligemma-3b-embedding", P_BUCKETS[0])]
+                         + [("yi-9b-2L", b) for b in YI_BUCKETS]
+                         + [("olmoe-1b-7b-2L", b) for b in O_BUCKETS]):
         layout = rm.split(*shape[1:])
         path = "one-read" if layout.one_read else "two-sweep"
         # every bucket on the one-read path but paligemma's embedding, whose
@@ -687,6 +748,13 @@ def phase_attention():
               ("gqa_ragged_hd128", 2, 1000, 8, 2, 128, bf16, True, False),
               ("gqa_ragged_hd128_noncausal", 2, 1000, 8, 2, 128, bf16, False, False)]
     cases += [(f"s{S}_hd128", 2, S, 8, 2, 128, bf16, True, False) for S in (1, 63, 65, 129)]
+    # bf16 at hd 128 at two more GQA groups: yi-9b's prefill shape (H = 32 on
+    # K = 4, G = 8) and olmoe-1b-7b's (H = K = 16, G = 1), each causal (timed)
+    # and not
+    cases += [("yi_hd128", 8, 1024, 32, 4, 128, bf16, True, True),
+              ("yi_hd128_noncausal", 8, 1024, 32, 4, 128, bf16, False, False),
+              ("olmoe_hd128", 8, 1024, 16, 16, 128, bf16, True, True),
+              ("olmoe_hd128_noncausal", 8, 1024, 16, 16, 128, bf16, False, False)]
     # bf16 at MLA's head dims, q/k 192 and v 128 (v a strided column slice,
     # as MLA's): deepseek-v2-lite's prefill shape causal (timed, row 3 at
     # (192, 128)) and not, a ragged S causal and not, S around the tiles' edges
@@ -801,8 +869,9 @@ def phase_attention():
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
-    for name in ("main", "main_fp32", "qwen3_hd128", "deepseek_mla", "paligemma_hd256",
-                 "phi3_hd96", "minicpm3_mla", *(f"{w[0]}_fp32" for w in FP32_WIDE)):
+    for name in ("main", "main_fp32", "qwen3_hd128", "yi_hd128", "olmoe_hd128",
+                 "deepseek_mla", "paligemma_hd256", "phi3_hd96", "minicpm3_mla",
+                 *(f"{w[0]}_fp32" for w in FP32_WIDE)):
         q, k, v, causal = inputs[name]
         a = fa.flash_attention_fwd_kernel(q, k, v)
         b = fa.flash_attention_fwd_kernel(q, k, v)
@@ -870,6 +939,11 @@ def phase_attention():
               f"attention: {key} missed the limit over 20 seeds {ratios}")
 
     prefill_seeds("bf16_hd256_paligemma_prefill", 8, 1, 256, True, 4)
+    # hd 128 at yi-9b's (G = 8) and olmoe-1b-7b's (G = 1), causal and not
+    for seed, (key, H, K) in enumerate((("yi_hd128", 32, 4), ("olmoe_hd128", 16, 16))):
+        for causal in (True, False):
+            prefill_seeds(f"bf16_{key}_prefill" + ("" if causal else "_noncausal"), H, K,
+                          128, causal, 9 + 2 * seed + (not causal))
     for seed, (key, H, hdv) in enumerate((("phi3_hd96", 32, 96), ("minicpm3_mla", 40, 64))):
         for causal in (True, False):
             prefill_seeds(f"bf16_{key}_prefill" + ("" if causal else "_noncausal"), H, H, 96,
@@ -2199,6 +2273,12 @@ M_BATCH, M_PROMPT, M_TOKENS, M_FORCED = 8, 1024, 128, 16
 # those distances and the share of routings that agree are reported only.
 M_LOGIT_TOL = 5e-2
 M_CONTROL_FACTOR = 4.0
+# Phase Y serves yi-9b whole as S serves qwen3-4b (48 layers, H = 32 on K =
+# 4 at hd 128: the bf16 hd-128 build at a GQA group of 8) and Y2 trains it
+# cut in depth as M1 trains deepseek; phase O serves olmoe-1b-7b whole as M2
+# serves deepseek (16 layers, H = K = 16 at hd 128 with qk_norm, 64 experts
+# top-8) and O2 trains it cut. Both cuts keep layers CUT_LAYERS.
+Y_ARCH, O_ARCH, CUT_LAYERS = "yi-9b", "olmoe-1b-7b", "0:2"
 
 
 def m1_config():
@@ -2208,12 +2288,22 @@ def m1_config():
     return dataclasses.replace(base, num_layers=M1_LAYERS, pattern=base.pattern[:M1_LAYERS])
 
 
-def phase_mla_train():
-    """M1: single-pass RMNP training of deepseek-v2-lite-16b cut to 3 layers
-    at full width (B=8, S=1024, bf16, seed 0): 3 timed steps with 13 apply
-    launches each, tokens/s and peak memory; a second run from the same seed
-    equals the first bit for bit after 2 steps; the per-leaf engine equals
-    the single-pass one bit for bit on the expert stacks."""
+def cut_config(arch):
+    """``arch`` cut to layers CUT_LAYERS at full width (configs.cut_layers,
+    what ``--layers`` does)."""
+    from repro_torch.configs import cut_layers, get_config
+    return cut_layers(get_config(arch), CUT_LAYERS)
+
+
+def train_cut(tag, record_name, cfg, buckets, describe):
+    """M1-style training of ``cfg``, a model cut in depth at full width,
+    with single-pass RMNP (B=8, S=1024, bf16, seed 0): M1_STEPS timed steps
+    with one apply launch a bucket each, tokens/s and peak memory; a second
+    run from the same seed equals the first bit for bit after 2 steps; where
+    the model has expert stacks (4-D leaves), the per-leaf engine equals the
+    single-pass one bit for bit on them. An MoE model's aux losses must be
+    positive. ``tag`` names the phase in its messages, ``record_name`` its
+    record."""
     import torch
     from repro_torch.core import cosine_with_warmup, make_optimizer
     from repro_torch.core.types import tree_paths
@@ -2223,8 +2313,7 @@ def phase_mla_train():
     from repro_torch.models import init_params
     from repro_torch.train.step import make_train_step
 
-    cfg = m1_config()
-    n_buckets = len(DS_BUCKETS)
+    n_buckets = len(buckets)
 
     def run(steps, timed):
         opt = make_optimizer("rmnp", dict(
@@ -2253,6 +2342,7 @@ def phase_mla_train():
         torch.cuda.empty_cache()
         return out
 
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2263,12 +2353,13 @@ def phase_mla_train():
     diff = differing(first["after_2"], second["after_2"])
     steady = first["step_s"][1:]
     tokens = M1_BATCH * M1_SEQ
-    check(sorted(first["buckets"]) == sorted(f"{a}x{b}" for _, a, b in DS_BUCKETS),
-          f"M1 buckets {first['buckets']}")
-    check(all(math.isfinite(x) for x in first["losses"]), f"M1 losses {first['losses']}")
-    check(all(a > 0 for a in first["aux"]), f"M1: the aux losses {first['aux']}")
+    check(sorted(first["buckets"]) == sorted(f"{a}x{b}" for _, a, b in buckets),
+          f"{tag} buckets {first['buckets']}")
+    check(all(math.isfinite(x) for x in first["losses"]), f"{tag} losses {first['losses']}")
+    if cfg.moe is not None:
+        check(all(a > 0 for a in first["aux"]), f"{tag}: the aux losses {first['aux']}")
     check([s["rmnp_apply"] for s in first["launches"]] == [n_buckets] * M1_STEPS,
-          f"M1 apply launches per step {first['launches']}")
+          f"{tag} apply launches per step {first['launches']}")
 
     # the per-leaf engine against the single-pass one on the expert stacks:
     # one step from the same weights and gradients, bit for bit, in fp32
@@ -2277,43 +2368,74 @@ def phase_mla_train():
     params = init_params(cfg, seed=0, device="cuda")
     stacks = {p: t.float() for p, t in tree_paths(params) if t.ndim == 4}
     del params
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    grads = {p: 1e-3 * torch.randn(t.shape, generator=gen, device="cuda")
-             for p, t in stacks.items()}
-    outs = {}
-    for engine, kw in (("per-leaf", dict(fused=False, fused_apply=False)),
-                       ("single-pass", dict(fused=True, fused_apply=True))):
-        opt = make_optimizer("rmnp", dict(lr_matrix=cosine_with_warmup(2e-3, 3), **kw))
-        state = opt.init(stacks)
-        if opt.update_apply is not None:
-            new, state = opt.update_apply(grads, state, stacks, 1)
-        else:
-            from repro_torch.core import apply_updates
-            updates, state = opt.update(grads, state, stacks, 1)
-            new = apply_updates(stacks, updates)
-        outs[engine] = host_copy(new)
-        del new, state
-    engines_diff = differing(outs["per-leaf"], outs["single-pass"])
-    del stacks, grads, outs
+    engines_diff = None
+    if stacks:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        grads = {p: 1e-3 * torch.randn(t.shape, generator=gen, device="cuda")
+                 for p, t in stacks.items()}
+        outs = {}
+        for engine, kw in (("per-leaf", dict(fused=False, fused_apply=False)),
+                           ("single-pass", dict(fused=True, fused_apply=True))):
+            opt = make_optimizer("rmnp", dict(lr_matrix=cosine_with_warmup(2e-3, 3), **kw))
+            state = opt.init(stacks)
+            if opt.update_apply is not None:
+                new, state = opt.update_apply(grads, state, stacks, 1)
+            else:
+                from repro_torch.core import apply_updates
+                updates, state = opt.update(grads, state, stacks, 1)
+                new = apply_updates(stacks, updates)
+            outs[engine] = host_copy(new)
+            del new, state
+        engines_diff = differing(outs["per-leaf"], outs["single-pass"])
+        del grads, outs
+    del stacks
     torch.cuda.empty_cache()
     card = card_name()
     record = {
-        "card": card, "config": f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE "
-        f"units), full width", "params": first["params"], "batch": M1_BATCH, "seq": M1_SEQ,
-        "losses": first["losses"], "aux": first["aux"], "step_s": first["step_s"],
-        "tokens_per_s": tokens / statistics.median(steady), "peak_mem_gb": peak,
-        "launches_per_step": first["launches"], "buckets": first["buckets"],
-        "bitwise_equal_after_2_steps": not diff, "differing": diff[:20],
-        "losses_second_run": second["losses"],
-        "per_leaf_equals_single_pass_on_expert_stacks": not engines_diff,
-        "engines_differing": engines_diff}
-    emit("M1_train_deepseek_3_layers", record)
-    print(f"M1 ({card}): steps {[round(x, 4) for x in first['step_s']]} s, "
+        "card": card, "config": describe, "params": first["params"], "batch": M1_BATCH,
+        "seq": M1_SEQ, "losses": first["losses"], "aux": first["aux"],
+        "step_s": first["step_s"], "tokens_per_s": tokens / statistics.median(steady),
+        "peak_mem_gb": peak, "launches_per_step": first["launches"],
+        "buckets": first["buckets"], "bitwise_equal_after_2_steps": not diff,
+        "differing": diff[:20], "losses_second_run": second["losses"]}
+    if engines_diff is not None:
+        record.update(per_leaf_equals_single_pass_on_expert_stacks=not engines_diff,
+                      engines_differing=engines_diff)
+    emit(record_name, record)
+    print(f"{tag} ({card}): steps {[round(x, 4) for x in first['step_s']]} s, "
           f"{record['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB, "
           f"{n_buckets} apply launches a step, two runs equal: {not diff}", flush=True)
-    check(not diff, f"M1: two runs from one seed differ after 2 steps in {diff[:5]}")
-    check(not engines_diff, f"M1: per-leaf and single-pass differ on {engines_diff}")
+    check(not diff, f"{tag}: two runs from one seed differ after 2 steps in {diff[:5]}")
+    check(not engines_diff, f"{tag}: per-leaf and single-pass differ on {engines_diff}")
     return {"rmnp_apply": launches, "step_s": statistics.median(steady)}
+
+
+def phase_mla_train():
+    """M1: single-pass RMNP training of deepseek-v2-lite-16b cut to 3 layers
+    at full width (B=8, S=1024, bf16, seed 0): 3 timed steps with 13 apply
+    launches each, tokens/s and peak memory; a second run from the same seed
+    equals the first bit for bit after 2 steps; the per-leaf engine equals
+    the single-pass one bit for bit on the expert stacks."""
+    return train_cut("M1", "M1_train_deepseek_3_layers", m1_config(), DS_BUCKETS,
+                     f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE units), "
+                     f"full width")
+
+
+def phase_yi_train():
+    """Y2: yi-9b cut to layers 0:2 at full width (870,338,560 parameters),
+    trained as M1 (6 apply launches a step, the untied 64000-row embedding
+    and head among the buckets), two runs bit for bit."""
+    return train_cut("Y2", "Y2_train_yi_9b_2_layers", cut_config(Y_ARCH), YI_BUCKETS,
+                     f"{Y_ARCH} cut to layers {CUT_LAYERS}, full width")
+
+
+def phase_olmoe_train():
+    """O2: olmoe-1b-7b cut to layers 0:2 at full width (2 MoE units of 64
+    experts, top-8; 1,045,703,168 parameters), trained as M1 (5 apply
+    launches a step, the expert stacks at L = 128), two runs bit for bit,
+    per-leaf against single-pass on the expert stacks."""
+    return train_cut("O2", "O2_train_olmoe_2_layers", cut_config(O_ARCH), O_BUCKETS,
+                     f"{O_ARCH} cut to layers {CUT_LAYERS} (2 MoE units), full width")
 
 
 @contextlib.contextmanager
@@ -2360,7 +2482,8 @@ def routing_agreement(a, b, n_experts):
                 for x, y in zip(a, b, strict=True)]}
 
 
-def phase_mla_serve():
+def serve_moe(arch, tag, record_name, n_params_want, control_factor=M_CONTROL_FACTOR,
+              reading_factor=None):
     """M2: serving deepseek-v2-lite-16b at full width and depth (bf16, seed 0,
     B=8, T=1024, 128 new tokens, S_max=1152) through launch/serve.serve: the
     timed run at the config's capacity factor (flash prefill, 27 launches
@@ -2370,7 +2493,12 @@ def phase_mla_serve():
     prefill against the dense one with a non-causal control, and decode
     against a teacher-forced dense forward with decoding at pos + 1 as the
     control; with free routing the same distances and the share of
-    routings on which the flash and dense prefills agree, reported."""
+    routings on which the flash and dense prefills agree, reported. O runs
+    the same for olmoe-1b-7b (``arch``; ``tag`` names the phase in its
+    messages, ``record_name`` its record; the parameter count must be
+    ``n_params_want``). Each control must land ``control_factor`` times
+    outside M_LOGIT_TOL and, with ``reading_factor``, that many times past
+    the reading it controls."""
     import torch
     from repro_torch.core.types import tree_paths
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -2380,10 +2508,10 @@ def phase_mla_serve():
     from repro_torch.train.step import make_prefill_step, make_serve_step
     from repro_torch.configs import get_config
 
-    base = get_config(M_ARCH)
-    # the 38.4 GB of fp32 noise of the expert stack needs one free block:
-    # earlier phases' reference cycles (autograd graphs) are collected and
-    # the allocator's cache returned first
+    base = get_config(arch)
+    # the fp32 noise of the expert stack (38.4 GB for deepseek, 25.8 GB for
+    # olmoe) needs one free block: earlier phases' reference cycles
+    # (autograd graphs) are collected and the allocator's cache returned first
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 2**30
@@ -2394,7 +2522,7 @@ def phase_mla_serve():
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for _, t in tree_paths(params))
-    check(n_params == 15_706_484_224, f"M2: {n_params} parameters")
+    check(n_params == n_params_want, f"{tag}: {n_params} parameters, want {n_params_want}")
     prompts = torch.randint(0, base.vocab, (M_BATCH, M_PROMPT), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(1))
     real = slice(0, base.vocab)
@@ -2405,18 +2533,18 @@ def phase_mla_serve():
 
     # the timed run: a short warm-up, then the served batch, which keeps no
     # logits, so its peak (generate resets it after init) is serving's own
-    serve(M_ARCH, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=4,
+    serve(arch, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=4,
           attn_impl="pallas", params=params, prompts=prompts)
     torch.cuda.empty_cache()
     reset_launches()
-    res = serve(M_ARCH, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=M_TOKENS,
+    res = serve(arch, full=True, batch=M_BATCH, prompt_len=M_PROMPT, tokens=M_TOKENS,
                 attn_impl="pallas", params=params, prompts=prompts)
     serve_launches = LAUNCHES["flash_attention_fwd"]
     check(serve_launches == base.num_layers,
-          f"M2: {serve_launches} flash launches in a served batch, want {base.num_layers}")
+          f"{tag}: {serve_launches} flash launches in a served batch, want {base.num_layers}")
     seqs = res["tokens"]
     check(seqs.shape == (M_BATCH, M_TOKENS) and int(seqs.min()) >= 0
-          and int(seqs.max()) < base.vocab, f"M2: generated tokens {seqs.shape}")
+          and int(seqs.max()) < base.vocab, f"{tag}: generated tokens {seqs.shape}")
 
     # prefill ms per attention mode at the config's capacity factor
     batch = {"tokens": prompts}
@@ -2427,7 +2555,7 @@ def phase_mla_serve():
         torch.cuda.empty_cache()
 
     # The checks, at capacity factor E / K (nothing dropped). A near tie in
-    # the router's top-6 falls either way under bf16 rounding, and a flipped
+    # the router's top-K falls either way under bf16 rounding, and a flipped
     # expert changes that token's output by about 1/K of its routed part
     # (the experts are independent random functions), so two runs that round
     # differently drift apart through the layers by more than qwen3's dense
@@ -2461,7 +2589,7 @@ def phase_mla_serve():
     last["control"], launches["control"] = prefill("control", replay=iter(dense_routes))
     torch.cuda.empty_cache()
     check(launches == {"pallas": base.num_layers, "dense": 0, "control": 0},
-          f"M2: flash launches per prefill {launches}")
+          f"{tag}: flash launches per prefill {launches}")
     s1, s1_control = rel(last["pallas"], last["dense"]), rel(last["control"], last["dense"])
     s1_free = rel(last["pallas_free"], last["dense"])
     agree = routing_agreement(flash_routes, dense_routes, m.num_experts)
@@ -2518,7 +2646,7 @@ def phase_mla_serve():
 
     card = card_name()
     record = {
-        "card": card, "config": M_ARCH, "params": n_params, "batch": M_BATCH,
+        "card": card, "config": arch, "params": n_params, "batch": M_BATCH,
         "prompt_len": M_PROMPT, "new_tokens": M_TOKENS, "init_s": init_s,
         "held_before_init_gb": held_gb, "init_peak_gb": init_peak, "flash_launches_per_prefill": serve_launches,
         "prefill_ms": {run: summary(ms) for run, ms in prefill_ms.items()},
@@ -2532,33 +2660,60 @@ def phase_mla_serve():
         "logits_rel_decode_vs_forced": s2, "logits_rel_control_pos_plus_1": s2_control,
         "free_routing_logits_rel_flash_vs_dense": s1_free,
         "free_routing_logits_rel_decode_vs_forced": s2_free,
-        "tolerance": M_LOGIT_TOL, "control_factor": M_CONTROL_FACTOR,
+        "tolerance": M_LOGIT_TOL, "control_factor": control_factor,
+        "control_reading_factor": reading_factor,
         "routing_agreement_flash_vs_dense": agree}
-    emit("M2_serve_deepseek_v2_lite", record)
+    emit(record_name, record)
     for run, ms in prefill_ms.items():
         sm = summary(ms)
-        print(f"M2 ({card}): prefill {run} {sm['median']:.2f} ms ({sm['min']:.2f}-"
+        print(f"{tag} ({card}): prefill {run} {sm['median']:.2f} ms ({sm['min']:.2f}-"
               f"{sm['max']:.2f})", flush=True)
     d = summary(decode)
-    print(f"M2 ({card}): decode {d['median']:.3f} ms a step ({d['min']:.3f}-{d['max']:.3f}, "
+    print(f"{tag} ({card}): decode {d['median']:.3f} ms a step ({d['min']:.3f}-{d['max']:.3f}, "
           f"{len(decode)} steps), {res['decode_tokens_per_s']:.1f} decode tokens/s; init "
           f"{init_s:.1f} s, init peak {init_peak:.2f} GiB, serving peak "
           f"{record['serving_peak_gb']:.2f} GiB", flush=True)
-    print(f"M2 (routing replayed): flash vs dense {s1:.3e} (control {s1_control:.3e}); "
+    print(f"{tag} (routing replayed): flash vs dense {s1:.3e} (control {s1_control:.3e}); "
           f"decode vs forced {s2:.3e} (control {s2_control:.3e}); tolerance {M_LOGIT_TOL}",
           flush=True)
-    print(f"M2 (free routing): flash vs dense {s1_free:.3e}, decode vs forced {s2_free:.3e}; "
+    print(f"{tag} (free routing): flash vs dense {s1_free:.3e}, decode vs forced {s2_free:.3e}; "
           f"routings agreeing {agree['as_sets']:.5f} as sets, {agree['by_rank']:.5f} by rank, "
           f"of {agree['routings']}", flush=True)
-    check(s1 <= M_LOGIT_TOL, f"M2: flash prefill logits {s1} from dense > {M_LOGIT_TOL}")
-    check(s2 <= M_LOGIT_TOL, f"M2: decode logits {s2} from the forced forward > {M_LOGIT_TOL}")
-    for name, c in (("non-causal prefill", s1_control), ("decoding at pos + 1", s2_control)):
-        check(c >= M_CONTROL_FACTOR * M_LOGIT_TOL,
-              f"M2: the control ({name}) is only {c} away, less than "
-              f"{M_CONTROL_FACTOR}x the tolerance {M_LOGIT_TOL}")
+    check(s1 <= M_LOGIT_TOL, f"{tag}: flash prefill logits {s1} from dense > {M_LOGIT_TOL}")
+    check(s2 <= M_LOGIT_TOL, f"{tag}: decode logits {s2} from the forced forward > {M_LOGIT_TOL}")
+    for name, c, reading in (("non-causal prefill", s1_control, s1),
+                             ("decoding at pos + 1", s2_control, s2)):
+        check(c >= control_factor * M_LOGIT_TOL,
+              f"{tag}: the control ({name}) is only {c} away, less than "
+              f"{control_factor}x the tolerance {M_LOGIT_TOL}")
+        if reading_factor is not None:
+            check(c >= reading_factor * reading,
+                  f"{tag}: the control ({name}) is only {c} away, less than "
+                  f"{reading_factor}x the reading it controls ({reading})")
     del params, res, cseqs
     torch.cuda.empty_cache()
     return serve_launches
+
+
+def phase_mla_serve():
+    """M2: serving deepseek-v2-lite-16b whole (serve_moe)."""
+    return serve_moe(M_ARCH, "M2", "M2_serve_deepseek_v2_lite", 15_706_484_224)
+
+
+def phase_olmoe_serve():
+    """O: serving olmoe-1b-7b at full width and depth (16 layers, H = K =
+    16 at hd 128 with qk_norm, 64 experts top-8; 6,919,624,704 parameters)
+    as M2 serves deepseek: 16 launches of the bf16 hd-128 kernel a prefill,
+    at capacity factor E / K = 8 with the reference run's routing replayed
+    the flash prefill against dense and decode against a forced forward,
+    and free routing's agreement. Each control must land outside
+    M_LOGIT_TOL, as S's do, and 4x past the reading it controls: olmoe's
+    attention with random weights (qk_norm, H = K = 16 over 1024 keys) is
+    near uniform, so decoding one position late moves its logits by only
+    5.8e-2 (1.15x the tolerance) where deepseek's move 4.8x; the replayed
+    reading is 8.6e-3, 6.7x below that control (PERF.md)."""
+    return serve_moe(O_ARCH, "O", "O_serve_olmoe_1b_7b", 6_919_624_704,
+                     control_factor=1.0, reading_factor=M_CONTROL_FACTOR)
 
 
 # The SSM architectures (phases X1, X2, J1, J2). xlstm-350m runs whole;
@@ -2569,6 +2724,10 @@ def phase_mla_serve():
 # mamba layer with the MoE FFN, then the GQA layer with its dense FFN).
 X_ARCH = "xlstm-350m"
 X_BATCH, X_SEQ, X1_STEPS = 8, 1024, 2
+# X1 trains xlstm-350m cut in depth: each step of its 24 layers takes ~22 s
+# of host-bound sLSTM loop on an H100, 230 s of the script's time limit for
+# the whole phase (PERF.md); X2 serves it whole
+X1_LAYERS = "0:12"
 # X2 decodes F tokens against a forced forward over T + F = 1152, a multiple
 # of the mLSTM chunk (128), so the forward runs the prefill's chunked scan
 X_PROMPT, X_TOKENS, X_FORCED = 1024, 128, 128
@@ -2710,30 +2869,31 @@ def ssm_train(arch, layers, steps, batch, seq, n_buckets, tag):
 
 
 def phase_xlstm_train():
-    """X1: xlstm-350m at full width and depth (24 layers of alternating mLSTM
-    and sLSTM, d = 1024, 4 heads, untied, bf16, 468,497,504 parameters)
-    trained with single-pass RMNP through launch.train.train (B=8, S=1024,
-    seed 0): 2 timed steps with 7 apply launches each, tokens/s and peak
+    """X1: xlstm-350m cut to layers 0:12 at full width (6 layers each of
+    alternating mLSTM and sLSTM, d = 1024, 4 heads, untied, bf16,
+    285,891,632 parameters) trained with single-pass RMNP through
+    launch.train.train (B=8, S=1024, seed 0): 2 timed steps with 7 apply
+    launches each, tokens/s and peak
     memory; a second run equals the first bit for bit after its 2 steps;
     one more step under the profiler (device ops a step, idle share); and
     one sLSTM and one mLSTM layer alone at the step's shapes, forward,
     recompute and backward as the unit's checkpoint runs them: their device
-    ops, 12 times over, against the step's give the share of the
+    ops, 6 times over, against the step's give the share of the
     (host-bound) step that the sLSTM layers' loop over time takes."""
     import torch
     from torch.utils.checkpoint import checkpoint
     from repro_torch.models import ssm
 
-    rec, launches, params, cfg = ssm_train(X_ARCH, "", X1_STEPS, X_BATCH, X_SEQ,
+    rec, launches, params, cfg = ssm_train(X_ARCH, X1_LAYERS, X1_STEPS, X_BATCH, X_SEQ,
                                            len(XLSTM_BUCKETS), "X1")
-    check(rec["params"] == 468_497_504, f"X1: {rec['params']} parameters")
+    check(rec["params"] == 285_891_632, f"X1: {rec['params']} parameters")
     check(sorted(rec["buckets"]) == sorted(f"{a}x{b}" for _, a, b in XLSTM_BUCKETS),
           f"X1 buckets {rec['buckets']}")
     # one layer of each kind alone at the step's shapes, as the unit's
     # checkpoint runs it (forward, recompute, backward): its device ops under
     # the profiler and its time on the host clock (2 runs, after the
     # profiled one). The step is host-bound, so the layers' share of its
-    # device ops is their share of its time; 12 layers of each kind.
+    # device ops is their share of its time; 6 layers of each kind.
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((X_BATCH, X_SEQ, cfg.d_model), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -2768,16 +2928,17 @@ def phase_xlstm_train():
     for name, a in alone.items():
         a["share_of_step_ops"] = (per_kind * a["device_ops"] / step_ops
                                   if step_ops and a["device_ops"] else None)
-        a["alone_s_x12_over_step"] = per_kind * statistics.median(a["s"]) / step
-    rec.update(config=f"{X_ARCH}, full width and depth", layers_alone=alone)
+        a["alone_s_times_layers_over_step"] = per_kind * statistics.median(a["s"]) / step
+    rec.update(config=f"{X_ARCH} cut to layers {X1_LAYERS}, full width", layers_alone=alone)
     emit("X1_train_xlstm_350m", rec)
     print(f"X1 ({rec['card']}): steps {[round(s, 3) for s in rec['step_s']]} s, "
           f"{rec['tokens_per_s']:.0f} tokens/s, peak {rec['peak_mem_gb']:.2f} GiB, "
           f"{len(XLSTM_BUCKETS)} apply launches a step; {step_ops} device ops a step, idle "
-          f"{rec['idle_share']}; the 12 sLSTM layers {alone['slstm']['share_of_step_ops']} "
-          f"of its device ops ({alone['slstm']['device_ops']} a layer, "
-          f"{statistics.median(alone['slstm']['s']):.3f} s a layer alone), the 12 mLSTM "
-          f"layers {alone['mlstm']['share_of_step_ops']}", flush=True)
+          f"{rec['idle_share']}; the {per_kind} sLSTM layers "
+          f"{alone['slstm']['share_of_step_ops']} of its device ops "
+          f"({alone['slstm']['device_ops']} a layer, "
+          f"{statistics.median(alone['slstm']['s']):.3f} s a layer alone), the {per_kind} "
+          f"mLSTM layers {alone['mlstm']['share_of_step_ops']}", flush=True)
     return {"rmnp_apply": launches, "step_s": step}
 
 
@@ -3404,6 +3565,144 @@ def phase_musicgen():
     return launches, frontend_train(G_ARCH, "G4", G_BUCKETS, 3_229_812_736)
 
 
+# Phase Q runs the examples of examples_torch/ through their main(argv). The
+# card against the CPU from one CPU init is held as phase D holds its
+# reduced runs: each logged loss and grad norm, and the dominance ratios,
+# within Q_TOL relative (fp32, TF32 off; 50 steps drift by ~1e-6).
+EXAMPLES = ROOT / "examples_torch"
+Q_TOL = 1e-4
+Q_FACEOFF = ["--full", "--steps", "20", "--only", "adamw", "muon", "rmnp"]
+
+
+def example_module(name):
+    """``examples_torch/<name>.py`` as a module (the directory is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(main, argv):
+    """``main(argv)`` with its standard output captured: (result, text)."""
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = main(argv)
+    return res, out.getvalue()
+
+
+def phase_examples():
+    """Q: the four examples on the card, as a user runs them, through their
+    main(argv). quickstart (reduced gpt2, 50 per-leaf RMNP steps) on the
+    card and on the CPU from one CPU init: every logged loss and grad norm
+    and the dominance ratios within Q_TOL; serve_batched (reduced qwen3-4b,
+    B=4, 16-token prompts, 32 tokens) on both from one CPU init and the
+    same prompts: the same tokens; the faceoff at full width (gpt2-small,
+    B=16, S=64, 20 steps of adamw, muon and rmnp on the bucketed engine):
+    finite losses, each logged step's launches (4 precondition launches a
+    rmnp step, 40 matmul3 and 20 ns_poly3 a muon step, none for adamw) and
+    the equal-wall summary; the restart's act 1 on the card (stop at step
+    40, resume, bit for bit; act 2, on the CPU by design, runs in the CPU
+    tests). Each example's output goes to chiprun_out/Q_examples.txt."""
+    import torch
+    from repro_torch.core.types import tree_map
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+
+    def cpu_init(cfg, seed=0, device="cuda"):
+        # one CPU init, copied to the device asked for: a torch.Generator on
+        # the card draws other numbers than one on the CPU
+        return tree_map(lambda t: t.to(device), init_params(cfg, seed=seed, device="cpu"))
+
+    def cpu_prompts(cfg, batch, prompt_len, device):
+        gen = torch.Generator().manual_seed(1)
+        return torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen).to(device)
+
+    texts, launches, card = {}, {}, card_name()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    qs = example_module("quickstart")
+    qs.init_params = cpu_init
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reset_launches()
+        runs[device], texts[f"quickstart --device {device}"] = run_example(
+            qs.main, ["--device", device])
+        launches[f"quickstart_{device}"] = dict(LAUNCHES)
+    qc, qh = runs["cuda"], runs["cpu"]
+    check([s for s, _, _ in qc["logged"]] == [s for s, _, _ in qh["logged"]],
+          f"Q quickstart logged steps {qc['logged']} {qh['logged']}")
+    q_loss = max(rel(a[1], b[1]) for a, b in zip(qc["logged"], qh["logged"], strict=True))
+    q_gnorm = max(rel(a[2], b[2]) for a, b in zip(qc["logged"], qh["logged"], strict=True))
+    q_dom = max(rel(qc["dominance"][k], qh["dominance"][k]) for k in qh["dominance"])
+    n_pre = launches["quickstart_cuda"]["rmnp_precondition"]
+    check(n_pre > 0 and n_pre % qs.STEPS == 0
+          and launches["quickstart_cpu"]["rmnp_precondition"] == 0,
+          f"Q quickstart: precondition launches {launches}")
+
+    sb = example_module("serve_batched")
+    sb.init_params, sb.prompt_tokens = cpu_init, cpu_prompts
+    served = {}
+    for device in ("cuda", "cpu"):
+        served[device], texts[f"serve_batched --device {device}"] = run_example(
+            sb.main, ["--device", device])
+    tokens_equal = torch.equal(served["cuda"]["tokens"], served["cpu"]["tokens"])
+
+    fo = example_module("train_optimizer_faceoff")
+    reset_launches()
+    faceoff, texts["train_optimizer_faceoff " + " ".join(Q_FACEOFF)] = run_example(
+        fo.main, Q_FACEOFF)
+    launches["faceoff"] = dict(LAUNCHES)
+    per_step = {"adamw": {}, "rmnp": {"rmnp_precondition": 4},
+                "muon": {"matmul3": 40, "ns_poly3": 20}}
+    for opt, r in faceoff.items():
+        hist = r["history"]
+        check(all(math.isfinite(h["loss"]) for h in hist), f"Q faceoff {opt} losses")
+        for h in hist:
+            got = {k: n for k, n in h["launches"].items() if n}
+            check(got == per_step[opt], f"Q faceoff {opt} step {h['step']} launches {got}")
+
+    rs = example_module("fault_tolerant_restart")
+    reset_launches()
+    restart, texts["fault_tolerant_restart --act 1"] = run_example(rs.main, ["--act", "1"])
+    launches["restart_act1"] = dict(LAUNCHES)
+    check(launches["restart_act1"]["rmnp_precondition"] > 0,
+          f"Q restart: no kernel launched {launches['restart_act1']}")
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "Q_examples.txt").write_text("".join(
+        f"=== {name} ===\n{text}\n" for name, text in texts.items()))
+    record = {
+        "card": card, "quickstart_losses_cuda": [x[1] for x in qc["logged"]],
+        "quickstart_losses_cpu": [x[1] for x in qh["logged"]],
+        "quickstart_loss_rel": q_loss, "quickstart_grad_norm_rel": q_gnorm,
+        "quickstart_dominance_cuda": qc["dominance"], "quickstart_dominance_cpu": qh["dominance"],
+        "quickstart_dominance_rel": q_dom, "tolerance": Q_TOL,
+        "serve_tokens_equal": tokens_equal, "serve_seconds": served["cuda"]["seconds"],
+        "serve_device": served["cuda"]["device"],
+        "faceoff": {opt: {"final": r["final"], "wall_s": r["wall_s"],
+                          "at_budget": r["at_budget"]} for opt, r in faceoff.items()},
+        "restart_act1_worst": restart["act1"]["worst"], "launches": launches}
+    emit("Q_examples", record)
+    print(f"Q ({card}): quickstart card vs CPU: losses {q_loss:.2e}, grad norms "
+          f"{q_gnorm:.2e}, dominance {q_dom:.2e} (tolerance {Q_TOL}); serve_batched tokens "
+          f"equal: {tokens_equal}; faceoff finals "
+          f"{ {o: round(r['final'], 4) for o, r in faceoff.items()} }; restart act 1 worst "
+          f"{restart['act1']['worst']}", flush=True)
+    check(max(q_loss, q_gnorm, q_dom) <= Q_TOL,
+          f"Q quickstart: card against CPU {q_loss}, {q_gnorm}, {q_dom} > {Q_TOL}")
+    check(tokens_equal, "Q serve_batched: the card's tokens differ from the CPU's")
+    check(restart["act1"]["worst"] == 0.0, "Q restart: act 1 is not exact")
+    # every launch on the card in the examples' runs, per kernel
+    return {k: sum(d.get(k, 0) for name, d in launches.items() if not name.endswith("cpu"))
+            for k in LAUNCHES}
+
+
 def card_name():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -3684,30 +3983,35 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t0 = time.time()
-    phase_build()
-    rmnp = phase_rmnp()
-    attn_cases = phase_attention()
+    run_phase("build", phase_build)
+    rmnp = run_phase("A", phase_rmnp)
+    attn_cases = run_phase("B", phase_attention)
     attn, attn_fp32 = attn_cases["main"], attn_cases["main_fp32"]
-    ns = phase_ns()
-    census = phase_census()
-    launches = phase_train()
-    fp32_launches = phase_train_fp32()
-    t_launches = phase_train_fp32_wide()
-    launches.update(phase_muon())
-    d_launches = phase_small()
-    serve_launches = phase_serve(S_ARCH, "S")
-    h_launches = phase_serve(H_ARCH, "H")
-    n_launches = phase_serve(N_ARCH, "N")
-    m2_launches = phase_mla_serve()
-    m1 = phase_mla_train()
-    x1 = phase_xlstm_train()
-    phase_xlstm_serve()
-    j1_launches = phase_jamba_serve()
-    j2 = phase_jamba_train()
-    p_launches, p4 = phase_paligemma()
-    g_launches, g4 = phase_musicgen()
-    llama_launches = phase_resilience()
-    zero_launches = phase_zero()
+    ns = run_phase("E", phase_ns)
+    census = run_phase("K", phase_census)
+    launches = run_phase("C1-C3", phase_train)
+    fp32_launches = run_phase("C3f", phase_train_fp32)
+    t_launches = run_phase("T1-T2", phase_train_fp32_wide)
+    launches.update(run_phase("C4", phase_muon))
+    d_launches = run_phase("D", phase_small)
+    serve_launches = run_phase("S", phase_serve, S_ARCH, "S")
+    h_launches = run_phase("H", phase_serve, H_ARCH, "H")
+    n_launches = run_phase("N", phase_serve, N_ARCH, "N")
+    y_launches = run_phase("Y", phase_serve, Y_ARCH, "Y")
+    m2_launches = run_phase("M2", phase_mla_serve)
+    m1 = run_phase("M1", phase_mla_train)
+    o_launches = run_phase("O", phase_olmoe_serve)
+    o2 = run_phase("O2", phase_olmoe_train)
+    y2 = run_phase("Y2", phase_yi_train)
+    x1 = run_phase("X1", phase_xlstm_train)
+    run_phase("X2", phase_xlstm_serve)
+    j1_launches = run_phase("J1", phase_jamba_serve)
+    j2 = run_phase("J2", phase_jamba_train)
+    p_launches, p4 = run_phase("P", phase_paligemma)
+    g_launches, g4 = run_phase("G", phase_musicgen)
+    q_launches = run_phase("Q", phase_examples)
+    llama_launches = run_phase("R", phase_resilience)
+    zero_launches = run_phase("Z", phase_zero)
 
     smi = card_name()
     print(smi, flush=True)
@@ -3723,9 +4027,9 @@ def main():
          "deepseek_3_layers": rmnp["rmnp_apply"]["deepseek"],
          "launches_M1": m1["rmnp_apply"],
          "M1_optimizer_share": rmnp["rmnp_apply"]["deepseek"]["ms"] / 1e3 / m1["step_s"],
-         # xlstm-350m whole (7 buckets) and jamba cut to layers 3-4 (10
-         # buckets): phase A's sums and the apply launches of X1's and J2's
-         # first runs (3 steps each)
+         # xlstm-350m cut to 12 layers (7 buckets) and jamba cut to layers
+         # 3-4 (10 buckets): phase A's sums and the apply launches of X1's
+         # and J2's first runs
          "xlstm_350m": rmnp["rmnp_apply"]["xlstm"], "launches_X1": x1["rmnp_apply"],
          "X1_optimizer_share": rmnp["rmnp_apply"]["xlstm"]["ms"] / 1e3 / x1["step_s"],
          "jamba_2_layers": rmnp["rmnp_apply"]["jamba"], "launches_J2": j2["rmnp_apply"],
@@ -3734,7 +4038,13 @@ def main():
          # g and v, bf16 w) and the apply launches of P4's and G4's first
          # runs (5 and 3 buckets a step)
          "paligemma_embedding": rmnp["rmnp_apply"]["paligemma"],
-         "launches_P4": p4["rmnp_apply"], "launches_G4": g4["rmnp_apply"]},
+         "launches_P4": p4["rmnp_apply"], "launches_G4": g4["rmnp_apply"],
+         # yi-9b and olmoe-1b-7b cut to layers 0:2: their 6 and 5 buckets
+         # summed (phase A) and the apply launches of Y2's and O2's 3 steps
+         "yi_9b_2_layers": rmnp["rmnp_apply"]["yi"], "launches_Y2": y2["rmnp_apply"],
+         "Y2_optimizer_share": rmnp["rmnp_apply"]["yi"]["ms"] / 1e3 / y2["step_s"],
+         "olmoe_2_layers": rmnp["rmnp_apply"]["olmoe"], "launches_O2": o2["rmnp_apply"],
+         "O2_optimizer_share": rmnp["rmnp_apply"]["olmoe"]["ms"] / 1e3 / o2["step_s"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
@@ -3753,6 +4063,14 @@ def main():
              "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
              "worst_ratio")},
          "launches_S": serve_launches,
+         # hd 128 at yi-9b's prefill shape (H=32 on K=4, G = 8), 48 launches a
+         # served prefill in Y, and at olmoe-1b-7b's (H=K=16, G = 1), 16 in O
+         **{key: {k: attn_cases[case][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_three_part_ms", "flops", "flops_three_part", "max_abs_err",
+             "worst_ratio")} for key, case in (("hd128_yi", "yi_hd128"),
+                                               ("hd128_olmoe", "olmoe_hd128"))},
+         "launches_Y": y_launches, "launches_O": o_launches,
          # MLA's (192, 128) at deepseek-v2-lite's prefill shape (B=8, S=1024,
          # H=K=16, causal, v a strided view), 27 launches a served prefill in M2
          "hd192_hdv128": {**{k: attn_cases["deepseek_mla"][k] for k in (
@@ -3846,11 +4164,15 @@ def main():
     for entry in kernels:
         if entry["name"] in census_runs:
             entry["launches_K"] = census[census_runs[entry["name"]]][entry["name"]]
+        # the examples' runs on the card (phase Q)
+        if q_launches.get(entry["name"]):
+            entry["launches_Q"] = q_launches[entry["name"]]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "seconds": time.time() - t0, "kernels": kernels,
-         "phases": RESULTS}, indent=1))
+        {"card": smi, "seconds": time.time() - t0, "phase_seconds": PHASE_SECONDS,
+         "kernels": kernels, "phases": RESULTS}, indent=1))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS, "seconds": time.time() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,9 @@ caller before JAX starts):
 
     python tests/_torch_zero_jax.py dp DIR        params, 2- and 4-device
                                                   ZeRO-2 steps, a checkpoint
+    python tests/_torch_zero_jax.py moe DIR       the same 4-device steps for
+                                                  reduced deepseek-v2-lite-16b
+                                                  and olmoe-1b-7b
     python tests/_torch_zero_jax.py crs DIR       the int8 functions on 4
                                                   devices (DIR/crs_in.npz)
     python tests/_torch_zero_jax.py restore DIR   restore DIR/port_ckpt
@@ -33,6 +36,9 @@ from repro.train.dp_step import init_dp_state, make_dp_train_step
 
 LR = dict(lr_matrix=2e-2, lr_adamw=1e-2)
 BATCH, SEQ = 8, 16
+# the MoE archs whose ZeRO-2 step the port is held against (reduced: MLA
+# with a dense prefix layer; qk_norm GQA; each with 4 experts, top-2)
+MOE_ARCHS = ("deepseek-v2-lite-16b", "olmoe-1b-7b")
 
 
 def _flat(prefix, tree):
@@ -50,8 +56,8 @@ def _mesh(n):
     return jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
 
 
-def _setup(n):
-    cfg = get_config("gpt2-small").reduced()
+def _setup(n, arch="gpt2-small"):
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, jax.random.PRNGKey(0))
     opt = make_optimizer("rmnp", dict(LR, fused_apply=True, shard_axis="data",
                                       shard_size=n))
@@ -62,29 +68,48 @@ def _batch(cfg, t):
     return {k: jnp.asarray(v) for k, v in make_stream(cfg, SEQ, BATCH, seed=0).sample(t).items()}
 
 
+def _dp_steps(out: Path, cfg, params, opt, n, compress, steps, prefix):
+    """``steps`` n-device ZeRO-2 steps from ``params``; the final params,
+    state and residuals to ``<prefix>_n<n>.npz``, the grad norms beside."""
+    mesh = _mesh(n)
+    st, comp = opt.init(params), init_dp_state(params, n)
+    fn = jax.jit(make_dp_train_step(cfg, opt, mesh, zero2=True, opt_state=st,
+                                    compress=compress, clip_norm=1.0, overlap=True))
+    p, norms = params, []
+    with mesh:
+        for t in range(steps):
+            p, st, comp, m = fn(p, st, comp, _batch(cfg, t), jnp.int32(t))
+            norms.append(np.asarray(m["grad_norm"]))
+    _save(out / f"{prefix}_n{n}.npz", p=p, s=st, c=comp)
+    np.save(out / f"{prefix}_n{n}_gnorm.npy", np.stack(norms))
+    return p, st, comp
+
+
 def dp(out: Path):
     cfg, params, _ = _setup(1)
     np.savez(out / "params.npz", **{p: np.asarray(x) for p, x in tree_paths(params)})
     for n in (2, 4):
         _, _, opt = _setup(n)
-        mesh = _mesh(n)
         for compress, steps in ((False, 2), (True, 1)):
-            st, comp = opt.init(params), init_dp_state(params, n)
-            fn = jax.jit(make_dp_train_step(cfg, opt, mesh, zero2=True, opt_state=st,
-                                            compress=compress, clip_norm=1.0, overlap=True))
-            p, norms = params, []
-            with mesh:
-                for t in range(steps):
-                    p, st, comp, m = fn(p, st, comp, _batch(cfg, t), jnp.int32(t))
-                    norms.append(np.asarray(m["grad_norm"]))
-            _save(out / f"jax_{'int8' if compress else 'exact'}_n{n}.npz", p=p, s=st, c=comp)
-            np.save(out / f"jax_{'int8' if compress else 'exact'}_n{n}_gnorm.npy",
-                    np.stack(norms))
+            p, st, comp = _dp_steps(out, cfg, params, opt, n, compress, steps,
+                                    f"jax_{'int8' if compress else 'exact'}")
             if compress and n == 4:
                 mgr = CheckpointManager(str(out / "jax_ckpt"), async_save=False)
                 mgr.save(1, (p, st, comp), data_step=1, layout=elastic.state_layout(
                     opt, p, mesh_size=n, rule="rmnp", compress=True, opt_state=st))
                 _save(out / "jax_ckpt_state.npz", p=p, s=st, c=comp)
+
+
+def moe(out: Path):
+    """Each MoE arch's params, two exact-wire and one int8-wire 4-device
+    ZeRO-2 steps (the expert stacks join the sharded buckets)."""
+    for arch in MOE_ARCHS:
+        cfg, params, opt = _setup(4, arch)
+        np.savez(out / f"params_{arch}.npz",
+                 **{p: np.asarray(x) for p, x in tree_paths(params)})
+        for compress, steps in ((False, 2), (True, 1)):
+            _dp_steps(out, cfg, params, opt, 4, compress, steps,
+                      f"jax_{arch}_{'int8' if compress else 'exact'}")
 
 
 def crs(out: Path):
@@ -118,4 +143,4 @@ def restore(out: Path):
 
 
 if __name__ == "__main__":
-    {"dp": dp, "crs": crs, "restore": restore}[sys.argv[1]](Path(sys.argv[2]))
+    {"dp": dp, "moe": moe, "crs": crs, "restore": restore}[sys.argv[1]](Path(sys.argv[2]))

@@ -93,13 +93,17 @@ def _save(path, **trees):
 
 
 def _model(jax_dir=None, arch="gpt2-small"):
+    """Reduced ``arch``: its own init, or the JAX package's params exported
+    to ``jax_dir`` (``params.npz`` for gpt2-small, ``params_<arch>.npz``
+    otherwise)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = get_config(arch).reduced()
     if jax_dir is None:
         return cfg, init_params(cfg, seed=0, device="cpu")
     from repro_torch.core.types import map_with_path
-    z = np.load(Path(jax_dir) / "params.npz")
+    z = np.load(Path(jax_dir) / ("params.npz" if arch == "gpt2-small"
+                                 else f"params_{arch}.npz"))
     like = init_params(cfg, seed=0, device="cpu")
     return cfg, map_with_path(lambda p, _t: torch.from_numpy(z[p].copy()), like)
 
@@ -334,6 +338,22 @@ def jax_dp(comm, out, jax_dir):
         if comm.rank == 0:
             _save(out / f"jaxcmp_{'int8' if compress else 'exact'}_n{comm.world}.npz",
                   p=p, s=st, gnorm=torch.stack([m["grad_norm"] for m in ms]))
+
+
+def jax_moe(comm, out, jax_dir):
+    """The ZeRO-2 step of each MoE arch (``_torch_zero_jax.MOE_ARCHS``) from
+    the JAX package's params and batches: two steps on the exact wire, one
+    on the int8 wire, as ``jax_dp``."""
+    for arch in ("deepseek-v2-lite-16b", "olmoe-1b-7b"):
+        cfg, params = _model(jax_dir, arch)
+        batches = _batches(cfg)
+        for compress, steps in ((False, 2), (True, 1)):
+            p, st, _, ms = _run_dp(comm, cfg, params, batches, "z2p", compress=compress,
+                                   clip_norm=1.0, steps=steps)
+            if comm.rank == 0:
+                wire = "int8" if compress else "exact"
+                _save(out / f"jaxcmp_{arch}_{wire}_n{comm.world}.npz", p=p, s=st,
+                      gnorm=torch.stack([m["grad_norm"] for m in ms]))
 
 
 def _views(opt, p, st, comp, comm):

@@ -1,6 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/``, not
-``chip_smoke.py`` and no script under ``tools/`` imports JAX or the JAX
-package.
+``chip_smoke.py``, no script under ``tools/`` and no example under
+``examples_torch/`` imports JAX or the JAX package, nor the JAX package's
+``benchmarks/`` (the faceoff example keeps its own copy of what it needs).
 
 The machine with the card has PyTorch and no JAX, so one such import would
 stop the port there. The scan reads every import statement (top level or
@@ -12,9 +13,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 SOURCES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "tools").glob("*.py")))
+           + sorted((ROOT / "tools").glob("*.py"))
+           + sorted((ROOT / "examples_torch").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -56,7 +58,10 @@ def test_the_scan_covers_the_port():
                      "tools/step_repeat.py", "tools/flash_hd128_variants.py",
                      "src/repro_torch/configs/paligemma_3b.py",
                      "src/repro_torch/configs/musicgen_large.py",
-                     "src/repro_torch/configs/all_archs.py"):
+                     "src/repro_torch/configs/all_archs.py",
+                     "examples_torch/quickstart.py", "examples_torch/serve_batched.py",
+                     "examples_torch/train_optimizer_faceoff.py",
+                     "examples_torch/fault_tolerant_restart.py"):
         assert expected in names
 
 
@@ -74,6 +79,7 @@ def test_the_scan_catches_a_reference_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import repro_torch.core\n"
                      "def f():\n    from repro.core import rmnp\n"
-                     "    import jax.numpy as jnp\n")
+                     "    import jax.numpy as jnp\n"
+                     "    from benchmarks.faceoff import loss_at_wall\n")
     mods = [m.split(".")[0] for _, m in _imported_modules(probe)]
-    assert [m for m in mods if m in FORBIDDEN] == ["repro", "jax"]
+    assert [m for m in mods if m in FORBIDDEN] == ["repro", "jax", "benchmarks"]

@@ -80,9 +80,9 @@ def assert_bitwise(a, b, what=""):
         np.testing.assert_array_equal(a[k], b[k], err_msg=f"{what} {k}")
 
 
-def assert_close(got, want, what=""):
+def assert_close(got, want, what="", rtol=2e-6, atol_frac=1e-6):
     got, want = got.astype(np.float64), want.astype(np.float64)
-    lim = 2e-6 * np.abs(want) + 1e-6 * np.abs(want).max()
+    lim = rtol * np.abs(want) + atol_frac * np.abs(want).max()
     assert (np.abs(got - want) <= lim).all(), (what, np.abs(got - want).max())
 
 
@@ -270,33 +270,104 @@ def test_chunked_accumulation_equals_replicated_at_accum_4(runs):
 # against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_zero2_matches_jax_exact_wire(runs, n):
-    """Two ZeRO-2 steps on n ranks from the JAX package's params against
-    its n-device ``make_dp_train_step(zero2=True)``."""
-    got, want = load(runs, f"jaxcmp_exact_n{n}.npz"), load(runs, f"jax_exact_n{n}.npz")
-    np.testing.assert_allclose(got["gnorm"], np.load(runs / f"jax_exact_n{n}_gnorm.npy"),
+def hold_exact_wire(d, got_name, want_prefix, rtol=2e-6, atol_frac=1e-6):
+    """The port's ZeRO-2 result against JAX's on the exact wire: grad norms
+    at rtol 2e-6, every parameter and state leaf at the fp32 limit
+    (``rtol * |want| + atol_frac * max|want|``)."""
+    got, want = load(d, got_name), load(d, f"{want_prefix}.npz")
+    np.testing.assert_allclose(got["gnorm"], np.load(d / f"{want_prefix}_gnorm.npy"),
                                rtol=2e-6)
-    for k in got:
-        if k.startswith(("p:", "s:")):
-            assert_close(got[k], want[k], k)
+    held = [k for k in got if k.startswith(("p:", "s:"))]
+    assert held and sorted(held) == sorted(k for k in want if k.startswith(("p:", "s:")))
+    for k in held:
+        assert_close(got[k], want[k], k, rtol, atol_frac)
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_zero2_matches_jax_int8_wire(runs, n):
-    got, want = load(runs, f"jaxcmp_int8_n{n}.npz"), load(runs, f"jax_int8_n{n}.npz")
-    np.testing.assert_allclose(got["gnorm"], np.load(runs / f"jax_int8_n{n}_gnorm.npy"),
-                               rtol=2e-6)
+def hold_int8_wire(d, got_name, want_prefix, gnorm_rtol=2e-6, rescale=False):
+    """The same on the int8 wire, with the neighbouring-code allowance the
+    module's docstring states. With ``rescale`` the grad norm is held at
+    ``gnorm_rtol`` and the clip scale it sets is divided out of the state
+    (momentum by the ratio of the two norms, AdamW's second moment by its
+    square) before the allowance is applied."""
+    got, want = load(d, got_name), load(d, f"{want_prefix}.npz")
+    want_gnorm = np.load(d / f"{want_prefix}_gnorm.npy")
+    np.testing.assert_allclose(got["gnorm"], want_gnorm, rtol=gnorm_rtol)
+    ratio = float(got["gnorm"][-1]) / float(want_gnorm[-1]) if rescale else 1.0
     for k in got:
         if not k.startswith(("p:", "s:")):
             continue
         g, w = got[k].astype(np.float64), want[k].astype(np.float64)
+        if k.startswith(("s:.buckets", "s:.momentum")):
+            g = g * ratio
+        elif k.startswith("s:.nu"):
+            g = g * ratio ** 2
         off = np.abs(g - w) > 2e-6 * np.abs(w) + 1e-6 * np.abs(w).max()
         if k.startswith("s:.buckets"):
             assert off.mean() <= 5e-4, (k, off.sum())
             assert (np.abs(g - w) <= np.abs(w).max() / 127).all(), k
         else:
             assert off.mean() <= 1e-2, (k, off.sum())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_zero2_matches_jax_exact_wire(runs, n):
+    """Two ZeRO-2 steps on n ranks from the JAX package's params against
+    its n-device ``make_dp_train_step(zero2=True)``."""
+    hold_exact_wire(runs, f"jaxcmp_exact_n{n}.npz", f"jax_exact_n{n}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_zero2_matches_jax_int8_wire(runs, n):
+    hold_int8_wire(runs, f"jaxcmp_int8_n{n}.npz", f"jax_int8_n{n}")
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("zero_moe")
+    run_jax("moe", d)
+    W.spawn("jax_moe", 4, d, str(d))
+    return d
+
+
+MOE_ARCHS = ("deepseek-v2-lite-16b", "olmoe-1b-7b")
+
+
+# The exact wire's element limit per arch. olmoe-1b-7b holds gpt2-small's
+# (worst element 0.92 of it). deepseek-v2-lite-16b's MLA differs from JAX by
+# more fp32 rounding already in one rank's gradient (3.0e-6 of a leaf's
+# largest element, against olmoe's 1.6e-6), and its two steps read 1.46x
+# gpt2's limit; it is held at the limit the MLA tests state for the model's
+# outputs and gradients (tests/test_torch_mla.py: rtol 1e-5 plus 2e-6 of
+# the leaf's largest magnitude).
+MOE_EXACT_LIMITS = {"deepseek-v2-lite-16b": (1e-5, 2e-6), "olmoe-1b-7b": (2e-6, 1e-6)}
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_zero2_matches_jax_exact_wire(moe_runs, arch):
+    """Reduced deepseek-v2-lite-16b (MLA, a dense prefix, MoE units) and
+    olmoe-1b-7b (qk_norm, MoE on every layer), each with its 4-D expert
+    stacks in the sharded buckets: two ZeRO-2 steps on 4 ranks from the JAX
+    package's params against its 4-device step, grad norms at gpt2-small's
+    rtol 2e-6 and every leaf at ``MOE_EXACT_LIMITS``. Reduced MoE routes
+    top-2, where the port's combine (a token's K expert outputs added in k
+    order) and JAX's scatter-add sum the same pair."""
+    hold_exact_wire(moe_runs, f"jaxcmp_{arch}_exact_n4.npz", f"jax_{arch}_exact_n4",
+                    *MOE_EXACT_LIMITS[arch])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_zero2_matches_jax_int8_wire(moe_runs, arch):
+    """One int8-wire ZeRO-2 step. A gradient an fp32 ulp apart rounds to the
+    neighbouring int8 code a few times a bucket on each rank (1-5 of 65536
+    codes here, in both archs); one such code in a block of large gradients
+    moves the global grad norm: olmoe's by 1.9e-5 relative. The clip
+    (clip_norm 1 against a norm near 10) multiplies every gradient by
+    1 / norm, so the whole momentum moves by that ratio and most of its
+    elements leave the fp32 limit. So the norm is held at 1e-4 (one such
+    code, with room), and the state with the ratio of the two norms divided
+    out, at the module's int8 allowance."""
+    hold_int8_wire(moe_runs, f"jaxcmp_{arch}_int8_n4.npz", f"jax_{arch}_int8_n4",
+                   gnorm_rtol=1e-4, rescale=True)
 
 
 # ---------------------------------------------------------------------------
