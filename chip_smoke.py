@@ -168,6 +168,18 @@ Phases:
          each, tokens/s and peak memory; a second run equals the first bit
          for bit after 2 steps; the per-leaf engine equals the single-pass
          one bit for bit on the expert stacks;
+  V      the dry run (launch/dryrun.py, on meta tensors, nothing run on
+         the card; recorded in a process of its own from the end of the
+         build on, beside the phases on the card) of the windows of C1,
+         S3 and M1: each window's
+         predicted peak (the dry run's peak, the arguments it was given in
+         it, plus what the phase held at its reset_peak_memory_stats beyond
+         those arguments, read there) within V_MEM_TOL of the phase's
+         measured peak, and the dry run's rise over its held arguments
+         within V_MEM_TOL of the measured rise; beside it, per step, its
+         FLOPs and model_flops and the phase's measured step, prefill or
+         decode time over the record's roofline bound (reported, not
+         gated);
   M2     serving deepseek-v2-lite-16b at full width and depth (bf16, seed
          0, B=8, T=1024, 128 new tokens, S_max=1152) through
          launch/serve.serve with the flash prefill (27 launches of the
@@ -1010,7 +1022,7 @@ def phase_ns():
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import newton_schulz as nsk
     from repro_torch.kernels import ops
-    from repro_torch.launch.roofline import gemm_bound
+    from repro_torch.launch.roofline import gemm_bound, gemm_reads
     a, b, c = NS_COEFFS
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -1033,14 +1045,14 @@ def phase_ns():
         xt = x.transpose(1, 2)
         return [
             ("gram", lambda: mm.gemm(x, xt), lambda: nsk.gram_plain(x),
-             lambda: torch.bmm(x, xt), x64 @ x64.transpose(1, 2), (L, m, m, n), L * m * n),
+             lambda: torch.bmm(x, xt), x64 @ x64.transpose(1, 2), (L, m, m, n), gemm_reads(x, xt)),
             ("poly", lambda: mm.gemm(g, g, g, alpha=c, beta=b),
              lambda: nsk.poly_plain(g, b, c),
-             lambda: torch.baddbmm(g, g, g, beta=b, alpha=c), p64, (L, m, m, m), L * m * m),
+             lambda: torch.baddbmm(g, g, g, beta=b, alpha=c), p64, (L, m, m, m), gemm_reads(g, g, g)),
             ("apply", lambda: mm.gemm(p, x, x, alpha=1.0, beta=a),
              lambda: nsk.apply_plain(p, x, a),
              lambda: torch.baddbmm(x, p, x, beta=a), a * x64 + p64 @ x64, (L, m, n, m),
-             L * (m * m + m * n)),
+             gemm_reads(p, x, x)),
         ]
 
     def held(name, shape, kernel, plain, want, record):
@@ -1162,6 +1174,7 @@ def phase_train():
     # C1: the main path, single-pass engine
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what phase V adds to its dry run
     t0 = time.time()
     params, state, hist = train("gpt2-small", reduced=False, optimizer="rmnp",
                                 fused=True, fused_apply=True, use_kernel=True,
@@ -1192,7 +1205,8 @@ def phase_train():
                                   "step_s": [b - a for a, b in zip(walls, walls[1:])],
                                   "launches": counts, "buckets": buckets,
                                   "matrix_params": n_matrix,
-                                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+                                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                                  "held_at_reset_gb": held / 2**30})
 
     # C2: the two-pass bucketed engine runs the precondition kernel
     reset_launches()
@@ -2188,8 +2202,8 @@ def phase_serve(arch, tag):
         "decode_ms_per_step": summary(decode), "decode_steps": len(decode),
         "decode_samples_ms": decode, "decode_tokens_per_s": res["decode_tokens_per_s"],
         "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
-        "peak_mem_gb": res["peak_bytes"] / 2**30, "tokens_head": seqs[:, :8].tolist(),
-        "phase_s": time.perf_counter() - phase_t0}
+        "peak_mem_gb": res["peak_bytes"] / 2**30, "held_at_reset_gb": res["held_bytes"] / 2**30,
+        "tokens_head": seqs[:, :8].tolist(), "phase_s": time.perf_counter() - phase_t0}
     emit(f"{tag}_serve_" + arch.replace("-", "_").replace(".", "_"), record)
     for run, ms in prefill_ms.items():
         m = summary(ms)
@@ -2345,6 +2359,7 @@ def train_cut(tag, record_name, cfg, buckets, describe):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_launches()
     first = run(M1_STEPS, True)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2395,7 +2410,8 @@ def train_cut(tag, record_name, cfg, buckets, describe):
         "card": card, "config": describe, "params": first["params"], "batch": M1_BATCH,
         "seq": M1_SEQ, "losses": first["losses"], "aux": first["aux"],
         "step_s": first["step_s"], "tokens_per_s": tokens / statistics.median(steady),
-        "peak_mem_gb": peak, "launches_per_step": first["launches"],
+        "peak_mem_gb": peak, "held_at_reset_gb": held / 2**30,
+        "launches_per_step": first["launches"],
         "buckets": first["buckets"], "bitwise_equal_after_2_steps": not diff,
         "differing": diff[:20], "losses_second_run": second["losses"]}
     if engines_diff is not None:
@@ -2419,6 +2435,144 @@ def phase_mla_train():
     return train_cut("M1", "M1_train_deepseek_3_layers", m1_config(), DS_BUCKETS,
                      f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE units), "
                      f"full width")
+
+
+# Phase V: a predicted peak within this share of the measured one
+V_MEM_TOL = 0.10
+
+
+def dryrun_records():
+    """Phase V's records, on meta tensors (launch/dryrun.py; nothing is
+    built, allocated or run on the card): one step each of C1, S3's prefill
+    and decode, and M1, and S3's whole served batch (launch/serve.generate
+    as S3 calls it: the flash prefill, the cache of 1024 + 128 placed, the
+    127 decode steps, with the parameters and prompts S3 holds at its reset
+    as the window's arguments). start_dryrun runs it beside the phases on
+    the card."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import param_specs
+
+    torch.set_num_threads(1)
+    single_pass = dict(opt_config=dict(fused=True, fused_apply=True), microbatches=1)
+    s_cfg = dataclasses.replace(get_config(S_ARCH), attn_impl="pallas")
+    steps = {
+        "V1": dryrun.record(get_config("gpt2-small"), ShapeConfig("C1", 1024, 8, "train"),
+                            **single_pass),
+        "V2_prefill": dryrun.record(s_cfg, ShapeConfig("S3_prefill", S_PROMPT, S_BATCH,
+                                                       "prefill")),
+        "V2_decode": dryrun.record(s_cfg, ShapeConfig("S3_decode", S_PROMPT + S_TOKENS,
+                                                      S_BATCH, "decode")),
+        "V3": dryrun.record(m1_config(), ShapeConfig("M1", M1_SEQ, M1_BATCH, "train"),
+                            **single_pass),
+    }
+    specs = param_specs(s_cfg)
+    prompts = torch.empty((S_BATCH, S_PROMPT), dtype=torch.int64, device="meta")
+    window = dryrun.record_window(generate, s_cfg, specs, prompts, S_TOKENS,
+                                  arguments={"params": specs, "batch": prompts})
+    return {"steps": steps, "window": window}
+
+
+def start_dryrun():
+    """(pool, future) of dryrun_records in a spawned process of its own
+    (meta tensors only, one CPU thread), so that its recording (about 35 s
+    of host time) runs beside the phases on the card and phase V only
+    waits for what is left of it. The pool is shut down after V, or at
+    exit."""
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(dryrun_records)
+
+
+def phase_dryrun(pending=None):
+    """V: the dry run of C1, S3 and M1 (dryrun_records, from ``pending``,
+    start_dryrun's future, or recorded here) against their measured peaks.
+
+    Each window is the phase's own, from its reset_peak_memory_stats() to
+    its max_memory_allocated(): V1 C1's train() (the parameters, state and
+    batch it makes, and its steps: one record of gpt2-small's single-pass
+    step, B=8, S=1024, remat="full"), V2 S3's served batch, V3 M1's steps
+    (deepseek-v2-lite-16b cut to 3 layers). The predicted peak is the dry
+    run's peak (its arguments in it) plus what the phase held at its reset
+    beyond those arguments (read there: held_at_reset_gb). Two gates: the
+    predicted peak within V_MEM_TOL of the measured one, and the dry run's
+    rise over its held arguments within V_MEM_TOL of the measured rise over
+    what the phase held. Beside them, per step (V1, S3's prefill and decode,
+    V3): its FLOPs and model_flops, and the measured time over the record's
+    roofline bound (reported, not gated)."""
+    from repro_torch.launch.roofline import roofline_row
+
+    gib = 2**30
+    card = card_name()
+    c1 = RESULTS["C1_train_single_pass"]
+    s3 = RESULTS["S_serve_" + S_ARCH.replace("-", "_").replace(".", "_")]
+    m1 = RESULTS["M1_train_deepseek_3_layers"]
+    wait0 = time.perf_counter()
+    recs = dryrun_records() if pending is None else pending.result(timeout=900)
+    waited = time.perf_counter() - wait0
+    steps, window = recs["steps"], recs["window"]
+    record_s = window["record_s"] + sum(r["record_s"] for r in steps.values())
+
+    # label: (the dry run's memory, the phase's record, its arguments that
+    # the phase already held at its reset)
+    windows = {"V1": (steps["V1"]["memory"], c1, 0),
+               "V2": (window["memory"], s3, window["memory"]["argument_bytes"]),
+               "V3": (steps["V3"]["memory"], m1, 0)}
+    out = {"card": card, "tolerance": V_MEM_TOL, "record_s": record_s,
+           "V2_record_s": window["record_s"], "waited_s": waited,
+           "beside_the_card": pending is not None}
+    print(f"V: the dry run recorded in {record_s:.1f} s "
+          f"{'beside the phases on the card' if pending is not None else 'here'}; "
+          f"V waited {waited:.1f} s for it", flush=True)
+    failed = []
+    for label, (mem, phase, args_held) in windows.items():
+        held = phase["held_at_reset_gb"]
+        beyond = held - args_held / gib
+        peak = mem["bytes_per_device"] / gib
+        predicted, measured = beyond + peak, phase["peak_mem_gb"]
+        rise, rise_measured = peak - args_held / gib, measured - held
+        ratio, rise_ratio = predicted / measured, rise / rise_measured
+        out[label] = {
+            "predicted_peak_gb": predicted, "measured_peak_gb": measured, "ratio": ratio,
+            "held_at_reset_gb": held, "held_beyond_arguments_gb": beyond,
+            "dryrun_peak_gb": peak, "dryrun_arguments_gb": mem["argument_bytes"] / gib,
+            "predicted_rise_gb": rise, "measured_rise_gb": rise_measured,
+            "rise_ratio": rise_ratio, "at_peak": mem["at_peak"],
+            "makers_at_peak": mem["makers_at_peak"]}
+        print(f"{label} ({card}): predicted peak {predicted:.3f} GiB (held beyond the "
+              f"arguments {beyond:.3f} + dry run {peak:.3f}, of it arguments "
+              f"{mem['argument_bytes'] / gib:.3f}), measured {measured:.3f} GiB, ratio "
+              f"{ratio:.4f}; rise over the held arguments predicted {rise:.3f} GiB, "
+              f"measured {rise_measured:.3f}, ratio {rise_ratio:.4f}", flush=True)
+        for what, r in (("peak", ratio), ("rise", rise_ratio)):
+            if abs(r - 1) > V_MEM_TOL:
+                failed.append(f"{label} {what}: ratio {r:.4f}")
+
+    measured_s = {"V1": statistics.median(c1["step_s"][1:]),
+                  "V2_prefill": s3["prefill_ms"]["pallas"]["median"] / 1e3,
+                  "V2_decode": s3["decode_ms_per_step"]["median"] / 1e3,
+                  "V3": statistics.median(m1["step_s"][1:])}
+    out["steps"] = {}
+    for label, rec in steps.items():
+        row = roofline_row(dict(rec, cell=label))
+        bound = max(row["t_compute_s"], row["t_memory_s"], row["t_collective_s"])
+        seconds = measured_s[label]
+        out["steps"][label] = {
+            "flops": rec["cost"]["flops"], "model_flops": rec["model_flops"],
+            "flops_by_unit": rec["cost"]["flops_by_unit"],
+            "bytes_accessed": rec["cost"]["bytes_accessed"], "roofline_bound_s": bound,
+            "bound_by": row["dominant"], "measured_s": seconds,
+            "roofline_share": bound / seconds,
+            "kernel_launches": rec["cost"]["kernel_launches"], "record_s": rec["record_s"]}
+        print(f"{label} step ({card}): FLOPs {rec['cost']['flops']:.4e} beside model_flops "
+              f"{rec['model_flops']:.4e}; measured {seconds * 1e3:.2f} ms over a bound of "
+              f"{bound * 1e3:.2f} ms ({row['dominant']}): {bound / seconds:.3f} of the "
+              f"roofline", flush=True)
+    emit("V_dryrun", out)
+    check(not failed, f"V: predictions outside {V_MEM_TOL:.0%} of the measured: {failed}")
 
 
 def phase_yi_train():
@@ -3984,6 +4138,7 @@ def main():
 
     t0 = time.time()
     run_phase("build", phase_build)
+    v_pool, v_pending = start_dryrun()
     rmnp = run_phase("A", phase_rmnp)
     attn_cases = run_phase("B", phase_attention)
     attn, attn_fp32 = attn_cases["main"], attn_cases["main_fp32"]
@@ -4000,6 +4155,8 @@ def main():
     y_launches = run_phase("Y", phase_serve, Y_ARCH, "Y")
     m2_launches = run_phase("M2", phase_mla_serve)
     m1 = run_phase("M1", phase_mla_train)
+    run_phase("V", phase_dryrun, v_pending)
+    v_pool.shutdown()
     o_launches = run_phase("O", phase_olmoe_serve)
     o2 = run_phase("O2", phase_olmoe_train)
     y2 = run_phase("Y2", phase_yi_train)

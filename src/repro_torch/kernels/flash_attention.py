@@ -86,7 +86,7 @@ def flash_layout(dtype, hd: int, hdv: int) -> FlashLayout:
     return FlashLayout(bq, 128 * cw + 128, ring + nslot * slot + 2 * nslot * 8 + 1024, nslot)
 
 
-def describe(q, k, v, out) -> introspect.KernelLaunch:
+def describe(q, k, v, out, causal: bool = True) -> introspect.KernelLaunch:
     """The launch ``flash_attention_fwd_kernel`` makes: one block per
     ``bq`` query rows of each (batch, head), a one-dimensional grid."""
     B, S, H, hd = q.shape
@@ -106,7 +106,7 @@ def describe(q, k, v, out) -> introspect.KernelLaunch:
         cluster=(1, 1, 1), smem_bytes=lay.smem_bytes,
         operands=tuple(introspect.Operand.of(n, t) for n, t in
                        (("q", q), ("k", k), ("v", v), ("out", out))),
-        tiles=tiles, layout=lay)
+        tiles=tiles, layout=lay, work=(("causal", bool(causal)),))
 
 
 def _kernel(dtype):
@@ -173,7 +173,7 @@ def flash_attention_fwd_kernel(q, k, v, *, causal: bool = True):
     B, S, H, hd = q.shape
     out = q.new_empty((B, S, H, v.shape[3]))
     if q.is_meta:
-        introspect.record(describe(q, k, v, out))
+        introspect.record(describe(q, k, v, out, causal))
         return out
     fn, err_str = _kernel(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -74,6 +74,11 @@ class KernelLaunch(NamedTuple):
     operands: Tuple[Operand, ...]
     tiles: Tuple[Tiling, ...]
     layout: Any = None               # the Python layout it was built from (a ``Split``, ...)
+    # what the launch's cost counts that its operands do not show, as
+    # (key, value) pairs: a flash launch's ``causal``, the input elements a
+    # GEMM reads once (``reads``: an operand passed twice, or beside its own
+    # transpose, is read once); ``launch/cost.kernel_cost`` reads them
+    work: Tuple[Tuple[str, Any], ...] = ()
 
     @property
     def signature(self) -> str:

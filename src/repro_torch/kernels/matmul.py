@@ -168,12 +168,13 @@ def describe(a, b, c, out, *, count: str, chunk: int, split: bool) -> introspect
              introspect.Tiling("b", (L, K, N), (1, chunk, _TILE), (L, chunks, tiles_n))]
     tiles += [introspect.Tiling(n, (L, M, N), (1, _TILE, _TILE), (L, tiles_m, tiles_n))
               for n, _ in ops[2:]]
+    from repro_torch.launch.roofline import gemm_reads
     return introspect.KernelLaunch(
         name=count, kernel="gemm_kernel",
         template=("true" if a_k else "false", "true" if b_k else "false"),
         grid=grid, block=(_THREADS, 1, 1), cluster=(1, 1, 1), smem_bytes=SMEM_BYTES,
         operands=tuple(introspect.Operand.of(n, t) for n, t in ops), tiles=tuple(tiles),
-        layout=(chunk, split))
+        layout=(chunk, split), work=(("reads", gemm_reads(a, b, c)),))
 
 
 def gemm_plain(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):

@@ -108,8 +108,9 @@ def generate(cfg, params, prompts, tokens: int, *,
     generated tokens, with S_max = T + tokens. Returns the tokens (B,
     tokens), int32, and the timings: prefill and placement ms, each decode
     step's ms, decode tokens per second and, on a card, the peak device
-    memory. With ``keep_logits`` also the prefill's last logits and each
-    decode step's logits (B, padded_vocab)."""
+    memory and the bytes already held when its count began. With
+    ``keep_logits`` also the prefill's last logits and each decode step's
+    logits (B, padded_vocab)."""
     batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     lead = batch["tokens"] if "tokens" in batch else batch["frames"]
     device = lead.device
@@ -117,9 +118,11 @@ def generate(cfg, params, prompts, tokens: int, *,
     prefill = make_prefill_step(cfg)
     decode = make_serve_step(cfg)
     clock = _Clock(device)
+    held = None
     if clock.cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     clock.mark()
     last, prompt_cache = prefill(params, batch)
@@ -147,6 +150,7 @@ def generate(cfg, params, prompts, tokens: int, *,
         "decode_tokens_per_s": B * len(steps) / decode_s if steps else None,
         "tokens_per_s": B * tokens / wall, "wall_s": wall,
         "peak_bytes": torch.cuda.max_memory_allocated() if clock.cuda else None,
+        "held_bytes": held,
     }
     if keep_logits:
         res["logits"] = logits

@@ -18,7 +18,7 @@ against a float64 softmax attention:
   brings K one span at a time in that order), each k-step's
   sum added as the emulation's
   pessimistic model of the tensor cores adds (``_tc_sum`` of
-  ``tests/test_torch_kernel_emulation.py``: every addend cut toward zero at
+  ``tests/_torch_emulation.py``: every addend cut toward zero at
   the last fp32 bit of the largest, the sum cut toward zero);
 - the scores scaled by log2(e)/sqrt(hd), masked to -1e30, a running max,
   p = exp2(s - m) in fp32, l summed from that unrounded p;

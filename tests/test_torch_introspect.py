@@ -309,12 +309,12 @@ def test_launch_records_name_the_instantiation():
 
 def _probe(tmp_path, source_name, headers, body, substitute=True):
     """Compile ``csrc/<source_name>`` with the emulation headers of
-    tests/test_torch_kernel_emulation.py and ``body`` appended in the same
+    tests/_torch_emulation.py and ``body`` appended in the same
     translation unit (its anonymous namespace is visible there)."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
-    import test_torch_kernel_emulation as emu
+    import _torch_emulation as emu
     for name, text in headers(emu).items():
         (tmp_path / name).write_text(text)
     src = (emu.SOURCE.with_name(source_name)).read_text()

@@ -61,7 +61,10 @@ def test_the_scan_covers_the_port():
                      "src/repro_torch/configs/all_archs.py",
                      "examples_torch/quickstart.py", "examples_torch/serve_batched.py",
                      "examples_torch/train_optimizer_faceoff.py",
-                     "examples_torch/fault_tolerant_restart.py"):
+                     "examples_torch/fault_tolerant_restart.py",
+                     "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/cost.py",
+                     "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/perf.py",
+                     "src/repro_torch/launch/roofline.py"):
         assert expected in names
 
 
