@@ -28,7 +28,13 @@ Phases:
          two-sweep path (or that one does not); bit for bit,
          a stacked launch against its slices launched alone (both forms)
          and, in fp32, apply against precondition followed by the two-pass
-         engine's eager ops; the ptxas report of each instantiation;
+         engine's eager ops; the ptxas report of each instantiation; and
+         the model axis's column-split modes, PARTIAL and FINISH
+         (rmnp_split_kernel), at qwen3-4b's wo and w_out shards at M = 16
+         (36x256x2560 and 36x608x2560, rank 5 of 16) against their plain
+         versions, FINISH given the whole matrix's column sums and held
+         against the one-pass kernel's rows of the whole matrix (v_new bit
+         for bit), each timed; the ptxas report of its 32 instantiations;
   B      the flash-attention forward kernels (bf16: csrc/flash_attention_fwd.cu;
          fp32, 3xTF32: csrc/flash_attention_fwd_tf32.cu; both on the tensor
          cores) against their plain version, in each type at B=8 S=1024
@@ -70,7 +76,10 @@ Phases:
          spill nothing, hold USETMAXREG (its producer warpgroup's
          registers go to the consumers) and have no wgmma that ptxas
          serialised, every fp32 build must spill nothing, and the
-         registers and spills of both go on the kernels line
+         registers and spills of both go on the kernels line; the model
+         axis's local heads at M = 16 (LOCAL_HEADS: 2 q heads on 1 or 2 kv
+         heads at hd 128, 96 and 64, bf16, and hd 128 in fp32) at B=8
+         S=1024, causal (timed) and not
          (kernels/report.py reads both); an fp32 row's bound is that of
          its 3xTF32 products on the tensor cores, the FFMA bound is
          recorded beside it, and a bf16 row's kernel floor with P.V as three
@@ -83,7 +92,13 @@ Phases:
          two-pass bucketed engine (4 precondition launches); one step with
          attn_impl="pallas" through make_train_step, whose final hidden
          state and loss must match dense attention's from the same init,
-         while a non-causal attention, the control, must not;
+         while a non-causal attention, the control, must not; and the
+         model axis (C1_model_axis): one single-pass RMNP step of
+         gpt2-small at full width through the model-axis code on a NCCL
+         world of one (distributed/comm.init_world(make_local_world(1, 1)))
+         against the single-rank step from one init and batch, bit for bit
+         (loss, grad norm, every parameter), with 3 PARTIAL and 3 FINISH
+         launches (wo, w_out, the embedding) and 2 one-pass ones;
   C3f    the same in fp32 (gpt2-small at full width with dtype="float32"):
          one single-pass RMNP step with attn_impl="pallas" (the fp32 flash
          kernel, 24 launches) against dense attention from one init, loss
@@ -152,7 +167,10 @@ Phases:
          first 16 generated tokens against a teacher-forced dense forward
          within S_LOGIT_TOL, and decoding at pos + 1 outside it; S3 prefill
          ms in each mode, decode ms a step over 127 steps (median, min,
-         max), tokens per second and peak device memory;
+         max), tokens per second and peak device memory; and the model axis
+         (S_model_axis): the flash prefill and 3 decode steps through the
+         model-axis code on the NCCL world of one against the single-rank
+         code, every logit and token bit for bit, 36 flash launches;
   H      phase S's checks and timings for phi3-mini-3.8b at full width
          (32 layers, H=K=32 at hd 96; B=8, T=1024, 128 new tokens,
          S_max=1152): 32 launches of the (96, 96) kernel a prefill;
@@ -171,7 +189,7 @@ Phases:
   V      the dry run (launch/dryrun.py, on meta tensors, nothing run on
          the card; recorded in a process of its own from the end of the
          build on, beside the phases on the card) of the windows of C1,
-         S3 and M1: each window's
+         S3 and M1, and (V4) of S's model-axis served batch: each window's
          predicted peak (the dry run's peak, the arguments it was given in
          it, plus what the phase held at its reset_peak_memory_stats beyond
          those arguments, read there) within V_MEM_TOL of the phase's
@@ -656,7 +674,115 @@ def phase_rmnp():
     for key, line in sorted(ptxas.items()):
         print(f"ptxas rmnp_kernel {key}: {line}", flush=True)
     emit("A_rmnp_bitwise", {"buckets": bitwise, "ptxas": ptxas})
+    summary.update(rmnp_split_checks(gen, beta, eps, rtol))
     return summary
+
+
+# The model axis's column-split modes (PARTIAL, FINISH) at qwen3-4b's local
+# shard shapes at M = 16: wo (36 x 4096 x 2560) and w_out (36 x 9728 x
+# 2560) split by rows into 16, 256 and 608 rows a rank; rank SPLIT_RANK's
+# rows are checked, with the column sums of the whole matrix.
+SPLIT_SHAPES = {"wo": (36, 4096, 2560), "w_out": (36, 9728, 2560)}
+SPLIT_M, SPLIT_RANK = 16, 5
+
+
+def rmnp_split_instantiation(mangled):
+    """``C32_finish_apply_v32_w16`` for the mangled name of
+    ``rmnp_split_kernel<C, MODE, APPLY, TV, TW>``."""
+    import re
+    m = re.search(r"rmnp_split_kernelILi(\d+)ELi(\d)ELb(\d)E((?:f|13__nv_bfloat16|S\d*_)+)E",
+                  mangled)
+    if m is None:
+        return mangled
+    tv, tw = ("32" if t == "f" else "16"
+              for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(4)))
+    mode = "partial" if m.group(2) == "1" else "finish"
+    form = "_apply" if m.group(3) == "1" else ""
+    return f"C{m.group(1)}_{mode}{form}_v{tv}" + (f"_w{tw}" if form else "")
+
+
+def rmnp_split_checks(gen, beta, eps, rtol):
+    """Phase A's check of the column-split modes: PARTIAL (the rows' column
+    sums of squares) and FINISH (v_new and w_new from the summed sums) on a
+    rank's rows, each against its plain version, FINISH given the whole
+    matrix's sums; v_new bit for bit and w_new within one bf16 step of the
+    one-pass kernel on the whole matrix; each mode timed beside its plain
+    version and its byte bound, in the main path's types (fp32 g and v,
+    bf16 w); the ptxas report of the 32 instantiations."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import report as kreport
+    from repro_torch.kernels import rmnp_update as rm
+    from repro_torch.launch.roofline import HBM_BW, rmnp_bytes
+    t0 = time.perf_counter()
+    out = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "shapes": []} for name in ("rmnp_partial", "rmnp_finish")}
+    rows = []
+    for leaf, shape in SPLIT_SHAPES.items():
+        L, d_in, d_out = shape
+        n = d_in // SPLIT_M
+        lo = SPLIT_RANK * n
+        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        v = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        w = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        sc = torch.tensor([2e-3 * max(1.0, (d_out / d_in) ** 0.5), 0.1], device="cuda")
+        total = rm.rmnp_rownorm_partial_plain(g, v, beta=beta)  # the whole matrix's sums
+        whole_v, whole_w = rm.rmnp_rownorm_apply(g, v, w, sc, beta=beta, eps=eps)
+        gl, vl, wl = (x[:, lo:lo + n].contiguous() for x in (g, v, w))
+        whole_v, whole_w = whole_v[:, lo:lo + n].contiguous(), whole_w[:, lo:lo + n].contiguous()
+        del g, v, w
+        local = (L, n, d_out)
+        rec = {"leaf": leaf, "whole": list(shape), "local": list(local), "rank": SPLIT_RANK,
+               "split": rm.split_layout(n, d_out)._asdict()}
+        got = rm.rmnp_rownorm_partial(gl, vl, beta=beta)
+        want = rm.rmnp_rownorm_partial_plain(gl, vl, beta=beta)
+        torch.cuda.synchronize()
+        e, r = elementwise_err(got, want, rtol[torch.float32])
+        check(r <= 1.0, f"rmnp_partial {local}: max_abs_err {e}, worst ratio {r} > 1")
+        cols = 4 * L * d_out
+        part = {"max_abs_err": e, "worst_ratio": r,
+                "ms": time_ms(lambda: rm.rmnp_rownorm_partial(gl, vl, beta=beta)),
+                "plain_ms": time_ms(lambda: rm.rmnp_rownorm_partial_plain(gl, vl, beta=beta)),
+                "bound_ms": (math.prod(local) * 8 + cols) / HBM_BW * 1e3}
+        got_v, got_w = rm.rmnp_rownorm_finish(gl, vl, total, wl, sc, beta=beta, eps=eps)
+        want_v, want_w = rm.rmnp_rownorm_finish_plain(gl, vl, total, wl, sc, beta=beta, eps=eps)
+        torch.cuda.synchronize()
+        ev, rv = elementwise_err(got_v, want_v, rtol[torch.float32])
+        ew, rw = elementwise_err(got_w, want_w, rtol[torch.bfloat16])
+        check(max(rv, rw) <= 1.0, f"rmnp_finish {local}: v {ev} ({rv}), w {ew} ({rw})")
+        check(torch.equal(got_v, whole_v), f"rmnp_finish {local}: v_new differs from the "
+                                           f"one-pass kernel's rows of the whole matrix")
+        e1, r1 = elementwise_err(got_w, whole_w, rtol[torch.bfloat16])
+        check(r1 <= 1.0, f"rmnp_finish {local}: w_new {e1} ({r1}) from the one-pass rows")
+        fin = {"max_abs_err": max(ev, ew), "worst_ratio": max(rv, rw),
+               "w_vs_one_pass_worst_ratio": r1,
+               "ms": time_ms(lambda: rm.rmnp_rownorm_finish(gl, vl, total, wl, sc, beta=beta,
+                                                            eps=eps)),
+               "plain_ms": time_ms(lambda: rm.rmnp_rownorm_finish_plain(
+                   gl, vl, total, wl, sc, beta=beta, eps=eps)),
+               "bound_ms": (rmnp_bytes(local, 4, 2, True) + cols) / HBM_BW * 1e3}
+        rec.update(partial=part, finish=fin)
+        rows.append(rec)
+        for name, m in (("rmnp_partial", part), ("rmnp_finish", fin)):
+            o = out[name]
+            o["max_abs_err"] = max(o["max_abs_err"], m["max_abs_err"])
+            o["worst_ratio"] = max(o["worst_ratio"], m["worst_ratio"])
+            for k in ("ms", "plain_ms", "bound_ms"):
+                o[k] += m[k]
+            o["shapes"].append(list(local))
+            print(f"{name} qwen3-4b {leaf} {'x'.join(map(str, local))} (rank {SPLIT_RANK} of "
+                  f"{SPLIT_M}): {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, plain "
+                  f"{m['plain_ms']:.4f} ms, worst ratio {m['worst_ratio']:.3f}", flush=True)
+        del gl, vl, wl, total, whole_v, whole_w, got, want, got_v, got_w, want_v, want_w
+        torch.cuda.empty_cache()
+    ptxas = kreport.ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_split_kernel",
+                                "", key=rmnp_split_instantiation)
+    check(len(ptxas) == 32, f"rmnp: {len(ptxas)} split-mode instantiations in the ptxas "
+                            f"report, want 32")
+    for key, line in sorted(ptxas.items()):
+        print(f"ptxas rmnp_split_kernel {key}: {line}", flush=True)
+    emit("A_rmnp_split", {"shapes": rows, "ptxas": ptxas, "seconds": time.perf_counter() - t0})
+    return out
 
 
 def rmnp_bitwise(shape, gen, beta, eps):
@@ -731,6 +857,14 @@ def attention_inputs(gen, B, S, H, K, hd, dtype, hdv=None):
     return [q, k, kv[..., hdv:]]
 
 
+def local_heads():
+    import torch
+    return [("local_qwen3_m16", 2, 1, 128, torch.bfloat16),
+            ("local_phi3_m16", 2, 2, 96, torch.bfloat16),
+            ("local_musicgen_m16", 2, 2, 64, torch.bfloat16),
+            ("local_qwen3_m16_fp32", 2, 1, 128, torch.float32)]
+
+
 def phase_attention():
     import torch
     import torch.nn.functional as F
@@ -740,6 +874,7 @@ def phase_attention():
     from repro_torch.kernels import report as kreport
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
+    LOCAL_HEADS = local_heads()
     # (name, B, S, H, K, hd, dtype, causal, timed[, hdv]): in each type the main
     # path's shape causal and not, GQA with a ragged S causal and not, hd 32
     # and 16 with G = 4, and ragged S around the 64-key tile and the 128-row
@@ -795,6 +930,13 @@ def phase_attention():
                   (f"ragged_{tag}_noncausal", 2, 1000, H, H, 96, bf16, False, False, hdv)]
         cases += [(f"s{S}_{tag}", 2, S, 8, 8, 96, bf16, True, False, hdv)
                   for S in (1, 63, 65, 129)]
+    # the model axis at M = 16: a rank's heads at the full models' prefill
+    # shape, qwen3-4b's and yi-9b's 2 q heads on 1 kv head at hd 128 (bf16
+    # and fp32), phi3-mini's 2 on 2 at hd 96, musicgen-large's 2 on 2 at hd
+    # 64, each causal (timed) and not
+    for tag, H, K, hd, dt in LOCAL_HEADS:
+        cases += [(tag, 8, 1024, H, K, hd, dt, True, True),
+                  (f"{tag}_noncausal", 8, 1024, H, K, hd, dt, False, False)]
     cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
               ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
               ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
@@ -1275,7 +1417,85 @@ def phase_train():
           f"hidden state: the non-causal control is only {rel_control} from dense, "
           f"less than 10x the tolerance {C3_HIDDEN_TOL}")
     main_launches["flash_attention_fwd"] = counts["flash_attention_fwd"]
+    main_launches.update(train_model_axis())
     return main_launches
+
+
+MODEL_AXIS = {}
+
+
+def model_axis_world():
+    """The world of one (``make_local_world(1, 1)``) on a NCCL group of
+    one, made once: data and model groups of one rank, through which every
+    collective of the model-axis code runs on the card."""
+    if "world" not in MODEL_AXIS:
+        from repro_torch.distributed.comm import init_world
+        from repro_torch.launch.mesh import make_local_world
+        MODEL_AXIS["world"] = init_world(make_local_world(1, 1), "cuda")
+    return MODEL_AXIS["world"]
+
+
+def train_model_axis():
+    """C1's model-axis check: one gpt2-small mixed-RMNP single-pass step at
+    full width (bf16, B=8, S=1024) through the model-axis code on the NCCL
+    world of one, against the single-rank step (C1's make_train_step) from
+    one init and batch, bit for bit: loss, grad norm and every parameter.
+    Its row-split buckets (wo, w_out, the embedding) take the RMNP kernel's
+    PARTIAL and FINISH modes, the rest the one-pass apply kernel; the
+    launches are counted over the model-axis step alone."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cosine_with_warmup, make_optimizer
+    from repro_torch.core.types import tree_paths
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import init_params
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    world = model_axis_world()
+    cfg = get_config("gpt2-small")
+    batch = batch_to_device(make_stream(cfg, 1024, 8, seed=0).sample(0), "cuda")
+    out, counts = {}, {}
+    for run in ("single", "model_axis"):
+        w = world if run == "model_axis" else None
+        params = init_params(cfg, seed=0, device="cuda",
+                             world=None if w is None else w.mesh)
+        opt = make_optimizer("rmnp", dict(
+            lr_matrix=cosine_with_warmup(2e-3, 3), lr_adamw=cosine_with_warmup(1e-3, 3),
+            fused=True, fused_apply=True))
+        step = make_train_step(cfg, opt, remat="full", world=w)
+        with tp.use(tp.axis_for(cfg, w)):
+            state = opt.init(params)
+        torch.cuda.synchronize()
+        reset_launches()
+        params, state, metrics = step(params, state, batch, 0)
+        torch.cuda.synchronize()
+        counts[run] = dict(LAUNCHES)
+        out[run] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                    {p: t for p, t in tree_paths(params)}, sorted(state.buckets))
+        del state
+    single, axis = out["single"], out["model_axis"]
+    differ = [p for p, t in single[2].items() if not torch.equal(t, axis[2][p])]
+    launches = counts["model_axis"]
+    rec = {"loss": axis[0], "grad_norm": axis[1], "params_differing": differ,
+           "loss_equal": single[0] == axis[0], "grad_norm_equal": single[1] == axis[1],
+           "launches": launches, "launches_single": counts["single"],
+           "buckets": axis[3], "seconds": time.perf_counter() - t0}
+    emit("C1_model_axis", rec)
+    check(not differ and rec["loss_equal"] and rec["grad_norm_equal"],
+          f"C1 model axis: the world-of-one step differs from the single-rank step: "
+          f"loss {single[0]} vs {axis[0]}, grad norm {single[1]} vs {axis[1]}, "
+          f"params {differ[:5]}")
+    check(launches["rmnp_partial"] == 3 and launches["rmnp_finish"] == 3
+          and launches["rmnp_apply"] == 2,
+          f"C1 model axis: launches {launches} (want 3 PARTIAL and 3 FINISH for wo, "
+          f"w_out and the embedding, 2 one-pass for the rest)")
+    del out
+    torch.cuda.empty_cache()
+    return {"rmnp_partial": launches["rmnp_partial"], "rmnp_finish": launches["rmnp_finish"]}
 
 
 def train_flash_fp32(tag, base, steps, record):
@@ -2225,9 +2445,52 @@ def phase_serve(arch, tag):
     check(s2_control > S_LOGIT_TOL,
           f"{tag}2: decoding at pos + 1 is only {s2_control} from the forced forward, inside "
           f"the tolerance {S_LOGIT_TOL}")
+    if tag == "S":
+        serve_model_axis(base, params, prompts)
     del params, res, last
     torch.cuda.empty_cache()
     return serve_launches
+
+
+S_AXIS_TOKENS = 4
+
+
+def serve_model_axis(base, params, prompts):
+    """S's model-axis check: qwen3-4b at full width, the flash prefill and
+    three decode steps (launch/serve.generate, S_AXIS_TOKENS tokens) through
+    the model-axis code on the NCCL world of one against the single-rank
+    code from the same parameters and prompts, bit for bit (every logit and
+    token); the model-axis run's peak memory is phase V's V4 window."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+
+    t0 = time.perf_counter()
+    world = model_axis_world()
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    res = {}
+    for run in ("single", "model_axis"):
+        torch.cuda.empty_cache()
+        reset_launches()
+        res[run] = generate(cfg, params, prompts, S_AXIS_TOKENS, keep_logits=True,
+                            world=world if run == "model_axis" else None)
+        res[run]["flash_launches"] = LAUNCHES["flash_attention_fwd"]
+    single, axis = res["single"], res["model_axis"]
+    equal = (torch.equal(single["tokens"], axis["tokens"])
+             and all(torch.equal(a, b) for a, b in zip(single["logits"], axis["logits"],
+                                                      strict=True)))
+    rec = {"tokens": S_AXIS_TOKENS, "bitwise_equal": equal,
+           "flash_launches": axis["flash_launches"], "prefill_ms": axis["prefill_ms"],
+           "decode_ms": axis["decode_ms"], "peak_mem_gb": axis["peak_bytes"] / 2**30,
+           "held_at_reset_gb": axis["held_bytes"] / 2**30,
+           "single_prefill_ms": single["prefill_ms"], "single_decode_ms": single["decode_ms"],
+           "seconds": time.perf_counter() - t0}
+    emit("S_model_axis", rec)
+    check(equal, "S model axis: the world-of-one prefill and decode differ from the "
+                 "single-rank code")
+    check(axis["flash_launches"] == base.num_layers,
+          f"S model axis: {axis['flash_launches']} flash launches, want {base.num_layers}")
+    del res
 
 
 R_ARCH, R_BATCH, R_SEQ, R_STEPS = "llama-130m", 8, 1024, 6
@@ -2452,6 +2715,7 @@ def dryrun_records():
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_world
     from repro_torch.launch.serve import generate
     from repro_torch.launch.specs import param_specs
 
@@ -2472,7 +2736,12 @@ def dryrun_records():
     prompts = torch.empty((S_BATCH, S_PROMPT), dtype=torch.int64, device="meta")
     window = dryrun.record_window(generate, s_cfg, specs, prompts, S_TOKENS,
                                   arguments={"params": specs, "batch": prompts})
-    return {"steps": steps, "window": window}
+    # S's model-axis check: the same served batch of S_AXIS_TOKENS through
+    # the model-axis code on a world of one, keeping its logits
+    axis_window = dryrun.record_window(
+        generate, s_cfg, specs, prompts, S_AXIS_TOKENS, keep_logits=True,
+        arguments={"params": specs, "batch": prompts}, world_mesh=make_local_world(1, 1))
+    return {"steps": steps, "window": window, "axis_window": axis_window}
 
 
 def start_dryrun():
@@ -2514,13 +2783,17 @@ def phase_dryrun(pending=None):
     recs = dryrun_records() if pending is None else pending.result(timeout=900)
     waited = time.perf_counter() - wait0
     steps, window = recs["steps"], recs["window"]
-    record_s = window["record_s"] + sum(r["record_s"] for r in steps.values())
+    record_s = (window["record_s"] + recs["axis_window"]["record_s"]
+                + sum(r["record_s"] for r in steps.values()))
 
     # label: (the dry run's memory, the phase's record, its arguments that
     # the phase already held at its reset)
+    s_axis = RESULTS["S_model_axis"]
+    axis_mem = recs["axis_window"]["memory"]
     windows = {"V1": (steps["V1"]["memory"], c1, 0),
                "V2": (window["memory"], s3, window["memory"]["argument_bytes"]),
-               "V3": (steps["V3"]["memory"], m1, 0)}
+               "V3": (steps["V3"]["memory"], m1, 0),
+               "V4": (axis_mem, s_axis, axis_mem["argument_bytes"])}
     out = {"card": card, "tolerance": V_MEM_TOL, "record_s": record_s,
            "V2_record_s": window["record_s"], "waited_s": waited,
            "beside_the_card": pending is not None}
@@ -4206,6 +4479,13 @@ def main():
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
          "bound_by": "bytes", "library_ms": None},
+        # the model axis's column split of the same pass (rows of d_in over
+        # the model group): PARTIAL and FINISH, launches on C1's model-axis
+        # step, times at qwen3-4b's wo and w_out shards at M = 16 (phase A)
+        *({"name": name, "route": "cuda", "source": src,
+           "replaces": "src/repro/kernels/rmnp_update.py:129",
+           "launches": launches[name], **rmnp[name], "bound_by": "bytes", "library_ms": None}
+          for name in ("rmnp_partial", "rmnp_finish")),
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:37",
@@ -4268,6 +4548,12 @@ def main():
          # jamba's first group of 8 layers: its one GQA layer (H=32, K=8, hd
          # 128, qwen3-4b's case) a served prefill in J1
          "launches_J1": j1_launches,
+         # the model axis at M = 16: a rank's heads at the full models'
+         # prefill shape (qwen3-4b's and yi-9b's 2 on 1 at hd 128, phi3-mini's
+         # 2 on 2 at hd 96, musicgen-large's 2 on 2 at hd 64; fp32 at qwen3's)
+         "local_heads_m16": {tag: {k: attn_cases[tag][k] for k in (
+             "H", "K", "hd", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err", "worst_ratio")} for tag, *_ in local_heads()},
          # the fp32 kernel (csrc/flash_attention_fwd_tf32.cu): launches on
          # C3f, and per timed shape its time, plain and SDPA times and its
          # 3xTF32 bound

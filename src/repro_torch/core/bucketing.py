@@ -15,11 +15,19 @@ as ``(N, padded L / N, d_in, d_out)`` chunks (chunk ``j`` is rank ``j``'s)
 without building the whole bucket, ``accumulate_chunks`` adds microbatches
 in that layout, ``scatter_chunks`` reads leaves back from it, and
 ``unpad_buckets``/``repad_buckets`` move stacked state between shard sizes.
+
+Model axis: where the model group holds shards of the leaves
+(``distributed/tensor_parallel.py``), buckets are formed from the local
+shards, and a leaf's whole shape and whether its ``d_in`` rows are split
+over the group (``leaf_info``) join its ``(d_in, d_out)`` in the grouping:
+the learning-rate scale reads the whole shape, and a row-split bucket
+(``Bucket.row_split``) takes RMNP's cross-rank norm (``core/engine.py``).
+Without a model axis every key and order is the single-rank one.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,10 +51,20 @@ class Bucket(NamedTuple):
     # L rounded up to the plan's pad multiple; pad slices carry zero
     # grad/momentum and are dropped by scatter. 0 means "no padding".
     padded_size: int = 0
+    # the model axis: the leaves' whole (d_in, d_out) (0: the local one)
+    # and whether their d_in rows are split over the model group
+    whole_in: int = 0
+    whole_out: int = 0
+    row_split: bool = False
 
     @property
     def padded(self) -> int:
         return self.padded_size or self.size
+
+    @property
+    def whole(self) -> Tuple[int, int]:
+        """The leaves' whole ``(d_in, d_out)``, for the learning-rate scale."""
+        return (self.whole_in or self.d_in, self.whole_out or self.d_out)
 
 
 class BucketPlan(NamedTuple):
@@ -85,8 +103,13 @@ class PlanCache:
         return plan
 
 
-def bucket_key(d_in: int, d_out: int) -> str:
-    return f"{d_in}x{d_out}"
+def bucket_key(d_in: int, d_out: int, whole=None, row_split: bool = False) -> str:
+    """``"d_inxd_out"``; on the model axis ``_of_<whole>`` where the leaves
+    are shards of larger ones and ``_rows`` where their rows are split."""
+    key = f"{d_in}x{d_out}"
+    if whole is not None and tuple(whole) != (d_in, d_out):
+        key += f"_of_{whole[0]}x{whole[1]}"
+    return key + ("_rows" if row_split else "")
 
 
 def _lead(shape) -> int:
@@ -104,17 +127,29 @@ def plan_signature(params: PyTree,
                  if predicate is None or predicate(path, leaf))
 
 
+def _grouping(leaf_info, path, d_in, d_out):
+    """(whole d_in, whole d_out, row-split) of a leaf; its own shape and
+    False without a model axis."""
+    info = leaf_info(path) if leaf_info is not None else None
+    if info is None:
+        return d_in, d_out, False
+    return int(info.whole[-2]), int(info.whole[-1]), bool(info.row_split)
+
+
 def build_plan(params: PyTree,
                predicate: Optional[Callable[[str, torch.Tensor], bool]] = None,
-               strict: bool = False, pad_multiple: int = 1) -> BucketPlan:
+               strict: bool = False, pad_multiple: int = 1,
+               leaf_info: Optional[Callable[[str], Any]] = None) -> BucketPlan:
     """Group leaves selected by ``predicate`` (default: ``ndim >= 2``) into
     ``(d_in, d_out)`` buckets. ``strict=True`` raises on any rejected leaf.
     ``pad_multiple`` rounds every bucket's stacked ``L`` up to a multiple
     (pad slices are zero-filled by :func:`gather`, stay zero through the
-    RMNP update and are never read back by :func:`scatter`)."""
+    RMNP update and are never read back by :func:`scatter`). ``leaf_info``
+    (path -> ``tensor_parallel.LeafShard`` or None) adds each leaf's whole
+    shape and row split to its group, on the model axis."""
     if pad_multiple < 1:
         raise ValueError(f"pad_multiple must be >= 1, got {pad_multiple}")
-    groups: Dict[Tuple[int, int], list] = {}
+    groups: Dict[Tuple[int, int, int, int, bool], list] = {}
     for path, leaf in tree_paths(params):
         is_mat = (predicate(path, leaf) if predicate is not None
                   else getattr(leaf, "ndim", 0) >= 2)
@@ -125,19 +160,24 @@ def build_plan(params: PyTree,
                     f"{tuple(getattr(leaf, 'shape', ()))}")
             continue
         d_in, d_out = int(leaf.shape[-2]), int(leaf.shape[-1])
-        groups.setdefault((d_in, d_out), []).append((path, tuple(leaf.shape)))
+        group = (d_in, d_out) + _grouping(leaf_info, path, d_in, d_out)
+        groups.setdefault(group, []).append((path, tuple(leaf.shape)))
     buckets = []
-    for (d_in, d_out) in sorted(groups):
+    for group in sorted(groups):
+        d_in, d_out, w_in, w_out, rows = group
         entries, offset = [], 0
-        for path, shape in groups[(d_in, d_out)]:
+        for path, shape in groups[group]:
             lead = _lead(shape)
             entries.append(BucketEntry(path=path, shape=shape,
                                        lead=lead, offset=offset))
             offset += lead
         padded = -(-offset // pad_multiple) * pad_multiple
-        buckets.append(Bucket(key=bucket_key(d_in, d_out), d_in=d_in,
+        local = (w_in, w_out) == (d_in, d_out)
+        buckets.append(Bucket(key=bucket_key(d_in, d_out, (w_in, w_out), rows), d_in=d_in,
                               d_out=d_out, size=offset,
-                              entries=tuple(entries), padded_size=padded))
+                              entries=tuple(entries), padded_size=padded,
+                              whole_in=0 if local else w_in, whole_out=0 if local else w_out,
+                              row_split=rows))
     return BucketPlan(buckets=tuple(buckets))
 
 

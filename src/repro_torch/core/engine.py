@@ -9,6 +9,18 @@ a rank holds the ``(padded L / N, ...)`` rows of each that it owns
 the full gradient to them, ``bucket_apply_sharded`` (ZeRO-2) takes the reduced
 gradient shard, and both all-gather only the updated weight slices over the
 engine's ``shard_axis`` (a ``repro_torch.distributed.comm.Comm``).
+
+On the model axis of the step that runs the optimizer
+(``distributed.tensor_parallel.current``; ``optimizer_axis`` reads it for
+the rule) the buckets stack the rank's shards, and a bucket whose leaves'
+``d_in`` rows are split over the model group (``Bucket.row_split``: ``wo``,
+``w_out``, a vocabulary-split embedding) takes RMNP's norm across the
+group: ``kernels/ops.rmnp_rownorm_split`` (the kernel's PARTIAL mode, one
+all-reduce of the column sums in rank order, FINISH). The learning-rate
+scale reads the leaves' whole shape. Only RMNP reads the axis; the other
+rules raise on a model group above one and run the single-rank code on a
+group of one. The state is planned under the axis too: ``opt.init`` runs
+under ``tensor_parallel.use`` of the step's axis.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch
 from repro_torch.core import bucketing
 from repro_torch.core.rules import MatrixUpdateRule
 from repro_torch.core.types import Optimizer, Schedule
+from repro_torch.distributed import tensor_parallel as tp
 
 _MOMENTUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,11 +62,29 @@ class BucketedEngine:
 
     # -- plan / state ---------------------------------------------------
     def plan(self, params) -> bucketing.BucketPlan:
+        """The plan of ``params`` on the current model axis (module
+        docstring), cached per parameter signature and axis."""
+        axis = tp.optimizer_axis(self.rule.name)
         return self.plans.get(
-            bucketing.plan_signature(params, self.predicate),
-            lambda: bucketing.build_plan(params, predicate=self.predicate,
-                                         strict=self.strict,
-                                         pad_multiple=self.shard_size))
+            (bucketing.plan_signature(params, self.predicate),
+             None if axis is None else axis.plan_key),
+            lambda: bucketing.build_plan(
+                params, predicate=self.predicate, strict=self.strict,
+                pad_multiple=self.shard_size,
+                leaf_info=None if axis is None else axis.leaf))
+
+    def state_plan(self, params, buckets) -> bucketing.BucketPlan:
+        """:meth:`plan`, checked against the buckets of a state: a state
+        initialised on another model axis than the step's raises."""
+        plan = self.plan(params)
+        want = sorted(b.key for b in plan.buckets)
+        if sorted(buckets) != want:
+            raise ValueError(
+                f"the optimizer state holds buckets {sorted(buckets)} but the "
+                f"parameters plan to {want} on the current model axis: initialise "
+                f"the state on the step's axis (with tensor_parallel.use("
+                f"tensor_parallel.axis_for(cfg, world)): opt.init(params))")
+        return plan
 
     def init_state(self, plan: bucketing.BucketPlan, device=None) -> BucketedState:
         buckets = bucketing.init_buckets(plan, self.mdtype, device=device)
@@ -68,7 +99,7 @@ class BucketedEngine:
     def scale(self, bucket: bucketing.Bucket, step) -> torch.Tensor:
         """lr(step) * rms_lr_scale as a 0-d fp32 tensor on the CPU."""
         from repro_torch.core.rmnp import rms_lr_scale
-        return self.lr(step) * rms_lr_scale((bucket.d_in, bucket.d_out))
+        return self.lr(step) * rms_lr_scale(bucket.whole)
 
     def _slots_of(self, slots, key) -> Dict[str, torch.Tensor]:
         return {name: per_bucket[key] for name, per_bucket in slots.items()}
@@ -82,7 +113,11 @@ class BucketedEngine:
         for b in plan.buckets:
             sl = self._slots_of(slots, b.key)
             scale = self.scale(b, step)
-            if self.rule.additive:
+            if b.row_split:
+                v_new, d = self._split(g_b[b.key], buckets[b.key])
+                sl_new = {}
+                upd = -scale * (d + self.rule.weight_decay * p32_b[b.key])
+            elif self.rule.additive:
                 d, v_new, sl_new = self.rule.precondition(
                     g_b[b.key], buckets[b.key], sl, step=step)
                 upd = -scale * (d + self.rule.weight_decay * p32_b[b.key])
@@ -117,11 +152,27 @@ class BucketedEngine:
                     f"{bucket.padded} slices but no shard_axis was given")
             lo = self.shard_axis.rank * l_loc
             g, w = g[lo:lo + l_loc], w[lo:lo + l_loc]
-        w_new, v_new, sl_new = self.rule.apply(
-            g, v, w, sl, scale=self.scale(bucket, step), step=step)
+        w_new, v_new, sl_new = self._apply(bucket, g, v, w, sl, step)
         if n_shards > 1:
             w_new = self.shard_axis.all_gather(w_new)
         return w_new, v_new, sl_new
+
+    def _split(self, g, v, w=None, scale=None):
+        """RMNP across the model group over a row-split bucket: (v_new, d),
+        or (v_new, w_new) given ``w`` and ``scale``."""
+        from repro_torch.kernels import ops as kops
+        rule = self.rule
+        return kops.rmnp_rownorm_split(g, v, tp.current().comm, w, scale,
+                                       None if w is None else rule.weight_decay,
+                                       beta=rule.beta, eps=rule.eps)
+
+    def _apply(self, bucket, g, v, w, sl, step):
+        """The rule's fused apply of one bucket's rows: ``(w_new, v_new,
+        sl_new)``, across the model group for a row-split bucket."""
+        if bucket.row_split:
+            v_new, w_new = self._split(g, v, w, self.scale(bucket, step))
+            return w_new, v_new, {}
+        return self.rule.apply(g, v, w, sl, scale=self.scale(bucket, step), step=step)
 
     def apply_buckets(self, plan, g_b, p_b, buckets, slots, step):
         """Loop :meth:`bucket_apply` over the plan: ``(w_b, v_b, slots_b)``."""
@@ -154,8 +205,7 @@ class BucketedEngine:
                 f"{g_shard.shape[0]}/{w_shard.shape[0]} slices but the "
                 f"momentum shard has {l_loc}")
         g = g_shard if clip_scale is None else g_shard * clip_scale
-        w_new, v_new, sl_new = self.rule.apply(
-            g, v, w_shard, sl, scale=self.scale(bucket, step), step=step)
+        w_new, v_new, sl_new = self._apply(bucket, g, v, w_shard, sl, step)
         return (self.shard_axis.all_gather(w_new, async_op=async_op),
                 v_new, sl_new)
 
@@ -222,7 +272,8 @@ def matrix_optimizer(rule: MatrixUpdateRule, lr: Schedule, *,
     """Bucketed optimizer over a pure-matrix tree for any registered rule.
     ``shard_axis`` (a ``Comm``) unlocks the ZeRO-1/2 entry points and
     implies ``fused_apply``; ``shard_size`` pads every bucket's ``L`` to a
-    multiple so uneven buckets shard too."""
+    multiple so uneven buckets shard too. On a model axis as
+    ``BucketedEngine``'s (module docstring)."""
     check_shard_args(shard_axis, shard_size)
     if shard_axis is not None:
         fused_apply = True
@@ -234,7 +285,7 @@ def matrix_optimizer(rule: MatrixUpdateRule, lr: Schedule, *,
         return eng.init_state(eng.plan(params), device=_device_of(params))
 
     def update(grads, state, params, step):
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         g_b = bucketing.gather(plan, grads, dtype=torch.float32)
         p_b = bucketing.gather(plan, params, dtype=torch.float32)
         upd_b, v_b, s_b = eng.update_buckets(plan, g_b, p_b, state.buckets,
@@ -245,7 +296,7 @@ def matrix_optimizer(rule: MatrixUpdateRule, lr: Schedule, *,
     def update_apply(grads, state, params, step):
         """Single-pass fused apply: params are gathered per bucket in their
         own dtype, updated in one rule pass, and scattered back."""
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         g_b = bucketing.gather(plan, grads, dtype=torch.float32)
         p_b = bucketing.gather(plan, params)
         w_b, v_b, s_b = eng.apply_buckets(plan, g_b, p_b, state.buckets,
@@ -264,7 +315,7 @@ def matrix_optimizer(rule: MatrixUpdateRule, lr: Schedule, *,
         """ZeRO-2 single-pass apply: independent per-bucket chains; ``grads``
         is unused (a pure-matrix tree)."""
         del grads
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         out = eng.sharded_apply(plan, g_shards, state.buckets, state.slots,
                                 params, step, clip_scale, overlap)
         if out is None:

@@ -45,11 +45,15 @@ def clip_by_global_norm(grads: PyTree, max_norm: float):
     """Global-norm clip. The sum of squares runs over the leaves in tree
     order, as in the JAX package. ``max_norm <= 0`` disables clipping: the
     grads pass through untouched while ``global_norm`` is still measured and
-    ``clipped`` pins to 0.0."""
-    leaves = [g for _, g in tree_paths(grads)]
+    ``clipped`` pins to 0.0. On the model axis a leaf split over the group
+    sums its shards' squares over it, and a replicated leaf counts once
+    (``tensor_parallel.complete_sums``)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    leaves = tree_paths(grads)
+    terms = tp.complete_sums([p for p, _ in leaves],
+                             [torch.sum(torch.square(g.float())) for _, g in leaves])
     sq = None
-    for g in leaves:
-        term = torch.sum(torch.square(g.float()))
+    for term in terms:
         sq = term if sq is None else sq + term
     gnorm = torch.sqrt(sq)
     if max_norm <= 0:
@@ -119,7 +123,15 @@ def mixed_optimizer(
     nothing: the port has one path per device, and every RMNP update and
     Newton-Schulz iteration goes through ``kernels/ops.py``, which launches
     the Hopper kernels on CUDA tensors and runs their plain versions on CPU
-    tensors."""
+    tensors.
+
+    On the model axis of the step that runs it
+    (``distributed.tensor_parallel.optimizer_axis``) the parameters are the
+    rank's shards: the learning-rate scale reads each leaf's whole shape,
+    and a leaf whose ``d_in`` rows are split over the group takes RMNP's
+    norm across it. Only ``rmnp`` and ``adamw`` run on a group above one;
+    the fused state is initialised under the step's axis
+    (``core/engine.py``)."""
     del use_kernel
     from repro_torch.core.engine import check_shard_args
     if matrix_kind not in rule_names() + ("adamw",):
@@ -159,9 +171,11 @@ def mixed_optimizer(
         return MixedState(momentum=momentum, nu=nu)
 
     def update(grads, state, params, step):
+        from repro_torch.distributed import tensor_parallel as tp
         eta_m = lr_matrix(step)
         eta_a = lr_adamw(step)
         bc1, bc2 = _adam_scalars(step, b1, b2)
+        axis = tp.optimizer_axis(matrix_kind)
 
         def upd(path, g, v, nu, p):
             g32 = g.float()
@@ -169,8 +183,14 @@ def mixed_optimizer(
             if _is_mat(path, p):
                 # rmnp or muon (the others imply fused): the rule's direction
                 # on one leaf, through the same kernel entries as a bucket
-                d, v_new, _ = rule.precondition(g32, v, {}, step=step)
-                scale = eta_m * rms_lr_scale(p.shape)
+                leaf = axis.leaf(path) if axis is not None else None
+                if leaf is not None and leaf.row_split:
+                    from repro_torch.kernels import ops as kops
+                    v_new, d = kops.rmnp_rownorm_split(g32, v, axis.comm,
+                                                       beta=rule.beta, eps=rule.eps)
+                else:
+                    d, v_new, _ = rule.precondition(g32, v, {}, step=step)
+                scale = eta_m * rms_lr_scale(p.shape if leaf is None else leaf.whole)
                 return -scale * (d + weight_decay * p32), v_new, nu
             mu_new = b1 * v + (1 - b1) * g32
             nu_new = b2 * nu + (1 - b2) * torch.square(g32)
@@ -241,7 +261,7 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
         return map_unzip(upd_adam, 3, grads, state.momentum, state.nu, params)
 
     def update(grads, state, params, step):
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         updates, momentum, nu = adam_sweep(
             grads, state, params, step,
             emit=lambda u, p: torch.zeros(p.shape, dtype=torch.float32,
@@ -260,7 +280,7 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
         kernel (gather g, v, w; one pass; scatter the new weights), one
         bucket at a time, so that a single bucket's gathered fp32 gradient
         and weights exist at once."""
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         new_params, momentum, nu = adam_sweep(
             grads, state, params, step,
             emit=lambda u, p: p if u is None else p + u.to(p.dtype))
@@ -292,7 +312,7 @@ def _fused_mixed(rule: MatrixUpdateRule, lr_matrix: Schedule,
         clip-scaled, and update whole on every rank. ``clip_scale`` folds the
         global-norm clip into each bucket's chain; only the updated weight
         slices are all-gathered."""
-        plan = eng.plan(params)
+        plan = eng.state_plan(params, state.buckets)
         new_params, momentum, nu = adam_sweep(
             grads, state, params, step,
             emit=lambda u, p: p if u is None else p + u.to(p.dtype))

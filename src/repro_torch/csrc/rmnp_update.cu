@@ -66,6 +66,20 @@
 // in step 3, most of all on the embedding, whose 16-column blocks (one block
 // an SM) read bf16 w in 32-byte pieces.
 //
+// Two more modes of the same code serve a column split over ranks (the model
+// axis: each rank holds rows of d_in, so a column's norm spans the ranks;
+// kernels/rmnp_update.py, core/engine.py). They are the two-sweep path cut
+// at the cluster's reduction: PARTIAL (MODE 1) runs steps 1 and 2 over the
+// rank's rows and writes each column's sum of squares (the cluster's, in
+// rank order) to colsum, nothing else; the caller adds the ranks' sums in
+// rank order (an all-reduce); FINISH (MODE 2) runs step 3 of the two-sweep
+// path, den = sqrt(colsum) + eps from the summed colsum: it reads g and v
+// again, forms v_new in fp32 and writes v_new and d or w_new. So over one
+// rank the two give the one-pass form's bits at every momentum type (24 B an
+// element at the main path's types against 16: g and v are read twice).
+// They are the entry rmnp_update_split, the kernel
+// rmnp_split_kernel<C, MODE, APPLY, TV, TW>.
+//
 // Ragged edges (d_in, d_out, L) are masked, never padded. Loads and stores
 // are 16 bytes (fp32) or 8 bytes (bf16) when the wrapper says every base is
 // aligned and d_out % 4 == 0, else masked element by element; both give the
@@ -91,6 +105,7 @@ struct Args {
   void* v_out;
   void* out;              // d (fp32) or w_new (w's type)
   const float* scalars;   // [scale, wd], read by APPLY
+  float* colsum;          // (L, d_out): written by PARTIAL, read by FINISH
   int d_in, d_out;
   int rows;               // R, a block's share of d_in
   int blocks;             // column blocks of a slice, ceil(d_out / C)
@@ -163,8 +178,10 @@ __host__ __device__ constexpr int64_t smem_bytes(int threads, int C, int rows, b
   return 4 * (4 * int64_t(threads) + 2 * C + (one_read ? int64_t(rows) * C : 0));
 }
 
+constexpr int WHOLE = 0, PARTIAL = 1, FINISH = 2;
+
 // One block's share of one (slice l, column block y) item.
-template <int C, bool APPLY, bool ONE_READ, class TV, class TW>
+template <int C, bool APPLY, bool ONE_READ, class TV, class TW, int MODE = WHOLE>
 __device__ __forceinline__ void update_block(const Args& a, int l, int y) {
   constexpr int TC = C / 4;  // threads across the block's columns
   const int threads = blockDim.x;
@@ -221,7 +238,7 @@ __device__ __forceinline__ void update_block(const Args& a, int l, int y) {
       }
     }
   };
-  {
+  if (MODE != FINISH) {
     float ga[UNROLL][4], va[UNROLL][4], gb[UNROLL][4], vb[UNROLL][4];
     load_gv(ga, va, 0);
     for (int i0 = 0; i0 < n; i0 += 2 * UNROLL) {
@@ -237,6 +254,7 @@ __device__ __forceinline__ void update_block(const Args& a, int l, int y) {
   const TW* __restrict__ w = static_cast<const TW*>(a.w);
   auto load3 = [&](float (&wq)[UNROLL][4], float (&gq)[UNROLL][4], float (&vq)[UNROLL][4],
                    int i0) {
+    if (MODE == PARTIAL) return;
     if (APPLY) {
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u)
@@ -247,32 +265,49 @@ __device__ __forceinline__ void update_block(const Args& a, int l, int y) {
   float wa[UNROLL][4], ga[UNROLL][4], va[UNROLL][4];
   load3(wa, ga, va, 0);
 
-  // 2. the norm: the block's threads in rg order, the cluster's blocks in
-  // rank order
+  if (MODE == FINISH) {  // the ranks' summed squares
+    const int c = y * C + t;
+    if (t < C) den[t] = c < a.d_out ? __fadd_rn(__fsqrt_rn(a.colsum[int64_t(l) * a.d_out + c]),
+                                                a.eps)
+                                    : 1.f;
+    __syncthreads();
+  } else {
+    // 2. the norm: the block's threads in rg order, the cluster's blocks in
+    // rank order
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[rg * C + 4 * cg + j] = s[j];
-  __syncthreads();
-  if (t < C) {
-    float p = 0.f;
-    for (int r = 0; r < RT; ++r) p = __fadd_rn(p, red[r * C + t]);
-    part[t] = p;
+    for (int j = 0; j < 4; ++j) red[rg * C + 4 * cg + j] = s[j];
+    __syncthreads();
+    if (t < C) {
+      float p = 0.f;
+      for (int r = 0; r < RT; ++r) p = __fadd_rn(p, red[r * C + t]);
+      part[t] = p;
+    }
+    sm90::cluster_arrive();  // part[] released to the cluster
+    sm90::cluster_wait();
+    if (t < C) {
+      const uint32_t addr = sm90::smem_u32(part + t);
+      float peer[MAX_CLUSTER];
+#pragma unroll
+      for (int k = 0; k < MAX_CLUSTER; ++k)
+        if (k < static_cast<int>(ranks)) peer[k] = sm90::ld_dsmem_f32(sm90::dsmem_map(addr, k));
+      float total = 0.f;
+#pragma unroll
+      for (int k = 0; k < MAX_CLUSTER; ++k)
+        if (k < static_cast<int>(ranks)) total = __fadd_rn(total, peer[k]);
+      if (MODE == PARTIAL) {
+        const int c = y * C + t;
+        if (rank == 0 && c < a.d_out) a.colsum[int64_t(l) * a.d_out + c] = total;
+      } else {
+        den[t] = __fadd_rn(__fsqrt_rn(total), a.eps);
+      }
+    }
+    sm90::cluster_arrive();  // done with the peers' part[]; waited on before exit
+    __syncthreads();         // den[] to the block
+    if (MODE == PARTIAL) {
+      sm90::cluster_wait();
+      return;
+    }
   }
-  sm90::cluster_arrive();  // part[] released to the cluster
-  sm90::cluster_wait();
-  if (t < C) {
-    const uint32_t addr = sm90::smem_u32(part + t);
-    float peer[MAX_CLUSTER];
-#pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k)
-      if (k < static_cast<int>(ranks)) peer[k] = sm90::ld_dsmem_f32(sm90::dsmem_map(addr, k));
-    float total = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k)
-      if (k < static_cast<int>(ranks)) total = __fadd_rn(total, peer[k]);
-    den[t] = __fadd_rn(__fsqrt_rn(total), a.eps);
-  }
-  sm90::cluster_arrive();  // done with the peers' part[]; waited on before exit
-  __syncthreads();         // den[] to the block
 
   // 3. write v_new and d, or w_new
   float dn[4];
@@ -324,7 +359,7 @@ __device__ __forceinline__ void update_block(const Args& a, int l, int y) {
       write(wb, gb, vb, i0 + UNROLL);
     }
   }
-  sm90::cluster_wait();  // no block goes on while a peer may read its part[]
+  if (MODE != FINISH) sm90::cluster_wait();  // no block goes on while a peer may read its part[]
 }
 
 // Cluster y of the grid takes items y, y + gridDim.y, ...; which cluster
@@ -333,6 +368,14 @@ template <int C, bool APPLY, bool ONE_READ, class TV, class TW>
 __global__ void __launch_bounds__(MAX_THREADS) rmnp_kernel(const Args a) {
   for (int item = blockIdx.y; item < a.items; item += gridDim.y)
     update_block<C, APPLY, ONE_READ, TV, TW>(a, item / a.blocks, item % a.blocks);
+}
+
+// The column-split modes (PARTIAL, FINISH): no slab, one block per rows
+// span as the whole form.
+template <int C, int MODE, bool APPLY, class TV, class TW>
+__global__ void __launch_bounds__(MAX_THREADS) rmnp_split_kernel(const Args a) {
+  for (int item = blockIdx.y; item < a.items; item += gridDim.y)
+    update_block<C, APPLY, false, TV, TW, MODE>(a, item / a.blocks, item % a.blocks);
 }
 
 using Kernel = void (*)(const Args);
@@ -351,6 +394,33 @@ Kernel pick(int v_bf16, int w_bf16) {
                 : rmnp_kernel<C, APPLY, ONE_READ, float, float>;
 }
 
+// PARTIAL: 2 momentum types; FINISH: precondition 2, apply 2 x 2
+template <int C>
+Kernel pick_split(int mode, int apply, int v_bf16, int w_bf16) {
+  using BF = __nv_bfloat16;
+  if (mode == PARTIAL)
+    return v_bf16 ? rmnp_split_kernel<C, PARTIAL, false, BF, float>
+                  : rmnp_split_kernel<C, PARTIAL, false, float, float>;
+  if (!apply)
+    return v_bf16 ? rmnp_split_kernel<C, FINISH, false, BF, float>
+                  : rmnp_split_kernel<C, FINISH, false, float, float>;
+  if (v_bf16)
+    return w_bf16 ? rmnp_split_kernel<C, FINISH, true, BF, BF>
+                  : rmnp_split_kernel<C, FINISH, true, BF, float>;
+  return w_bf16 ? rmnp_split_kernel<C, FINISH, true, float, BF>
+                : rmnp_split_kernel<C, FINISH, true, float, float>;
+}
+
+Kernel pick_split(int C, int mode, int apply, int v_bf16, int w_bf16) {
+  switch (C) {
+    case 8: return pick_split<8>(mode, apply, v_bf16, w_bf16);
+    case 16: return pick_split<16>(mode, apply, v_bf16, w_bf16);
+    case 32: return pick_split<32>(mode, apply, v_bf16, w_bf16);
+    case 64: return pick_split<64>(mode, apply, v_bf16, w_bf16);
+    default: return nullptr;
+  }
+}
+
 template <bool APPLY>
 Kernel pick(int C, int one_read, int v_bf16, int w_bf16) {
   if (!one_read) return C == 32 ? pick<32, APPLY, false>(v_bf16, w_bf16) : nullptr;
@@ -366,8 +436,8 @@ Kernel pick(int C, int one_read, int v_bf16, int w_bf16) {
 // the kernel and launch configuration of a split, with its attributes set;
 // attr must outlive cfg
 cudaError_t configure(int L, int d_in, int d_out, int K, int R, int C, int threads, int one_read,
-                      int v_bf16, int w_bf16, int apply, cudaStream_t stream, Kernel* kernel,
-                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+                      int v_bf16, int w_bf16, int apply, int mode, cudaStream_t stream,
+                      Kernel* kernel, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const int TC = C / 4;
   const int64_t items = static_cast<int64_t>(L) * ((d_out - 1) / C + 1);
   if (L < 1 || d_in < 1 || d_out < 1 || K < 1 || K > MAX_CLUSTER || R < 1 || threads < 32 ||
@@ -375,8 +445,10 @@ cudaError_t configure(int L, int d_in, int d_out, int K, int R, int C, int threa
       static_cast<int64_t>(K) * R < d_in || items > 2147483647LL)
     return cudaErrorInvalidValue;
   const int64_t grid_y = items < 65535 ? items : 65535;
-  *kernel = apply ? pick<true>(C, one_read, v_bf16, w_bf16)
-                  : pick<false>(C, one_read, v_bf16, w_bf16);
+  if (mode != WHOLE && (one_read || mode > FINISH)) return cudaErrorInvalidValue;
+  *kernel = mode != WHOLE ? pick_split(C, mode, apply, v_bf16, w_bf16)
+            : apply       ? pick<true>(C, one_read, v_bf16, w_bf16)
+                          : pick<false>(C, one_read, v_bf16, w_bf16);
   if (*kernel == nullptr) return cudaErrorInvalidValue;
   const int64_t smem = smem_bytes(threads, C, R, one_read);
   if (smem > 232448) return cudaErrorInvalidValue;
@@ -401,6 +473,12 @@ cudaError_t configure(int L, int d_in, int d_out, int K, int R, int C, int threa
   return cudaSuccess;
 }
 
+cudaError_t launch(Kernel kernel, const cudaLaunchConfig_t& cfg, const Args& args) {
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch over a contiguous (L, d_in, d_out) bucket: g fp32; v and v_out
@@ -422,14 +500,35 @@ extern "C" int rmnp_update(const float* g, const void* v, const void* w, void* v
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(L, d_in, d_out, K, R, C, threads, one_read, v_bf16, w_bf16, apply,
-                              static_cast<cudaStream_t>(stream), &kernel, &cfg, &attr);
+                              WHOLE, static_cast<cudaStream_t>(stream), &kernel, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  const int blocks = (d_out - 1) / C + 1;
-  const Args args{g, v, w, v_out, out, scalars, d_in, d_out, R, blocks, L * blocks, vec,
-                  beta, one_minus_beta, eps};
-  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  return launch(kernel, cfg, Args{g, v, w, v_out, out, scalars, nullptr, d_in, d_out, R,
+                                  (d_out - 1) / C + 1, L * ((d_out - 1) / C + 1), vec, beta,
+                                  one_minus_beta, eps});
+}
+
+// The column-split modes over a contiguous (L, d_in, d_out) bucket of a
+// rank's rows: mode 1 (PARTIAL) reads g and v and writes colsum (L, d_out)
+// fp32, the columns' sums of squares of v_new over these rows; mode 2
+// (FINISH) reads g, v, colsum (the ranks' summed sums) and, when apply, w
+// and scalars, and writes v_out (the momentum's type) and out (d fp32, or
+// w_new in w's type). The split as rmnp_update's, one_read 0.
+extern "C" int rmnp_update_split(const float* g, const void* v, const void* w, void* v_out,
+                                 void* out, float* colsum, const float* scalars, int L,
+                                 int d_in, int d_out, int K, int R, int C, int threads, int vec,
+                                 int v_bf16, int w_bf16, int mode, int apply, float beta,
+                                 float one_minus_beta, float eps, void* stream) {
+  Kernel kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (mode != PARTIAL && mode != FINISH) return cudaErrorInvalidValue;
+  cudaError_t err = configure(L, d_in, d_out, K, R, C, threads, 0, v_bf16, w_bf16,
+                              mode == FINISH && apply, mode, static_cast<cudaStream_t>(stream),
+                              &kernel, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch(kernel, cfg, Args{g, v, w, v_out, out, scalars, colsum, d_in, d_out, R,
+                                  (d_out - 1) / C + 1, L * ((d_out - 1) / C + 1), vec, beta,
+                                  one_minus_beta, eps});
 }
 
 // How many clusters of this split the card can hold at once
@@ -441,7 +540,7 @@ extern "C" int rmnp_max_active_clusters(int L, int d_in, int d_out, int K, int R
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(L, d_in, d_out, K, R, C, threads, one_read, v_bf16, w_bf16, apply,
-                              nullptr, &kernel, &cfg, &attr);
+                              WHOLE, nullptr, &kernel, &cfg, &attr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }

@@ -1,6 +1,6 @@
-"""The data-parallel process group of the port: where ``repro.launch.mesh``
-and the ``jax.lax`` collectives over the ``data`` axis stand in the JAX
-package.
+"""The process groups of the port: where ``repro.launch.mesh`` and the
+``jax.lax`` collectives over the ``data`` and ``model`` axes stand in the
+JAX package.
 
 One process per rank. :class:`Comm` holds the group, ``rank`` and ``world``
 and the four collectives the ZeRO step needs, on tensors:
@@ -23,8 +23,20 @@ ZeRO-2 step equal the replicated one bit for bit. The bytes on the wire are
 a ring's: ``(N - 1) / N`` of the operand a rank for the reduce-scatter,
 twice that for the all-reduce.
 
+Beside them, for the model axis (``distributed/tensor_parallel.py``):
+``all_gather_dim`` and ``reduce_scatter_dim`` along any dimension (the same
+collectives, in rank order), and ``all_reduce_max`` (an all-gather and a
+max, which any order gives exactly).
+
 No branch skips a collective at ``world == 1``: a one-rank group still
 moves every operand through the backend.
+
+A ``data x model`` world (``launch/mesh.World``) is one process a rank,
+model minor: :func:`world_groups` makes its model groups (the mesh's rows)
+and data groups (its columns) with ``dist.new_group``, every rank making
+every group in the same order, and returns this rank's pair as a
+:class:`WorldComm`. :func:`file_world` does so for ``torch.multiprocessing``
+workers on a ``FileStore``, :func:`init_world` for a card.
 
 :func:`init_comm` makes the group: from ``RANK``/``WORLD_SIZE``/
 ``LOCAL_RANK`` and ``MASTER_ADDR``/``MASTER_PORT`` when ``torchrun`` set
@@ -35,7 +47,7 @@ from __future__ import annotations
 
 import os
 import tempfile
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -116,6 +128,29 @@ class Comm:
         part = self.reduce_scatter(flat.reshape(self.world, -1))
         return self.all_gather(part)[:n].reshape(x.shape)
 
+    # -- along a dimension, for the model axis ---------------------------
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        dim %= x.ndim
+        return self.all_gather(x.movedim(dim, 0)).movedim(0, dim)
+
+    def reduce_scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over ranks, in rank order, of this rank's ``1 / N`` span
+        of ``x`` along ``dim``."""
+        dim %= x.ndim
+        rows = x.movedim(dim, 0)
+        n = rows.shape[0]
+        if n % self.world:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split "
+                             f"over {self.world} ranks")
+        rows = rows.reshape((self.world, n // self.world) + tuple(rows.shape[1:]))
+        return self.reduce_scatter(rows).movedim(0, dim)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over ranks of ``x`` (exact in any order)."""
+        every = self.all_gather(x.reshape(1, -1))
+        return torch.amax(every, dim=0).reshape(x.shape)
+
     def barrier(self) -> None:
         dist.barrier(group=self.group)
 
@@ -146,6 +181,51 @@ def init_comm(device: str = "cuda") -> Comm:
             store = dist.FileStore(os.path.join(store_dir, "store"), 1)
             dist.init_process_group(backend, store=store, rank=0, world_size=1)
     return Comm(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), dev)
+
+
+class WorldComm(NamedTuple):
+    """One rank of a ``data x model`` world: ``mesh`` its
+    ``launch/mesh.World``, ``rank`` its global rank, ``data`` and
+    ``model`` its groups."""
+    mesh: object
+    rank: int
+    data: Comm
+    model: Comm
+
+
+def world_groups(mesh, rank: int, device) -> WorldComm:
+    """Rank ``rank``'s data and model groups of the world ``mesh`` (every
+    rank calls this, after the default group is up): model groups are the
+    rows ``[d M, (d + 1) M)``, data groups the columns ``{d M + m}``."""
+    M, D = mesh.model_parallel, mesh.data_parallel
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"the process group has {dist.get_world_size()} ranks, "
+                         f"the world {mesh.size}")
+    data_rank, model_rank = mesh.ranks(rank)
+    model = data = None
+    for d in range(D):
+        g = dist.new_group([d * M + m for m in range(M)])
+        if d == data_rank:
+            model = g
+    for m in range(M):
+        g = dist.new_group([d * M + m for d in range(D)])
+        if m == model_rank:
+            data = g
+    dev = torch.device(device)
+    return WorldComm(mesh, rank, Comm(data, data_rank, D, dev), Comm(model, model_rank, M, dev))
+
+
+def init_world(mesh, device: str = "cuda") -> WorldComm:
+    """:func:`init_comm`, then this rank's groups of ``mesh``."""
+    comm = init_comm(device)
+    return world_groups(mesh, comm.rank, comm.device)
+
+
+def file_world(path: str, rank: int, mesh, device: str = "cpu") -> WorldComm:
+    """:func:`file_comm` over every rank of ``mesh``, then this rank's data
+    and model groups."""
+    comm = file_comm(path, rank, mesh.size, device)
+    return world_groups(mesh, rank, comm.device)
 
 
 def file_comm(path: str, rank: int, world: int, device: str = "cpu") -> Comm:

@@ -9,6 +9,11 @@ d_out)``: nothing is transposed, and an MoE expert stack keeps its
 bf16 array arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects, so its bits go through a ``uint16`` view and
 ``Tensor.view(torch.bfloat16)``, never through float32.
+
+On the model axis, :func:`shard_params` cuts a whole parameter tree (the
+JAX package's as numpy, or the port's own) into one model rank's shards by
+the logical-axis rules, and :func:`gather_params` rebuilds the whole tree
+from every rank's shards.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mixed import FusedMixedState, MixedState
-from repro_torch.core.types import tree_map
+from repro_torch.core.types import map_with_path, tree_map
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -51,3 +56,42 @@ def mixed_state_from_numpy(state: Dict[str, Any], device="cpu"):
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a float32 numpy array (for comparisons)."""
     return t.detach().float().cpu().numpy()
+
+
+def shard_params(tree, cfg, world, rank: int, device="cpu"):
+    """Model rank ``rank``'s shards of the whole parameter tree ``tree``
+    (numpy arrays or tensors) of ``cfg`` on ``world`` (a
+    ``launch/mesh.World``): each leaf cut along the dimension the rules map
+    to ``model`` (``distributed/sharding.shard_leaf``), the rest copied.
+
+    The dense FFN's fused ``w_in`` (``(d, 2 f)``, JAX's layout ``[gate;
+    up]``, f = d_ff) is permuted: where the group of M divides f, rank r
+    holds columns ``[r f / M, (r + 1) f / M)`` and ``[f + r f / M, f + (r +
+    1) f / M)`` of JAX's layout, ``[gate_r; up_r]``, where a plain cut would
+    give it ``[2 r f / M, 2 (r + 1) f / M)`` (rank 0 only gate columns)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.tensor_parallel import leaf_table
+    table = leaf_table(cfg, world)
+
+    def visit(path, leaf):
+        t = leaf if isinstance(leaf, torch.Tensor) else to_tensor(leaf, device)
+        sh = table[path]
+        if tuple(t.shape) != sh.whole:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, the config's {sh.whole}")
+        return sharding.shard_leaf(t, sh.names, world, rank, sh.fused_halves)
+
+    return map_with_path(visit, tree)
+
+
+def gather_params(shards, cfg, world):
+    """Inverse of :func:`shard_params`: the whole tree from ``shards``, one
+    tree a model rank in rank order."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.tensor_parallel import leaf_table
+    table = leaf_table(cfg, world)
+
+    def visit(path, *leaves):
+        sh = table[path]
+        return sharding.gather_leaf(leaves, sh.names, world, sh.whole, sh.fused_halves)
+
+    return map_with_path(visit, *shards)

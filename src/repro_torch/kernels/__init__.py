@@ -13,6 +13,10 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "rmnp_precondition": 0,   # kernels/rmnp_update.py, APPLY=False
     "rmnp_apply": 0,          # kernels/rmnp_update.py, APPLY=True
+    # kernels/rmnp_update.py, the column split over the model axis: PARTIAL
+    # (v_new and the rows' sums of squares) and FINISH (d or w_new)
+    "rmnp_partial": 0,
+    "rmnp_finish": 0,
     "flash_attention_fwd": 0,  # kernels/flash_attention.py
     # kernels/matmul.py (csrc/matmul.cu): the products of Newton-Schulz
     # (Gram and apply) and the polynomial fused into the G@G epilogue, 2-D

@@ -55,6 +55,30 @@ def rmnp_bucket_update_apply(g, v, w, scale, wd, *, beta: float,
     return _rm.rmnp_rownorm_apply_plain(g, v, w, scalars, beta=beta, eps=eps)
 
 
+def rmnp_rownorm_split(g, v, comm, w=None, scale=None, wd=None, *, beta: float,
+                       eps: float = 1e-8):
+    """RMNP over a bucket whose ``d_in`` rows are split over the ranks of
+    ``comm`` (the model group): PARTIAL (``v_new`` and each column's sum of
+    squares over this rank's rows), the sums added over the group in rank
+    order (one all-reduce), FINISH (``v_new`` and ``d`` or ``w_new``). Without ``w``: (v_new, d fp32); with
+    ``w``, ``scale`` and ``wd``: (v_new, w_new in w.dtype), the single-pass
+    form's op order. Kernels on CUDA tensors, their plain versions on CPU
+    tensors."""
+    card = _on_card(g)
+    if not card:
+        _require_cpu(g)
+    partial = _rm.rmnp_rownorm_partial if card else _rm.rmnp_rownorm_partial_plain
+    finish = _rm.rmnp_rownorm_finish if card else _rm.rmnp_rownorm_finish_plain
+    total = comm.all_reduce(partial(g, v, beta=beta))
+    if w is None:
+        return finish(g, v, total, beta=beta, eps=eps)
+    scalars = torch.stack([torch.as_tensor(scale, dtype=torch.float32),
+                           torch.as_tensor(wd, dtype=torch.float32)])
+    if card:
+        scalars = scalars.to(g.device, non_blocking=True)
+    return finish(g, v, total, w, scalars, beta=beta, eps=eps)
+
+
 def ns_step(x, a: float, b: float, c: float):
     """One Newton-Schulz iteration on (..., m, n) fp32, m <= n. A 2-D X goes
     to ``ns_step``; leading dims are flattened into one stacked bucket for

@@ -26,8 +26,18 @@ and whether the column block fits the cluster's shared memory (the one-read
 path) or the kernel reads ``g`` and ``v`` a second time (the two-sweep
 path, which no gpt2-small bucket takes).
 
-Launches are counted under ``rmnp_precondition`` and ``rmnp_apply``
-(``repro_torch.kernels.LAUNCHES``), one per bucket and call.
+Where the model axis splits a bucket's ``d_in`` over ranks
+(``core/engine.py``), a column's norm spans the ranks and one pass cannot
+finish it: ``rmnp_rownorm_partial`` (the source's PARTIAL mode) writes each
+column's sum of squares of ``v_new`` over the rank's rows, the caller adds
+the ranks' sums in rank order, and ``rmnp_rownorm_finish`` (FINISH) reads
+``g`` and ``v`` again and writes ``v_new`` and ``d`` or ``w_new``: the
+two-sweep path cut at its reduction, so one rank gives the one-pass bits.
+Both keep the split of the rank's ``(d_in, d_out)``; neither keeps a slab.
+
+Launches are counted under ``rmnp_precondition``, ``rmnp_apply``,
+``rmnp_partial`` and ``rmnp_finish`` (``repro_torch.kernels.LAUNCHES``),
+one per bucket and call.
 """
 from __future__ import annotations
 
@@ -98,12 +108,16 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn_split = lib.rmnp_update_split
+        fn_split.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
+                             + [ctypes.c_void_p])
+        fn_split.restype = ctypes.c_int
         occ = lib.rmnp_max_active_clusters
         occ.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
         occ.restype = ctypes.c_int
         lib.rmnp_error_string.argtypes = [ctypes.c_int]
         lib.rmnp_error_string.restype = ctypes.c_char_p
-        _FN = (fn, occ, lib.rmnp_error_string)
+        _FN = (fn, occ, lib.rmnp_error_string, fn_split)
     return _FN
 
 
@@ -157,7 +171,7 @@ def _launch(g, v, w, v_out, out, scalars, *, beta, eps, apply, layout=None):
     vec = d_out % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
     v_bf16 = v.dtype == torch.bfloat16
     w_bf16 = w is not None and w.dtype == torch.bfloat16
-    fn, _, err_str = _kernel()
+    fn, _, err_str, _ = _kernel()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
         err = fn(g.data_ptr(), v.data_ptr(), None if w is None else w.data_ptr(),
@@ -204,7 +218,7 @@ def max_active_clusters(shape, v_dtype, w_dtype=None, *, apply: bool, layout=Non
     (``cudaOccupancyMaxActiveClusters``; 0: none can be scheduled)."""
     _, d_in, d_out = shape
     s = layout or split(d_in, d_out)
-    _, occ, err_str = _kernel()
+    _, occ, err_str, _ = _kernel()
     n = ctypes.c_int(0)
     err = occ(1, d_in, d_out, s.K, s.R, s.C, s.threads, int(s.one_read),
               int(v_dtype == torch.bfloat16), int(w_dtype == torch.bfloat16), int(apply),
@@ -235,9 +249,124 @@ def rmnp_rownorm_apply(g, v, w, scalars, *, beta: float, eps: float = 1e-8):
     return v_new, w_new
 
 
+PARTIAL, FINISH = 1, 2
+
+
+def split_layout(d_in: int, d_out: int) -> Split:
+    """The column-split modes' layout: ``split``'s clusters, rows and
+    columns, without the slab."""
+    return split(d_in, d_out)._replace(one_read=False)
+
+
+def _launch_split(g, v, w, v_out, out, colsum, scalars, *, beta, eps, mode, apply):
+    """One launch of PARTIAL (``mode=1``) or FINISH (``mode=2``) over the
+    bucket."""
+    d_in, d_out = v.shape[-2], v.shape[-1]
+    L = v.numel() // (d_in * d_out) if v.numel() else 0
+    if L == 0:
+        return
+    s = split_layout(d_in, d_out)
+    name = "rmnp_partial" if mode == PARTIAL else "rmnp_finish"
+    if v.is_meta:
+        introspect.record(describe_split(g, v, w, v_out, out, colsum, mode=mode, apply=apply))
+        return
+    tensors = [t for t in (g, v, w, v_out, out, colsum) if t is not None]
+    vec = d_out % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    _, _, err_str, fn = _kernel()
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(v.device):
+        err = fn(g.data_ptr(), v.data_ptr(), ptr(w), ptr(v_out), ptr(out), colsum.data_ptr(),
+                 ptr(scalars), L, d_in, d_out, s.K, s.R, s.C, s.threads, int(vec),
+                 int(v.dtype == torch.bfloat16), int(w is not None and w.dtype == torch.bfloat16),
+                 mode, int(apply), float(beta), 1.0 - float(beta), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"RMNP {name} launch failed: {err_str(err).decode()} ({err})")
+    LAUNCHES[name] += 1
+
+
+def describe_split(g, v, w, v_out, out, colsum, *, mode: int,
+                   apply: bool) -> introspect.KernelLaunch:
+    """The launch ``_launch_split`` makes: ``rmnp_split_kernel<C, MODE,
+    APPLY, TV, TW>`` on ``split``'s grid, no slab."""
+    d_in, d_out = v.shape[-2], v.shape[-1]
+    L = v.numel() // (d_in * d_out) if v.numel() else 0
+    s = split_layout(d_in, d_out)
+    blocks = -(-d_out // s.C)
+    grid = (s.K, min(L * blocks, 65535), 1)
+
+    def ctype(t):
+        return "__nv_bfloat16" if t is not None and t.dtype == torch.bfloat16 else "float"
+    name = "rmnp_partial" if mode == PARTIAL else "rmnp_finish"
+    template = (str(s.C), "PARTIAL" if mode == PARTIAL else "FINISH",
+                "true" if apply else "false", ctype(v), ctype(w) if apply else "float")
+    if mode == PARTIAL:
+        names, ts = ("g", "v", "colsum"), (g, v, colsum)
+    else:
+        names = ("g", "v", "colsum", "v_out") + (("w", "w_out") if apply else ("d",))
+        ts = (g, v, colsum, v_out) + ((w, out) if apply else (out,))
+    return introspect.KernelLaunch(
+        name=name, kernel="rmnp_split_kernel", template=template, grid=grid,
+        block=(s.threads, 1, 1), cluster=(s.K, 1, 1), smem_bytes=s.smem_bytes(),
+        operands=tuple(introspect.Operand.of(n, t) for n, t in zip(names, ts, strict=True)),
+        tiles=tuple(introspect.Tiling(n, (L, d_in, d_out), (1, s.R, s.C), (L, grid[0], blocks))
+                    for n in names if n != "colsum"),
+        layout=s)
+
+
+def rmnp_rownorm_partial(g, v, *, beta: float):
+    """PARTIAL kernel over a rank's rows. g: (..., d_in, d_out) fp32; v fp32
+    or bf16 -> colsum (..., 1, d_out) fp32: each column's sum of squares of
+    ``v_new`` over these rows."""
+    _check(g, v)
+    colsum = torch.empty(g.shape[:-2] + (1, g.shape[-1]), dtype=torch.float32, device=g.device)
+    _launch_split(g, v, None, None, None, colsum, None, beta=beta, eps=0.0, mode=PARTIAL,
+                  apply=False)
+    return colsum
+
+
+def rmnp_rownorm_finish(g, v, colsum, w=None, scalars=None, *, beta: float,
+                        eps: float = 1e-8):
+    """FINISH kernel. g, v as PARTIAL took them; colsum (..., 1, d_out)
+    fp32, the ranks' summed sums of squares. Without ``w`` -> (v_new, d
+    fp32); with ``w`` and ``scalars`` ((2,) fp32 ``[scale, wd]``) -> (v_new,
+    w_new in w.dtype)."""
+    _check(g, v, w, scalars)
+    want = g.shape[:-2] + (1, g.shape[-1])
+    if (colsum.shape != want or colsum.dtype != torch.float32 or not colsum.is_contiguous()
+            or colsum.device != g.device):
+        raise ValueError(f"colsum must be a contiguous float32 {tuple(want)} on "
+                         f"{g.device}, got {colsum.dtype} {tuple(colsum.shape)}")
+    v_new = torch.empty_like(v)
+    out = torch.empty_like(w) if w is not None else torch.empty_like(g)
+    _launch_split(g, v, w, v_new, out, colsum, scalars, beta=beta, eps=eps,
+                  mode=FINISH, apply=w is not None)
+    return v_new, out
+
+
 # The plain versions beside the kernels (same math, ordinary tensor ops).
 rmnp_rownorm_plain = rmnp_momentum_rownorm_ref
 
 
 def rmnp_rownorm_apply_plain(g, v, w, scalars, *, beta: float, eps: float = 1e-8):
     return rmnp_rownorm_apply_ref(g, v, w, scalars[0], scalars[1], beta=beta, eps=eps)
+
+
+def rmnp_rownorm_partial_plain(g, v, *, beta: float):
+    """PARTIAL's plain version: the sums of squares of the reference's
+    ``v_new`` over these rows (``torch.sum`` over d_in, as the whole form)."""
+    v_new = beta * v.float() + (1.0 - beta) * g.float()
+    return torch.sum(torch.square(v_new), dim=-2, keepdim=True)
+
+
+def rmnp_rownorm_finish_plain(g, v, colsum, w=None, scalars=None, *, beta: float,
+                              eps: float = 1e-8):
+    """FINISH's plain version, in the whole form's op order: ``v_new``,
+    ``d = v_new / (sqrt(colsum) + eps)``, then ``w + (-scale) * (d + wd *
+    w)``."""
+    v_new = beta * v.float() + (1.0 - beta) * g.float()
+    d = v_new / (torch.sqrt(colsum) + eps)
+    if w is None:
+        return v_new.to(v.dtype), d
+    w32 = w.float()
+    return v_new.to(v.dtype), (w32 + (-scalars[0]) * (d + scalars[1] * w32)).to(w.dtype)

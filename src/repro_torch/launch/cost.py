@@ -232,6 +232,8 @@ class Totals:
         self.matmul_flops = 0.0
         self.coll = {k: {"count": 0, "result_bytes": 0.0, "wire_bytes": 0.0}
                      for k in COLLECTIVES}
+        # the same, by group: "data" (ZeRO-2, the batch) and "model"
+        self.coll_by_group: Dict[str, Dict[str, Dict[str, float]]] = {}
         self.kernel_launches: Counter = Counter()
         self.unclassified: Counter = Counter()
         self.by_op: Dict[str, Dict[str, float]] = {}
@@ -270,6 +272,11 @@ class Totals:
             "bytes_accessed": self.bytes,
             "collectives": {k: dict(v) for k, v in self.coll.items()},
             "collective_wire_bytes": sum(v["wire_bytes"] for v in self.coll.values()),
+            "collectives_by_group": {g: {k: dict(v) for k, v in c.items()}
+                                     for g, c in self.coll_by_group.items()},
+            "collective_wire_bytes_by_group": {
+                g: sum(v["wire_bytes"] for v in c.values())
+                for g, c in self.coll_by_group.items()},
             "flops_by_unit": dict(self.flops_by_unit),
             "matmul_flops": self.matmul_flops,
             "compute_s": rl.unit_seconds(self.flops_by_unit),
@@ -352,9 +359,11 @@ class StepCounter(Recorder):
         self._seen: Dict[Any, Tuple] = {}
 
     # -- set-up ---------------------------------------------------------
-    def comm(self, rank: int = 0) -> "CostComm":
-        """Rank ``rank`` of a recording group of the counter's ``world``."""
-        return CostComm(self, rank=rank)
+    def comm(self, rank: int = 0, world: Optional[int] = None,
+             group: str = "data") -> "CostComm":
+        """Rank ``rank`` of a recording group of ``world`` ranks (the
+        counter's by default) whose collectives count under ``group``."""
+        return CostComm(self, rank=rank, world=world, group=group)
 
     def register(self, tree, origin: str) -> int:
         """Count the storages of ``tree``'s tensors (made before the
@@ -546,18 +555,24 @@ class StepCounter(Recorder):
         self.totals.add(f"kernel:{launch.name}", flops, unit, tr, nbytes, shapes, matmul,
                         extra)
 
-    def collective(self, name: str, x: torch.Tensor, out: torch.Tensor) -> None:
+    def collective(self, name: str, x: torch.Tensor, out: torch.Tensor,
+                   world: Optional[int] = None, group: str = "data") -> None:
         """A collective of ``kind`` (``all_to_all``/``all_gather`` as
         ``RecordingComm`` names them, or a ``COLLECTIVES`` kind) with operand
-        ``x`` and result ``out``, on a group of ``world`` ranks."""
+        ``x`` and result ``out``, on ``group`` of ``world`` ranks (the
+        counter's by default)."""
         if self._quiet:
             return
         kind = name.replace("_", "-")
         rb = float(span_bytes(out))
-        c = self.totals.coll[kind]
-        c["count"] += 1
-        c["result_bytes"] += rb
-        c["wire_bytes"] += wire_bytes(kind, rb, self.world)
+        wire = wire_bytes(kind, rb, self.world if world is None else world)
+        by_group = self.totals.coll_by_group.setdefault(
+            group, {k: {"count": 0, "result_bytes": 0.0, "wire_bytes": 0.0}
+                    for k in COLLECTIVES})
+        for c in (self.totals.coll[kind], by_group[kind]):
+            c["count"] += 1
+            c["result_bytes"] += rb
+            c["wire_bytes"] += wire
         self.totals.add(f"collective:{kind}", 0.0, FP32_FFMA, 0.0, span_bytes(x) + rb,
                         f"{kind}{[tuple(x.shape)]}")
 
@@ -581,25 +596,42 @@ class StepCounter(Recorder):
 
 
 class CostComm(RecordingComm):
-    """Rank ``rank`` of a recording group of ``world`` whose collectives are
-    counted by kind: a reduce-scatter (the port's is an all-to-all and a
-    rank-order sum) and an all-reduce (a reduce-scatter and an all-gather)
-    count once as themselves, at their ring wire bytes; the local sums they
-    run are counted as ops."""
+    """Rank ``rank`` of a recording group of ``world`` ranks (``group``:
+    ``"data"`` or ``"model"``) whose collectives are counted by kind and
+    group: a reduce-scatter (the port's is an all-to-all and a rank-order
+    sum) and an all-reduce (a reduce-scatter and an all-gather) count once
+    as themselves, at their ring wire bytes; the local sums they run are
+    counted as ops."""
 
-    def __init__(self, counter: StepCounter, rank: int = 0):
-        super().__init__(counter, rank=rank, world=counter.world)
+    def __init__(self, counter: StepCounter, rank: int = 0, world: Optional[int] = None,
+                 group: str = "data"):
+        super().__init__(counter, rank=rank, world=counter.world if world is None else world)
+        self.group_name = group
+
+    def _note(self, kind, x, out):
+        self.recorder.collective(kind, x, out, world=self.world, group=self.group_name)
+
+    def all_to_all(self, x, async_op=False):
+        self._rows(x)
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        self._note("all_to_all", x, out)
+        return Pending([], lambda: out) if async_op else out
+
+    def all_gather(self, x, async_op=False):
+        out = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
+        self._note("all_gather", x, out)
+        return Pending([], lambda: out) if async_op else out
 
     def reduce_scatter(self, x, async_op=False):
         self._rows(x)
-        self.recorder.collective("reduce-scatter", x, x[0])
+        self._note("reduce-scatter", x, x[0])
         with self.recorder.quiet():
             recv = self.all_to_all(x)
         out = rank_order_sum(recv)
         return Pending([], lambda: out) if async_op else out
 
     def all_reduce(self, x):
-        self.recorder.collective("all-reduce", x, x)
+        self._note("all-reduce", x, x)
         with self.recorder.quiet():
             return super().all_reduce(x)
 
@@ -682,6 +714,19 @@ def kernel_cost(launch: introspect.KernelLaunch):
         # one square root a column of a slice
         flops = n * (10 if apply else 6)
         return float(flops), FP32_FFMA, float(n // g.shape[-2]), float(nbytes), 0.0, 0.0
+    if launch.kernel == "rmnp_split_kernel":
+        g, v = ops["g"], ops["v"]
+        n = math.prod(g.shape)
+        vb = _DTYPE_BYTES[v.dtype]
+        cols = 4 * math.prod(ops["colsum"].shape)
+        if launch.name == "rmnp_partial":   # read g, v; write the sums
+            return float(5 * n), FP32_FFMA, 0.0, float(n * (4 + vb) + cols), 0.0, 0.0
+        apply = "w" in ops
+        w_bytes = _DTYPE_BYTES[ops["w"].dtype] if apply else 0
+        # the one-pass form's traffic and work, the sums read in place of formed
+        nbytes = rl.rmnp_bytes(g.shape, vb, w_bytes, apply) + cols
+        return (float(n * (8 if apply else 4)), FP32_FFMA, float(cols // 4), float(nbytes),
+                0.0, 0.0)
     if launch.kernel == "gemm_kernel":
         L, M, K = ops["a"].shape
         N = ops["b"].shape[2]

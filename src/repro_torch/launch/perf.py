@@ -12,10 +12,14 @@ invocation. Like the JAX tool, it runs nothing on a device:
 
 The record and its ``roofline_row`` land in
 ``artifacts/perf/<arch>__<shape>__<tag>.json``. ``--profile`` prints the
-ops by bytes (``launch/cost.StepCounter.breakdown``). ``--rules`` (the JAX
-package's logical-axis sharding rules) has no counterpart: the port has no
-logical axes and no ``model`` axis to map them to (ROADMAP Queue 1, the
-logical-axis sharding over ``model``), so the flag raises.
+ops by bytes (``launch/cost.StepCounter.breakdown``). ``--rules
+heads=none mlp=model ...`` overrides the logical-axis rules as the JAX
+tool's flag does (``distributed/sharding.py``): the cell is recorded on the
+production world with its model axis (``launch/dryrun.production_world``).
+The port takes overrides of the names its model axis covers (``heads``,
+``mlp``, ``vocab``, ``kv_seq``: ``model`` or nothing); any other, or rules
+for an architecture the model axis does not cover yet, raise
+``NotImplementedError`` naming ROADMAP item 14.
 """
 from __future__ import annotations
 
@@ -25,12 +29,10 @@ import json
 from pathlib import Path
 
 from repro_torch.configs import SHAPES, get_config
-from repro_torch.launch import dryrun, mesh as mesh_lib
+from repro_torch.launch import dryrun
 from repro_torch.launch.roofline import roofline_row
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "perf"
-NO_RULES = ("--rules: the port has no logical-axis sharding (no 'model' axis); "
-            "see ROADMAP.md Queue 1, the logical-axis sharding over the model axis")
 
 
 def _parse_overrides(pairs):
@@ -46,6 +48,16 @@ def _parse_overrides(pairs):
             except ValueError:
                 continue
         out[k] = v
+    return out
+
+
+def parse_rules(pairs):
+    """``["name=axis", ...]`` -> ``{name: axis}``, ``none`` (or nothing)
+    for None (``src/repro/launch/perf.py:164``)."""
+    out = {}
+    for p in pairs or []:
+        k, v = p.split("=", 1)
+        out[k] = None if v in ("none", "None", "") else v
     return out
 
 
@@ -65,17 +77,19 @@ def run(arch: str, shape_name: str, tag: str, *, cfg_overrides=None,
         grad_dtype=None, rules=None, multi_pod: bool = False, profile: bool = False,
         out_dir: Path = ARTIFACTS) -> dict:
     """Record the cell, write the record with its roofline row and print
-    the ``[perf]`` line."""
-    if rules:
-        raise NotImplementedError(NO_RULES)
+    the ``[perf]`` line. ``rules``: overrides of the logical-axis rules."""
+    from repro_torch.distributed.tensor_parallel import check_rules
     cfg = apply_overrides(get_config(arch), cfg_overrides)
     shape = SHAPES[shape_name]
-    world = mesh_lib.make_production_world(multi_pod=multi_pod)
-    why = dryrun.skip_reason(cfg, shape, world.size, microbatches)
+    check_rules(rules)
+    world, data_only = dryrun.production_world(cfg, multi_pod, rules or None)
+    if data_only and rules:
+        raise NotImplementedError(f"--rules on {arch}: {data_only}")
+    why = dryrun.skip_reason(cfg, shape, world.data_parallel, microbatches)
     if why:
         raise ValueError(f"{arch} x {shape_name}: {why}")
     cell = f"{arch}__{shape_name}__{tag}"
-    rec = dryrun.record(cfg, shape, world.size, cell=cell, jax_world=world,
+    rec = dryrun.record(cfg, shape, world.data_parallel, cell=cell, jax_world=world,
                         optimizer=optimizer, microbatches=microbatches, remat=remat,
                         grad_dtype=grad_dtype, keep_counter=profile)
     counter = rec.pop("counter", None)
@@ -111,7 +125,7 @@ def main(argv=None):
     ap.add_argument("--tag", required=True)
     ap.add_argument("--set", nargs="*", default=None, help="ModelConfig overrides k=v")
     ap.add_argument("--rules", nargs="*", default=None,
-                    help="has no counterpart in the port: raises")
+                    help="sharding rule overrides logical=mesh_axis (none: replicate)")
     ap.add_argument("--optimizer", default="rmnp")
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--remat", default="full")
@@ -121,7 +135,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     run(args.arch, args.shape, args.tag, cfg_overrides=_parse_overrides(args.set) or None,
         optimizer=args.optimizer, microbatches=args.microbatches, remat=args.remat,
-        grad_dtype=args.grad_dtype, rules=args.rules, multi_pod=args.multi_pod,
+        grad_dtype=args.grad_dtype, rules=parse_rules(args.rules), multi_pod=args.multi_pod,
         profile=args.profile)
 
 

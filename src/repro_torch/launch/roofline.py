@@ -158,12 +158,15 @@ def roofline_row(rec: dict) -> dict:
 
     ``useful_flops_ratio`` is ``model_flops`` (the whole group's) over the
     rank's FLOPs times the world; ``roofline_fraction`` the time the model's
-    FLOPs take at the bf16 peak on every rank over the largest term."""
+    FLOPs take at the bf16 peak on every rank over the largest term.
+    ``t_collective_model_s`` is the model group's part of the collective
+    term."""
     world = rec["world"]
     cost = rec["cost"]
     t_compute = cost["compute_s"]
     t_memory = cost["bytes_accessed"] / HBM_BW
     t_coll = rec["collective_wire_bytes"] / LINK_BW
+    t_coll_model = rec.get("collective_wire_bytes_by_group", {}).get("model", 0.0) / LINK_BW
     terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     dominant = max(terms, key=terms.get)
     flops_all = cost["flops"] * world
@@ -174,6 +177,9 @@ def roofline_row(rec: dict) -> dict:
         "t_compute_s": t_compute,
         "t_memory_s": t_memory,
         "t_collective_s": t_coll,
+        "t_collective_model_s": t_coll_model,
+        "data_parallel": rec.get("data_parallel", world),
+        "model_parallel": rec.get("model_parallel", 1),
         "dominant": dominant,
         "model_flops": rec["model_flops"],
         "useful_flops_ratio": rec["model_flops"] / flops_all if flops_all else 0.0,
@@ -188,10 +194,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dir", default=str(ARTIFACTS))
     ap.add_argument("--markdown", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2 x 16 x 16 (or 32-rank) records instead of 16 x 16")
     args = ap.parse_args(argv)
 
     rows = []
-    for f in sorted(Path(args.dir).glob("*__single.json")):
+    suffix = "multi" if args.multi_pod else "single"
+    for f in sorted(Path(args.dir).glob(f"*__{suffix}.json")):
         rec = json.loads(f.read_text())
         if rec.get("status") != "ok":
             rows.append({"cell": rec["cell"], "skipped": rec.get("reason", "")})
@@ -199,15 +208,17 @@ def main(argv=None):
         rows.append(roofline_row(rec))
 
     if args.markdown:
-        print("| cell | t_comp (s) | t_mem (s) | t_coll (s) | dominant | "
-              "useful-FLOPs | roofline frac | GiB/dev | fits |")
-        print("|---|---|---|---|---|---|---|---|---|")
+        print("| cell | data x model | t_comp (s) | t_mem (s) | t_coll (s) | of it model "
+              "(s) | dominant | useful-FLOPs | roofline frac | GiB/dev | fits |")
+        print("|---|---|---|---|---|---|---|---|---|---|---|")
         for r in rows:
             if "skipped" in r:
-                print(f"| {r['cell']} | — | — | — | skipped | — | — | — | — |")
+                print(f"| {r['cell']} | — | — | — | — | — | skipped | — | — | — | — |")
                 continue
-            print(f"| {r['cell']} | {r['t_compute_s']:.4f} | {r['t_memory_s']:.4f} | "
-                  f"{r['t_collective_s']:.4f} | {r['dominant']} | "
+            print(f"| {r['cell']} | {r['data_parallel']} x {r['model_parallel']} | "
+                  f"{r['t_compute_s']:.4f} | {r['t_memory_s']:.4f} | "
+                  f"{r['t_collective_s']:.4f} | {r['t_collective_model_s']:.4f} | "
+                  f"{r['dominant']} | "
                   f"{r['useful_flops_ratio']:.2f} | {r['roofline_fraction']:.3f} | "
                   f"{r['mem_gib_per_dev']:.2f} | {'yes' if r['fits'] else 'no'} |")
     else:

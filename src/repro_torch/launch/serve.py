@@ -54,8 +54,31 @@ def place(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
-def place_cache(full, prompt_cache):
-    return map_with_path(lambda _path, dst, src: place(dst, src), full, prompt_cache)
+def place_cache(full, prompt_cache, world=None, prompt_len: Optional[int] = None,
+                cache_len: Optional[int] = None):
+    """The prompt's cache in positions ``[0, T)`` of ``full``. On a
+    ``world`` (a ``distributed.comm.WorldComm``) with a model group above
+    one, each rank holds its span of both where the rules split ``kv_seq``:
+    the prompt cache's spans (of ``prompt_len`` positions) are gathered
+    over the group and each rank writes the prompt positions that fall in
+    its span of ``full`` (of ``cache_len``)."""
+    if world is None or world.model.world == 1:
+        return map_with_path(lambda _path, dst, src: place(dst, src), full, prompt_cache)
+    from repro_torch.distributed.tensor_parallel import ModelAxis
+    axis = ModelAxis(world.model, world.mesh)
+    M, r = axis.size, axis.rank
+    first = r * (cache_len // M) if axis.splits("kv_seq", cache_len) else 0
+
+    def place_span(_path, dst, src):
+        seq = dst.ndim - 3   # GQA k/v: (B, S, K, hd), (n_units, B, S, K, hd) in a stack
+        if axis.splits("kv_seq", prompt_len):
+            src = world.model.all_gather_dim(src, seq)
+        n = max(0, min(prompt_len - first, dst.shape[seq]))
+        if n:
+            dst.narrow(seq, 0, n).copy_(src.narrow(seq, first, n).to(dst.dtype))
+        return dst
+
+    return map_with_path(place_span, full, prompt_cache)
 
 
 class _Clock:
@@ -100,7 +123,7 @@ def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> Dict[st
 
 
 def generate(cfg, params, prompts, tokens: int, *,
-             keep_logits: bool = False) -> Dict[str, Any]:
+             keep_logits: bool = False, world=None) -> Dict[str, Any]:
     """Greedy generation of ``tokens`` tokens after ``prompts``: token ids
     (B, T), or a prefill batch (``prompt_batch``: tokens and a frontend
     array, or an audio model's frames alone). One prefill (whose last logits
@@ -110,13 +133,15 @@ def generate(cfg, params, prompts, tokens: int, *,
     step's ms, decode tokens per second and, on a card, the peak device
     memory and the bytes already held when its count began. With
     ``keep_logits`` also the prefill's last logits and each decode step's
-    logits (B, padded_vocab)."""
+    logits (B, padded_vocab). ``world`` (a ``distributed.comm.WorldComm``):
+    ``params`` are the rank's shards and the steps run on its model axis
+    (``train/step.py``), the rank's prompt rows given."""
     batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     lead = batch["tokens"] if "tokens" in batch else batch["frames"]
     device = lead.device
     B, T = lead.shape[:2]
-    prefill = make_prefill_step(cfg)
-    decode = make_serve_step(cfg)
+    prefill = make_prefill_step(cfg, world)
+    decode = make_serve_step(cfg, world, cache_len=T + tokens)
     clock = _Clock(device)
     held = None
     if clock.cuda:
@@ -128,7 +153,9 @@ def generate(cfg, params, prompts, tokens: int, *,
     last, prompt_cache = prefill(params, batch)
     tok = torch.argmax(last[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
     clock.mark()
-    cache = place_cache(init_cache(cfg, B, T + tokens, device=device), prompt_cache)
+    cache = place_cache(init_cache(cfg, B, T + tokens, device=device,
+                                   world=None if world is None else world.mesh),
+                        prompt_cache, world, T, T + tokens)
     del prompt_cache
     clock.mark()
     out, logits = [tok], [last] if keep_logits else None

@@ -3,8 +3,16 @@
 chunked, flash-kernel and KV-cache decode paths) and the SwiGLU FFN.
 
 Shape conventions: activations (B, S, D); per-head tensors (B, S, H, hd); all
-matmul weights stored ``(..., d_in, d_out)`` and applied as ``x @ W``. The
-JAX package's ``logical(...)`` sharding annotations are identities here.
+matmul weights stored ``(..., d_in, d_out)`` and applied as ``x @ W``.
+
+The JAX package's ``logical(...)`` sharding annotations become the model
+axis here (``distributed/tensor_parallel.py``): under an axis, GQA
+attention computes its rank's q heads (or, where the group does not divide
+the heads, all of them, as JAX replicates them), the dense FFN its rank's
+``[gate_r; up_r]`` columns, the row-split ``wo`` and ``w_out`` products are
+summed over the group, and decode attends over the rank's span of a
+``kv_seq``-split cache and merges the spans by log-sum-exp in rank order.
+Without one, every layer is the single-rank code.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -226,6 +235,40 @@ def decode_attention(q, k_cache, v_cache, pos: int):
     return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
 
 
+def decode_attention_span(q, k_span, v_span, pos: int, first: int, axis):
+    """Decode attention over a cache split by position over the model group:
+    this rank holds positions ``[first, first + S_l)`` of every kv head.
+    Each rank forms (max, sum, P.V) of its positions <= ``pos`` (scores in
+    fp32, probabilities in the cache's type before the P.V product, as
+    :func:`decode_attention`), the group's partials are gathered and merged
+    by log-sum-exp in rank order. Returns (B, 1, H, hdv), on every rank."""
+    B, _, H, hd = q.shape
+    K = k_span.shape[2]
+    G = H // K
+    S = k_span.shape[1]
+    qf = q.reshape(B, K, G, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qf.float(), k_span.float()) / (hd ** 0.5)
+    mask = (torch.arange(S, device=q.device) + first) <= pos
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    m = torch.amax(scores, dim=-1)
+    p = torch.exp(scores - m[..., None])
+    ell = torch.sum(p, dim=-1)
+    acc = torch.einsum("bkgs,bskh->bkgh", p.to(v_span.dtype).float(), v_span.float())
+    hdv = v_span.shape[-1]
+    part = torch.cat([m[..., None], ell[..., None], acc], dim=-1)  # (B,K,G,2+hdv)
+    every = axis.comm.all_gather(part[None].contiguous())           # (M,B,K,G,2+hdv)
+    m_all = torch.amax(every[..., 0], dim=0)
+    ell_t = acc_t = None
+    for r in range(every.shape[0]):
+        c = torch.exp(every[r, ..., 0] - m_all)
+        e_r = every[r, ..., 1] * c
+        a_r = every[r, ..., 2:] * c[..., None]
+        ell_t = e_r if ell_t is None else ell_t + e_r
+        acc_t = a_r if acc_t is None else acc_t + a_r
+    out = acc_t / ell_t[..., None]
+    return out.reshape(B, 1, H, hdv).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
@@ -262,6 +305,9 @@ def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None
     (S = 1); k and v are written into ``cache`` at ``pos`` in place (the
     cache tensors are consumed and come back as new_cache), then the token
     attends to positions <= pos. train: new_cache is None."""
+    axis = tp.current()
+    if axis is not None:
+        return _gqa_apply_axis(cfg, p, x, positions, mode, cache, pos, axis)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm"], cfg.rms_eps)
@@ -290,6 +336,129 @@ def gqa_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None
         if mode == "prefill":
             new_cache = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+
+
+def _columns(h, h_mp, w, split: bool, part: bool, axis, full: bool):
+    """``h @ w`` over a projection whose columns the rules may split: the
+    rank's columns (``full=False``, split only) or all of them, gathered
+    where split. ``part`` says each rank's gradient of the result is a part
+    of the whole (the computation downstream is split over the group)."""
+    if split:
+        y = h_mp @ w
+        return tp.gather_from_model(y, axis, -1, "sum") if full else y
+    y = h @ w
+    return tp.copy_to_model(y, axis) if part else y
+
+
+def _kv_index(h0: int, h1: int, G: int):
+    """The kv heads q heads ``[h0, h1)`` read: ``(k0, k1, index)`` with
+    ``index`` None where they form equal groups of the kv heads
+    ``[k0, k1)`` in order, else each q head's kv head."""
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    want = [h // G - k0 for h in range(h0, h1)]
+    n = k1 - k0
+    g = (h1 - h0) // n if (h1 - h0) % n == 0 else 0
+    if g and want == [j // g for j in range(h1 - h0)]:
+        return k0, k1, None
+    return k0, k1, want
+
+
+def _gqa_apply_axis(cfg, p, x, positions, mode, cache, pos, axis):
+    """:func:`gqa_apply` on the model axis. Storage follows the rules
+    (``wq``/``wk``/``wv`` columns and ``wo`` rows over ``heads`` where the
+    group divides ``H hd`` or ``K hd``); the computation takes the rank's q
+    heads where the group divides ``H`` (the kv heads they read gathered
+    where a rank's ``wk`` columns are not exactly those heads), else every
+    head on every rank, and sums the row-split ``wo`` products over the
+    group. Decode computes every head on every rank and attends over the
+    rank's span of a ``kv_seq``-split cache."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // K
+    M, r = axis.size, axis.rank
+    q_split = axis.splits("heads", H * hd)      # wq columns and wo rows
+    kv_split = axis.splits("heads", K * hd)     # wk and wv columns
+    heads_split = q_split and axis.splits("heads", H) and mode != "decode"
+    part = q_split and mode != "decode"         # wo's product is summed over the group
+    h = rms_norm(x, p["norm"], cfg.rms_eps)
+    h_mp = tp.copy_to_model(h, axis) if part else h
+    q_norm = k_norm = None
+    if cfg.qk_norm:
+        q_norm, k_norm = p["q_norm"], p["k_norm"]
+        if part:
+            q_norm, k_norm = tp.copy_to_model(q_norm, axis), tp.copy_to_model(k_norm, axis)
+
+    def finish_kv(t, heads):
+        t = t.reshape(B, S, heads, hd)
+        if cfg.qk_norm:
+            t = rms_norm(t, k_norm, cfg.rms_eps)
+        return t
+
+    k_all = v_all = None
+    if heads_split:
+        Hl = H // M
+        q = (h_mp @ p["wq"]).reshape(B, S, Hl, hd)
+        k0, k1, index = _kv_index(r * Hl, (r + 1) * Hl, G)
+        aligned = kv_split and K % M == 0 and (k0, k1) == (r * K // M, (r + 1) * K // M)
+        if aligned:
+            k = finish_kv(h_mp @ p["wk"], k1 - k0)
+            v = (h_mp @ p["wv"]).reshape(B, S, k1 - k0, hd)
+        else:
+            k_all = finish_kv(_columns(h, h_mp, p["wk"], kv_split, True, axis, True), K)
+            v_all = _columns(h, h_mp, p["wv"], kv_split, True, axis, True).reshape(B, S, K, hd)
+            k, v = k_all[:, :, k0:k1], v_all[:, :, k0:k1]
+    else:
+        q = _columns(h, h_mp, p["wq"], q_split, part, axis, True).reshape(B, S, H, hd)
+        k = finish_kv(_columns(h, h_mp, p["wk"], kv_split, part, axis, True), K)
+        v = _columns(h, h_mp, p["wv"], kv_split, part, axis, True).reshape(B, S, K, hd)
+        index = None
+    if cfg.qk_norm:
+        q = rms_norm(q, q_norm, cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        span = kc.shape[1]
+        total = axis.cache_len(span)
+        seq_split = span != total
+        if not 0 <= pos <= total - S:
+            raise ValueError(f"decode position {pos} outside the cache's {total} positions")
+        first = r * span if seq_split else 0
+        if first <= pos < first + span:
+            kc[:, pos - first:pos - first + S] = k.to(kc.dtype)
+            vc[:, pos - first:pos - first + S] = v.to(vc.dtype)
+        if seq_split and M > 1:
+            out = decode_attention_span(q, kc, vc, pos, first, axis)
+        else:
+            out = decode_attention(q, kc, vc, pos)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        if index is not None:
+            k, v = k[:, :, index], v[:, :, index]
+        out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                        chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+        if mode == "prefill":
+            if heads_split and k_all is None:   # the rank's kv heads: gather them all
+                k_all = tp.gather_from_model(k.contiguous(), axis, 2, "slice")
+                v_all = tp.gather_from_model(v.contiguous(), axis, 2, "slice")
+            elif k_all is None:
+                k_all, v_all = k, v
+            else:
+                k_all = apply_rope(k_all, positions, cfg.rope_theta)
+            if axis.splits("kv_seq", S):
+                n = S // M
+                k_all, v_all = k_all[:, r * n:(r + 1) * n], v_all[:, r * n:(r + 1) * n]
+            new_cache = {"k": k_all.to(x.dtype).contiguous(), "v": v_all.to(x.dtype).contiguous()}
+    Hc = out.shape[2]
+    out = out.reshape(B, S, Hc * hd)
+    if not q_split:
+        return out @ p["wo"], new_cache
+    if Hc == H:   # every head on every rank: this rank's rows of wo read its span
+        c = H * hd // M
+        out = out[..., r * c:(r + 1) * c]
+    return tp.reduce_from_model(out @ p["wo"], axis), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +574,35 @@ def ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSp
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
+    axis = tp.current()
+    if axis is not None:
+        return _ffn_apply_axis(cfg, p, x, axis)
     h = rms_norm(x, p["norm"], cfg.rms_eps)
     gate, up = torch.chunk(h @ p["w_in"], 2, dim=-1)
     # silu as x * sigmoid(x) in the activation dtype, as jax.nn.silu
     y = gate * torch.sigmoid(gate) * up
     return y @ p["w_out"]
+
+
+def _ffn_apply_axis(cfg: ModelConfig, p, x, axis):
+    """:func:`ffn_apply` on the model axis: ``w_in`` split over ``mlp``
+    holds ``[gate_r; up_r]`` (``distributed/sharding.shard_leaf``), so each
+    rank forms its span of the hidden units and the row-split ``w_out``
+    products are summed over the group. Where the group divides ``2 d_ff``
+    but not ``d_ff``, the stored columns are a plain cut: they are gathered
+    and the FFN runs whole on every rank beside a replicated ``w_out``."""
+    ff = cfg.d_ff
+    in_split = axis.splits("mlp", 2 * ff)
+    out_split = axis.splits("mlp", ff)
+    h = rms_norm(x, p["norm"], cfg.rms_eps)
+    if not in_split:
+        gate, up = torch.chunk(h @ p["w_in"], 2, dim=-1)
+        return (gate * torch.sigmoid(gate) * up) @ p["w_out"]
+    y = tp.copy_to_model(h, axis) @ p["w_in"]
+    if not out_split:
+        y = tp.gather_from_model(y, axis, -1, "slice")
+    gate, up = torch.chunk(y, 2, dim=-1)
+    y = gate * torch.sigmoid(gate) * up
+    if not out_split:
+        return y @ p["w_out"]
+    return tp.reduce_from_model(y @ p["w_out"], axis)

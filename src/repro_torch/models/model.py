@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import map_with_path, tree_paths
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
@@ -124,24 +125,40 @@ def build_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
     return specs
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> Dict[str, Any]:
-    """A zeroed decode cache of ``seq`` positions, in the model's type."""
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda",
+               world=None) -> Dict[str, Any]:
+    """A zeroed decode cache of ``seq`` positions, in the model's type. With
+    ``world`` (a ``launch/mesh.World``) a model rank's shard of it (its
+    span of the positions where the rules split ``kv_seq``); ``batch`` is
+    the rank's rows."""
+    from repro_torch.distributed.sharding import local_shape
+
+    def shape(sp):
+        return sp.shape if world is None else local_shape(sp.shape, sp.axes, world)
     return map_with_path(
-        lambda _path, sp: torch.zeros(sp.shape, dtype=torch_dtype(sp.dtype or cfg.dtype),
+        lambda _path, sp: torch.zeros(shape(sp), dtype=torch_dtype(sp.dtype or cfg.dtype),
                                       device=device),
         build_cache_specs(cfg, batch, seq))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", world=None,
+                model_rank: int = 0) -> Dict[str, Any]:
     """Random parameters from ``seed``, drawn leaf by leaf in tree order from
-    one ``torch.Generator`` on ``device``."""
+    one ``torch.Generator`` on ``device``. With ``world`` (a
+    ``launch/mesh.World``) the whole model is drawn so, then cut to model
+    rank ``model_rank``'s shards (``interop.shard_params``): M ranks hold
+    the model one rank does."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
     specs = build_param_specs(cfg)
     flat = {path: L.materialize(spec, gen, dtype, device)
             for path, spec in _spec_paths(specs)}
-    return map_with_path(lambda path, _spec: flat[path], specs)
+    params = map_with_path(lambda path, _spec: flat[path], specs)
+    if world is None:
+        return params
+    from repro_torch.interop import shard_params
+    return shard_params(params, cfg, world, model_rank, device)
 
 
 def _spec_paths(specs, prefix=()):
@@ -177,6 +194,33 @@ def lm_head(cfg: ModelConfig, params) -> torch.Tensor:
     return params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _vocab_split(cfg: ModelConfig):
+    """The model axis where the rules split the vocabulary over it, else
+    None."""
+    axis = tp.current()
+    return axis if axis is not None and axis.splits("vocab", cfg.padded_vocab) else None
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings: a lookup, vocabulary-parallel where the model
+    axis splits the table's rows."""
+    axis = _vocab_split(cfg)
+    if axis is None:
+        return params["embed"]["tokens"][tokens.long()]
+    return tp.vocab_parallel_embed(params["embed"]["tokens"], tokens, axis)
+
+
+def head_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ lm_head``, the whole (..., padded_vocab) logits on every rank:
+    where the model axis splits the vocabulary, each rank's columns
+    gathered."""
+    axis = _vocab_split(cfg)
+    if axis is None:
+        return x @ lm_head(cfg, params)
+    local = tp.copy_to_model(x, axis) @ lm_head(cfg, params)
+    return tp.gather_from_model(local, axis, -1, "slice")
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache=None, pos=None, remat: str = "full",
             return_hidden: bool = False):
@@ -208,7 +252,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     if cfg.frontend == "audio_frames" and mode != "decode" and "frames" in batch:
         x = batch["frames"].to(torch_dtype(cfg.dtype))
     else:
-        x = params["embed"]["tokens"][batch["tokens"].long()]
+        x = embed_tokens(cfg, params, batch["tokens"])
         if cfg.frontend == "vision" and mode != "decode" and "vision_embeds" in batch:
             nf = batch["vision_embeds"].shape[1]
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nf:]], dim=1)
@@ -276,7 +320,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     out_cache = new_cache if new_cache else None
     if return_hidden:
         return x, out_cache, aux
-    return x @ lm_head(cfg, params), out_cache, aux
+    return head_logits(cfg, params, x), out_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -304,16 +348,25 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: str = "full"):
     mask = (labels >= 0).float()
     labels_c = torch.clamp(labels, min=0)
     B, S, _ = hidden.shape
+    axis = _vocab_split(cfg)
+    if axis is None:
+        def terms(h, lab, m):
+            return _ce_terms(h @ head, lab, m)
+    elif axis.size == 1:   # the gathered logits of one rank: _ce_terms unchanged
+        def terms(h, lab, m):
+            return _ce_terms(head_logits(cfg, params, h), lab, m)
+    else:
+        def terms(h, lab, m):
+            return tp.vocab_parallel_ce(tp.copy_to_model(h, axis) @ head, lab, m, axis)
 
     if S % _LOSS_CHUNK == 0 and S > _LOSS_CHUNK:
         nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c in range(S // _LOSS_CHUNK):
             sl = slice(c * _LOSS_CHUNK, (c + 1) * _LOSS_CHUNK)
-            nll_sum = nll_sum + checkpoint(
-                lambda h, lab, m: _ce_terms(h @ head, lab, m),
-                hidden[:, sl], labels_c[:, sl], mask[:, sl], use_reentrant=False)
+            nll_sum = nll_sum + checkpoint(terms, hidden[:, sl], labels_c[:, sl],
+                                           mask[:, sl], use_reentrant=False)
     else:
-        nll_sum = _ce_terms(hidden @ head, labels_c, mask)
+        nll_sum = terms(hidden, labels_c, mask)
 
     denom = torch.clamp(torch.sum(mask), min=1.0)
     nll = nll_sum / denom

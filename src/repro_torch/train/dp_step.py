@@ -26,6 +26,11 @@ compression.py``) over the exact fp32 one. ``accum`` splits the local
 batch into microbatches. ``overlap`` picks the pipelined ZeRO-2 schedule
 (``train/pipeline.make_pipelined_zero2_step``) over the serialized one;
 both give the same bits. ``None`` resolves with :func:`resolve_overlap`.
+
+``world`` (a ``distributed.comm.WorldComm``) puts the step on a ``data x
+model`` world: ``comm`` is its data group, the model group splits the
+parameters by the logical-axis rules (``distributed/tensor_parallel.py``),
+and ZeRO-2 shards the buckets of the rank's shards over the data group.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Optimizer, apply_updates, tree_map
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.comm import Comm
 from repro_torch.distributed.compression import (
     CompressionState, compressed_mean, compressed_reduce_scatter_leaf, exact_mean,
@@ -68,7 +74,7 @@ def make_dp_train_step(cfg: ModelConfig, opt: Optimizer, comm: Comm, *,
                        remat: str = "none", shard_state: bool = False,
                        zero2: bool = False, accum: int = 1,
                        overlap: Optional[bool] = None, guard: bool = False,
-                       fault=None):
+                       fault=None, world=None):
     """``(params, opt_state, comp_state, global batch, step) -> (params,
     opt_state, comp_state, metrics)``, run on every rank of ``comm``.
     ``opt_state`` is this rank's (:func:`init_dp_state`); ``comp_state`` its
@@ -78,7 +84,12 @@ def make_dp_train_step(cfg: ModelConfig, opt: Optimizer, comm: Comm, *,
     a step whose mean gradient holds a NaN/Inf leaves params, optimizer
     state and the residual bit for bit unchanged, and the metrics gain
     ``skipped`` and ``guard_flags``. ``fault`` injects a
-    ``repro_torch.train.faults`` fault into the backward or the int8 wire."""
+    ``repro_torch.train.faults`` fault into the backward or the int8 wire.
+    ``world``: the ``data x model`` world ``comm`` is the data group of
+    (module docstring)."""
+    if world is not None and world.data is not comm:
+        raise ValueError("on a world, comm must be the world's data group")
+    axis = tp.axis_for(cfg, world)
     n_dev = comm.world
     overlap = resolve_overlap(overlap, accum=accum, compress=compress)
     if zero2:
@@ -113,7 +124,8 @@ def make_dp_train_step(cfg: ModelConfig, opt: Optimizer, comm: Comm, *,
             accum=accum, guard=guard, fault=fault)
 
         def pipelined_step(params, opt_state, comp_state, batch, step):
-            return piped(params, opt_state, comp_state, local_rows(batch, comm), step)
+            with tp.use(axis):
+                return piped(params, opt_state, comp_state, local_rows(batch, comm), step)
         return pipelined_step
 
     def zero2_reduce(grads, comp_state, step):
@@ -146,6 +158,10 @@ def make_dp_train_step(cfg: ModelConfig, opt: Optimizer, comm: Comm, *,
         return g_shards, grads, comp_state, plan
 
     def local_step(params, opt_state, comp_state, batch, step):
+        with tp.use(axis):
+            return body(params, opt_state, comp_state, batch, step)
+
+    def body(params, opt_state, comp_state, batch, step):
         prev = (params, opt_state, comp_state)
         grads, metrics = pipeline.microbatch_grads(
             cfg, params, local_rows(batch, comm), accum, remat, fault=fault, step=step)

@@ -41,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bucketing
 from repro_torch.core.mixed import ClipStats
 from repro_torch.core.types import Optimizer, PyTree, map_with_path, tree_paths
+from repro_torch.distributed.tensor_parallel import complete_sums
 from repro_torch.models.model import loss_fn, torch_dtype
 from repro_torch.train import faults as faults_mod
 
@@ -227,7 +228,9 @@ def guard_flag_names(tree: PyTree, plan=None, n_dev: int = 1) -> List[str]:
 def finite_guard(grads: PyTree) -> GuardInfo:
     """One fp32 sum of squares per leaf, the same partials the global-norm
     clip sums, and ``isfinite`` over them."""
-    sqs = [torch.sum(torch.square(g.float())) for _, g in tree_paths(grads)]
+    leaves = tree_paths(grads)
+    sqs = complete_sums([p for p, _ in leaves],
+                        [torch.sum(torch.square(g.float())) for _, g in leaves])
     if not sqs:
         flags = torch.ones((0,), dtype=torch.bool)
         return GuardInfo(ok=torch.ones((), dtype=torch.bool), flags=flags)
@@ -268,7 +271,8 @@ def replicated_clip(plan, grads, clip_norm: float):
     """The global-norm clip of the replicated and ZeRO-1 dp steps, from
     :func:`leaf_square_sums`. ``clip_norm <= 0`` leaves the grads
     untouched. Returns ``(grads, stats, guard)``."""
-    sqs = list(leaf_square_sums(plan, grads).values())
+    sums = leaf_square_sums(plan, grads)
+    sqs = complete_sums(list(sums), list(sums.values()))
     dev = sqs[0].device if sqs else None
     scale, stats, guard = _clip_from(sqs, torch.stack(sqs) if sqs else
                                      torch.zeros(0), clip_norm, dev)
@@ -292,14 +296,20 @@ def two_phase_clip(plan, g_shards, grads, clip_norm: float, comm):
     dev = comm.device
     if comm.world <= _EXACT_CLIP_MAX_RANKS:
         leaf_sq = _matrix_leaf_sq(plan, g_shards, comm)
-        sqs = [leaf_sq[path] if path in mat else torch.sum(torch.square(rest32[path]))
-               for path, _ in tree_paths(grads)]
+        paths = [path for path, _ in tree_paths(grads)]
+        sqs = complete_sums(paths, [leaf_sq[path] if path in mat
+                                    else torch.sum(torch.square(rest32[path]))
+                                    for path in paths])
         flags_from = torch.stack(sqs) if sqs else torch.zeros(0)
     else:
         sq_mat = (comm.all_reduce(torch.stack(
             [torch.sum(torch.square(g_shards[b.key])) for b in plan.buckets]))
             if plan.buckets else torch.zeros(0))
-        rest_sqs = [torch.sum(torch.square(g)) for g in rest32.values()]
+        if plan.buckets:   # a bucket's leaves are all split over the model axis, or none
+            sq_mat = torch.stack(complete_sums([b.entries[0].path for b in plan.buckets],
+                                               list(sq_mat)))
+        rest_sqs = complete_sums(list(rest32), [torch.sum(torch.square(g))
+                                                for g in rest32.values()])
         sqs = rest_sqs + [_ordered_sum(list(sq_mat))] if plan.buckets else rest_sqs
         flags_from = torch.cat([sq_mat] + ([torch.stack(rest_sqs)] if rest_sqs else []))
     scale, stats, guard = _clip_from(sqs, flags_from, clip_norm, dev)

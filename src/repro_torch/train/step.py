@@ -9,6 +9,15 @@ accumulators), global-norm clipping and the optional non-finite guard.
 Parameters stay plain tensors: the step differentiates the loss with
 ``torch.autograd.grad`` on detached leaves that share their storage, and the
 optimizer returns new parameters, as the JAX package's functional step does.
+
+Each ``make_*_step`` takes ``world``: a ``distributed.comm.WorldComm`` whose model
+group splits the parameters, activations and cache by the logical-axis
+rules (``distributed/tensor_parallel.py``), the step running its rank's
+shards under that axis. The default is one rank with no axis: the single-rank code.
+The optimizer reads the step's axis as the layers do
+(``tensor_parallel.optimizer_axis``); its state is initialised under the
+same axis (``with tensor_parallel.use(tensor_parallel.axis_for(cfg,
+world)): opt.init(params)``), or the first step raises.
 """
 from __future__ import annotations
 
@@ -19,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mixed import clip_by_global_norm
 from repro_torch.core.types import Optimizer, apply_updates, map_with_path
-from repro_torch.models.model import forward, lm_head, loss_fn
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models.model import forward, head_logits, loss_fn
 from repro_torch.train import pipeline
 
 
@@ -58,7 +68,7 @@ def optimizer_fp32_buffers(opt: Optimizer, params, shape, step: int = 0) -> int:
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
                     remat: str = "full", num_microbatches: int = 1,
                     grad_dtype: Optional[str] = None, guard: bool = False,
-                    fault=None):
+                    fault=None, world=None):
     """``clip_norm <= 0`` disables clipping while ``grad_norm`` and
     ``clip_rate`` keep reporting. ``grad_dtype`` casts the gradients before
     accumulation and clipping. ``guard=True`` adds the non-finite guard: a
@@ -69,13 +79,19 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
     poisons a gradient for the resilience checks, per microbatch; a
     ``bitflip`` fault belongs to the int8 wire of the ZeRO-2 step
     (``train/dp_step.py``) and leaves this step's gradients alone, as in the
-    JAX package."""
+    JAX package. ``world``: the model axis the step runs its shards on
+    (module docstring)."""
+    axis = tp.axis_for(cfg, world)
 
     def grads_of(params, batch, step, mb_idx=0):
         return pipeline.grads_of(cfg, params, batch, remat, fault, step, mb_idx,
                                  grad_dtype)
 
     def train_step(params, opt_state, batch, step):
+        with tp.use(axis):
+            return body(params, opt_state, batch, step)
+
+    def body(params, opt_state, batch, step):
         prev = (params, opt_state)
         if num_microbatches > 1:
             acc, ms = None, []
@@ -117,33 +133,44 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, world=None, cache_len: Optional[int] = None):
     """One decode step: (params, cache, tokens (B,1), pos) -> (next_token
     (B,1) int32, logits (B,1,padded_vocab), cache). The cache passed in is
     updated in place and returned (``forward``'s decode mode); the greedy
-    token is the argmax over the real vocabulary, padding excluded."""
+    token is the argmax over the real vocabulary, padding excluded. On a
+    ``world`` with a model group above one, ``cache_len`` is the whole
+    cache's positions (a rank holds its span of them where the rules split
+    ``kv_seq``); the logits are whole on every rank."""
+    axis = tp.axis_for(cfg, world)
+    if axis is not None:
+        axis = axis.with_cache_len(cache_len)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        logits, new_cache, _ = forward(cfg, params, {"tokens": tokens}, "decode",
-                                       cache=cache, pos=pos)
+        with tp.use(axis):
+            logits, new_cache, _ = forward(cfg, params, {"tokens": tokens}, "decode",
+                                           cache=cache, pos=pos)
         next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1).to(torch.int32)
         return next_tok[:, None], logits, new_cache
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, world=None):
     """Prompt ingestion: (params, batch) -> (last-token logits (B,
     padded_vocab), prompt cache). The LM head is applied to the last
     position only, so the (B, S, padded_vocab) logits are never formed; each
     logit is the same dot product as in the full forward, summed in the
-    order the matmul picks for its shape."""
+    order the matmul picks for its shape. On a ``world``, the logits are
+    gathered over the vocabulary and the cache is the rank's shard of it
+    (its span of the prompt's positions where the rules split ``kv_seq``)."""
+    axis = tp.axis_for(cfg, world)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hidden, cache, _ = forward(cfg, params, batch, "prefill", return_hidden=True)
-        return hidden[:, -1] @ lm_head(cfg, params), cache
+        with tp.use(axis):
+            hidden, cache, _ = forward(cfg, params, batch, "prefill", return_hidden=True)
+            return head_logits(cfg, params, hidden[:, -1]), cache
 
     return prefill_step
 

@@ -572,7 +572,26 @@ BETA, EPS = 0.95, 1e-8
 
 
 @pytest.fixture(scope="module")
-def rmnp_f32(tmp_path_factory):
+def rmnp_f32(rmnp_lib):
+    fn = rmnp_lib.rmnp_update
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def rmnp_split_f32(rmnp_lib):
+    """The column-split entry ``rmnp_update_split`` (PARTIAL and FINISH)."""
+    fn = rmnp_lib.rmnp_update_split
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def rmnp_lib(tmp_path_factory):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
@@ -587,11 +606,7 @@ def rmnp_f32(tmp_path_factory):
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-Wno-unknown-pragmas",
                     "-shared", "-fPIC", "-pthread", "-I", str(out), "-o", str(lib),
                     str(out / "rmnp_update.cpp")], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).rmnp_update
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return ctypes.CDLL(str(lib))
 
 
 def _bf16(x):
@@ -624,6 +639,31 @@ def _rmnp(fn, g, v, w=None, scalars=(2e-3, 0.1), layout=None, vec=None):
              int(apply and w.dtype == np.uint16), int(apply), BETA, 1.0 - BETA, EPS, None)
     assert err == 0
     return v_out, out
+
+
+def _rmnp_split(fn, g, v, colsum=None, w=None, scalars=(2e-3, 0.1), layout=None, vec=None):
+    """The column-split entry on numpy operands: without ``colsum`` PARTIAL
+    -> colsum (L, 1, d_out); with it FINISH -> (v_new, d) or, given ``w``,
+    (v_new, w_new)."""
+    from repro_torch.kernels.rmnp_update import split
+    *lead, d_in, d_out = g.shape
+    L = int(np.prod(lead)) if lead else 1
+    s = layout or split(d_in, d_out)
+    if vec is None:
+        vec = d_out % 4 == 0
+    sc = np.asarray(scalars, np.float32)
+    finish = colsum is not None
+    apply = w is not None
+    sums = colsum if finish else np.empty(tuple(lead) + (1, d_out), np.float32)
+    v_out = np.empty_like(v) if finish else None
+    out = (np.empty_like(w) if apply else np.empty_like(g)) if finish else None
+    err = fn(g.ctypes.data, v.ctypes.data, w.ctypes.data if apply else None,
+             v_out.ctypes.data if finish else None, out.ctypes.data if finish else None,
+             sums.ctypes.data, sc.ctypes.data, L, d_in, d_out, s.K, s.R, s.C, s.threads,
+             int(vec), int(v.dtype == np.uint16), int(apply and w.dtype == np.uint16),
+             2 if finish else 1, int(apply), BETA, 1.0 - BETA, EPS, None)
+    assert err == 0
+    return (v_out, out) if finish else sums
 
 
 def _rmnp_model(g, v32, layout):

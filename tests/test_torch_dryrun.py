@@ -415,13 +415,26 @@ def test_long_500k_on_full_attention_is_skipped_with_the_jax_reason(tmp_path):
 
 
 def test_the_worlds():
+    """The production world is the JAX mesh with its model axis (256 or 512
+    ranks, 16 a model group); its data axes alone are 16 or 32 ranks; a
+    local world is ``data x model``, model minor."""
     single, multi = mesh.make_production_world(), mesh.make_production_world(multi_pod=True)
     assert (single.size, single.jax_mesh, multi.size, multi.jax_mesh) == (
-        16, (16, 16), 32, (2, 16, 16))
+        256, (16, 16), 512, (2, 16, 16))
+    assert (single.data_parallel, multi.data_parallel) == (16, 32)
+    assert single.axes == {"data": 16, "model": 16}
+    assert multi.axes == {"pod": 2, "data": 16, "model": 16}
     assert single.collective_lower_bound and multi.collective_lower_bound
+    assert single.describe()["model_parallel"] == 16
+    data_only = [mesh.make_production_world(multi_pod=m, model_axis=False) for m in (0, 1)]
+    assert [(w.size, w.model_parallel, w.axes["model"]) for w in data_only] == [
+        (16, 1, 1), (32, 1, 1)]
     local = mesh.make_local_world()
     assert local.size == 1 and not local.collective_lower_bound
-    assert single.describe()["model_parallel"] == 1
+    two = mesh.make_local_world(2, 3)
+    assert (two.size, two.data_parallel, two.model_parallel) == (6, 2, 3)
+    assert [two.ranks(r) for r in range(6)] == [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1),
+                                                (1, 2)]
 
 
 def test_parse_overrides_equals_jax():
@@ -438,8 +451,14 @@ def test_parse_overrides_equals_jax():
     pairs = ["attn_impl=chunked", "attn_chunk_q=1024", "rope_theta=5e5", "x=1.5",
              "moe_dispatch=per_row", "n=-3", "s=", "e=1e-3x"]
     assert perf._parse_overrides(pairs) == _parse_overrides(pairs)
+    # --rules: the JAX tool's parsing; an override outside the model axis's
+    # names, or on an architecture it does not cover, raises naming item 14
+    assert perf.parse_rules(["heads=none", "mlp=model", "vocab="]) == {
+        "heads": None, "mlp": "model", "vocab": None}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        perf.run("gpt2-small", "decode_32k", "t", rules=["kv_seq=model"])
+        perf.run("gpt2-small", "decode_32k", "t", rules={"embed": "model"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        perf.run("olmoe-1b-7b", "decode_32k", "t", rules={"kv_seq": "model"})
 
 
 def test_the_clis(tmp_path):
@@ -450,7 +469,8 @@ def test_the_clis(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "gpt2-small__decode_32k__single: OK mem=" in res.stdout
     rec = json.loads((tmp_path / "gpt2-small__decode_32k__single.json").read_text())
-    assert rec["status"] == "ok" and rec["world"] == 16 and rec["jax_mesh"] == [16, 16]
+    assert rec["status"] == "ok" and rec["world"] == 256 and rec["jax_mesh"] == [16, 16]
+    assert rec["model_parallel"] == 16 and rec["data_parallel"] == 16
     (tmp_path / "qwen3-4b__long_500k__single.json").write_text(json.dumps(
         dryrun.run_cell("qwen3-4b", "long_500k", False, tmp_path)))
     import contextlib

@@ -892,3 +892,84 @@ def test_launch_census_on_the_card(cuda, kind):
     res = census.census(lambda: fn(*args), predicted)
     assert res["ok"], res["mismatches"]
     assert sum(c["profiler"] for c in res["kernels"].values()) == n
+
+
+# ------------------------------------------------------------ the model axis
+# RMNP's column split (PARTIAL, FINISH: rows of d_in over the model group)
+# and the flash forward at a model rank's head counts (M = 16).
+
+SPLIT_SHAPES = [(36, 256, 2560), (36, 608, 2560), (12, 384, 768), (3, 33, 9),
+                (1, 3144, 768)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16], ids=["v32", "v16"])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16], ids=["w32", "w16"])
+def test_rmnp_split_modes_match_plain(cuda, shape, vdt, wdt):
+    """PARTIAL and FINISH (precondition and apply) against their plain
+    versions, FINISH given other ranks' sums added to this rank's."""
+    g, v, w, scalars = _rmnp_inputs(shape, vdt, wdt)
+    sums = rm.rmnp_rownorm_partial(g, v, beta=0.95)
+    torch.testing.assert_close(sums, rm.rmnp_rownorm_partial_plain(g, v, beta=0.95),
+                               rtol=1e-5, atol=0)
+    total = sums + rm.rmnp_rownorm_partial_plain(g.flip(-2), v.flip(-2), beta=0.95) * 0.5
+    for ww, sc in ((None, None), (w, scalars)):
+        got = rm.rmnp_rownorm_finish(g, v, total, ww, sc, beta=0.95)
+        want = rm.rmnp_rownorm_finish_plain(g, v, total, ww, sc, beta=0.95)
+        for a, b in zip(got, want, strict=True):
+            _close(a, b)
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16], ids=["v32", "v16"])
+def test_rmnp_split_modes_on_one_rank_equal_the_one_pass_bitwise(cuda, shape, vdt):
+    """PARTIAL's sums straight into FINISH (a group of one) give the one-pass
+    kernel's bits, precondition and apply, and count one launch each."""
+    g, v, w, scalars = _rmnp_inputs(shape, vdt, torch.bfloat16)
+    reset_launches()
+    sums = rm.rmnp_rownorm_partial(g, v, beta=0.95)
+    got = {"pre": rm.rmnp_rownorm_finish(g, v, sums, beta=0.95),
+           "apply": rm.rmnp_rownorm_finish(g, v, sums, w, scalars, beta=0.95)}
+    assert (LAUNCHES["rmnp_partial"], LAUNCHES["rmnp_finish"]) == (1, 2)
+    want = {"pre": rm.rmnp_rownorm(g, v, beta=0.95),
+            "apply": rm.rmnp_rownorm_apply(g, v, w, scalars, beta=0.95)}
+    for k in got:
+        for a, b in zip(got[k], want[k], strict=True):
+            assert torch.equal(a, b), k
+
+
+def test_rmnp_split_rows_over_ranks_match_the_whole(cuda):
+    """Two ranks' row halves of qwen3-4b-shaped wo, their sums added in rank
+    order, against the one-pass kernel on the whole matrix: v_new bit for
+    bit, w_new within one bf16 step."""
+    g, v, w, scalars = _rmnp_inputs((4, 512, 2560), torch.float32, torch.bfloat16)
+    halves = [tuple(x[:, r * 256:(r + 1) * 256].contiguous() for x in (g, v, w))
+              for r in range(2)]
+    total = sum(rm.rmnp_rownorm_partial(hg, hv, beta=0.95) for hg, hv, _ in halves)
+    got = [rm.rmnp_rownorm_finish(hg, hv, total, hw, scalars, beta=0.95)
+           for hg, hv, hw in halves]
+    v_whole, w_whole = rm.rmnp_rownorm_apply(g, v, w, scalars, beta=0.95)
+    assert torch.equal(torch.cat([x[0] for x in got], dim=1), v_whole)
+    _close(torch.cat([x[1] for x in got], dim=1), w_whole)
+
+
+LOCAL_HEADS = [("qwen3_m16", 8, 1024, 2, 1, 128, torch.bfloat16),
+               ("phi3_m16", 8, 1024, 2, 2, 96, torch.bfloat16),
+               ("musicgen_m16", 8, 1024, 2, 2, 64, torch.bfloat16),
+               ("qwen3_m16_fp32", 8, 1024, 2, 1, 128, torch.float32),
+               ("ragged_m16", 2, 1000, 2, 1, 128, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("case", LOCAL_HEADS, ids=[c[0] for c in LOCAL_HEADS])
+def test_flash_forward_at_local_head_counts_matches_plain(cuda, case, causal):
+    _, B, S, H, K, hd, dt = case
+    q, k, v = _qkv(B, S, H, K, hd, dt)
+    out = fa.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        assert _ratio(out, ref) <= 1.0
+        assert _ratio(out, _exact_attention(q, k, v, causal)) <= 1.0
+    else:
+        _close(out, ref)

@@ -6,9 +6,9 @@ The emulation, its headers and models, and the build fixtures are in
 import numpy as np
 import pytest
 
-from _torch_emulation import (
+from _torch_emulation import (  # noqa: F401 — rmnp_lib: the fixtures' dependency
     BETA, EPS, GPT2_SMALL_BUCKETS, RMNP_CASES, _as_f32, _bf16, _case_id, _layout, _rmnp,
-    _rmnp_model, _rmnp_operands, rmnp_f32)
+    _rmnp_model, _rmnp_operands, _rmnp_split, rmnp_f32, rmnp_lib, rmnp_split_f32)
 
 
 @pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
@@ -132,3 +132,89 @@ def test_rmnp_split(d_in, d_out):
         assert s.one_read
     if (d_in, d_out) == (50432, 768):
         assert s == rm.Split(16, 3152, 16, rm.TALL_THREADS, True)
+
+
+# ------------------------------------------------- the column-split modes ---
+# PARTIAL and FINISH (the model axis: d_in rows split over ranks) are the
+# two-sweep path cut at the cluster's reduction.
+
+@pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
+@pytest.mark.parametrize("w_bf16", [False, True], ids=["w32", "w16"])
+def test_emulated_rmnp_split_modes_on_one_rank_equal_the_one_pass(rmnp_f32, rmnp_split_f32,
+                                                                 case, w_bf16):
+    """PARTIAL's column sums fed straight to FINISH (a group of one) give the
+    one-pass kernel's v_new, d and w_new bit for bit, at each momentum type."""
+    from repro_torch.kernels.rmnp_update import split
+    shape, layout, v_bf16 = case
+    layout = _layout(*layout) if layout else split(*shape[-2:])
+    g, v, w = _rmnp_operands(shape, v_bf16, w_bf16=w_bf16)
+    two = layout._replace(one_read=False)
+    sums = _rmnp_split(rmnp_split_f32, g, v, layout=two)
+    for ww in (None, w):
+        want = _rmnp(rmnp_f32, g, v, ww, layout=layout)
+        got = _rmnp_split(rmnp_split_f32, g, v, sums, ww, layout=two)
+        for a, b in zip(got, want, strict=True):
+            assert np.array_equal(a, b), (ww is not None)
+
+
+@pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)
+def test_emulated_rmnp_split_modes_match_plain(rmnp_split_f32, case):
+    """PARTIAL and FINISH against their plain versions (torch, CPU) at the
+    tolerances of tests/test_torch_gpu.py: fp32 rtol 1e-5, bf16 one bf16
+    step (2^-7), atol 1e-6; the column sums at rtol 1e-5."""
+    import torch
+
+    from repro_torch.kernels import rmnp_update as rm
+    shape, layout, v_bf16 = case
+    layout = (_layout(*layout) if layout else rm.split(*shape[-2:]))._replace(one_read=False)
+    g, v, w = _rmnp_operands(shape, v_bf16, w_bf16=not v_bf16)
+
+    def torch_of(x):
+        t = torch.from_numpy(_as_f32(x).copy())
+        return t.to(torch.bfloat16) if x.dtype == np.uint16 else t
+
+    tg, tv, tw = torch_of(g), torch_of(v), torch_of(w)
+    sums = _rmnp_split(rmnp_split_f32, g, v, layout=layout)
+    torch.testing.assert_close(torch.from_numpy(sums), rm.rmnp_rownorm_partial_plain(
+        tg, tv, beta=BETA), rtol=1e-5, atol=0)
+    total = torch.from_numpy(sums)
+    for ww, tww in ((None, None), (w, tw)):
+        got = _rmnp_split(rmnp_split_f32, g, v, sums, ww, layout=layout)
+        want = rm.rmnp_rownorm_finish_plain(tg, tv, total, tww, torch.tensor((2e-3, 0.1)),
+                                            beta=BETA, eps=EPS)
+        for a, b in zip(got, want, strict=True):
+            bf16 = b.dtype == torch.bfloat16
+            torch.testing.assert_close(torch.from_numpy(_as_f32(a)), b.float(),
+                                       rtol=2.0 ** -7 if bf16 else 1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 90, 40), (1, 256, 24), (3, 66, 12)])
+def test_emulated_rmnp_two_row_halves_match_the_whole(rmnp_f32, rmnp_split_f32, shape):
+    """Two ranks' halves of d_in (each its own split): PARTIAL on each, the
+    sums added in rank order, FINISH on each, stacked, against the one-pass
+    kernel on the whole matrix within fp32 tolerance; and the plain versions
+    of the halves likewise against the whole."""
+    import torch
+
+    from repro_torch.kernels import rmnp_update as rm
+    g, v, w = _rmnp_operands(shape, False, w_bf16=False)
+    h = shape[-2] // 2
+    halves = [(np.ascontiguousarray(x[..., :h, :]), np.ascontiguousarray(x[..., h:, :]))
+              for x in (g, v, w)]
+    sums = [_rmnp_split(rmnp_split_f32, halves[0][i], halves[1][i],
+                        layout=rm.split_layout(h, shape[-1])) for i in range(2)]
+    total = sums[0] + sums[1]
+    got = [_rmnp_split(rmnp_split_f32, halves[0][i], halves[1][i], total, halves[2][i],
+                       layout=rm.split_layout(h, shape[-1])) for i in range(2)]
+    v_whole, w_whole = _rmnp(rmnp_f32, g, v, w)
+    np.testing.assert_array_equal(np.concatenate([got[0][0], got[1][0]], axis=-2), v_whole)
+    np.testing.assert_allclose(np.concatenate([got[0][1], got[1][1]], axis=-2), w_whole,
+                               rtol=1e-5, atol=1e-6)
+    t = [tuple(torch.from_numpy(x[i]) for x in halves) for i in range(2)]
+    plain_total = sum(rm.rmnp_rownorm_partial_plain(tg, tv, beta=BETA) for tg, tv, _ in t)
+    plain = [rm.rmnp_rownorm_finish_plain(tg, tv, plain_total, tw, torch.tensor((2e-3, 0.1)),
+                                          beta=BETA, eps=EPS)[1] for tg, tv, tw in t]
+    whole = rm.rmnp_rownorm_apply_plain(torch.from_numpy(g), torch.from_numpy(v),
+                                        torch.from_numpy(w), torch.tensor((2e-3, 0.1)),
+                                        beta=BETA, eps=EPS)[1]
+    torch.testing.assert_close(torch.cat(plain, dim=-2), whole, rtol=1e-5, atol=1e-6)
