@@ -11,8 +11,8 @@ Phases:
          bucket shapes, llama-130m's five (2048x768 at split K = 6),
          the 13 of deepseek-v2-lite-16b cut to 3 layers (the expert
          stacks 2048x2816 and 1408x2048 at L = 128 among them), the 7 of
-         xlstm-350m cut to 12 layers (the 2048x4 gate matrices, the
-         r_gates stack at L = 24) and the 10 of jamba cut to layers 3-4
+         xlstm-350m cut to 2 layers (the 2048x4 gate matrices, the
+         r_gates stack at L = 4) and the 10 of jamba cut to layers 3-4
          (the expert stacks at L = 17, x_proj 8192x288; 17x4096x28672 in
          the main path's types only and without the bit-for-bit checks),
          paligemma-3b's tied
@@ -34,7 +34,12 @@ Phases:
          (36x256x2560 and 36x608x2560, rank 5 of 16) against their plain
          versions, FINISH given the whole matrix's column sums and held
          against the one-pass kernel's rows of the whole matrix (v_new bit
-         for bit), each timed; the ptxas report of its 32 instantiations;
+         for bit), each timed, and the same at MLA's wo shards at M = 16
+         (deepseek-v2-lite's 3-layer cut 3x128x2048, minicpm3-4b's
+         62x160x2560), each its own row; the ptxas report of its 32
+         instantiations; and the one-pass kernel on a model rank's expert
+         stacks at M = 16 (deepseek-v2-lite-16b whole, 26 MoE layers x 4
+         experts: 104x2048x2816 and 104x1408x2048, the main path's types);
   B      the flash-attention forward kernels (bf16: csrc/flash_attention_fwd.cu;
          fp32, 3xTF32: csrc/flash_attention_fwd_tf32.cu; both on the tensor
          cores) against their plain version, in each type at B=8 S=1024
@@ -157,7 +162,10 @@ Phases:
          reduced models at their full configs' head dims (full_head_dims),
          each fp32 wide build through a whole model: qwen3-4b at hd
          128, phi3-mini at 96, paligemma-3b at 256, minicpm3-4b's MLA at
-         (96, 64) and deepseek-v2-lite's at (192, 128);
+         (96, 64) and deepseek-v2-lite's at (192, 128); and a model rank's
+         heads at M = 16 for deepseek-v2-lite (one MLA head at (192, 128),
+         v a strided view) and olmoe-1b-7b (one head at hd 128), against
+         SDPA;
   S      serving qwen3-4b at full width (bf16, seed 0, B=8, T=1024, 128 new
          tokens, S_max=1152) through repro_torch.launch.serve.serve and the
          step functions: S1 the prefill with attn_impl="pallas" (the bf16
@@ -176,7 +184,8 @@ Phases:
          S_max=1152): 32 launches of the (96, 96) kernel a prefill;
   N      the same for minicpm3-4b (62 layers of MLA, H=K=40 at q/k 96 and
          v 64, the tied 73448-row embedding): 62 launches of the (96, 64)
-         kernel a prefill, v read in place from the up-projection;
+         kernel a prefill, v read in place from the up-projection; and
+         N_model_axis, S_model_axis's check on it (62 flash launches);
   Y      phase S's checks and timings for yi-9b at full width and depth
          (48 layers, H=32 on K=4 at hd 128; 8,829,407,232 parameters):
          48 launches of the hd-128 kernel a prefill;
@@ -185,7 +194,13 @@ Phases:
          (B=8, S=1024, bf16, seed 0): 3 timed steps, 13 apply launches
          each, tokens/s and peak memory; a second run equals the first bit
          for bit after 2 steps; the per-leaf engine equals the single-pass
-         one bit for bit on the expert stacks;
+         one bit for bit on the expert stacks; and M1_model_axis, C1's
+         model-axis check on the cut: one step through MLA's heads, the
+         experts over ``expert`` and the shared experts over ``mlp`` on the
+         world of one, bit for bit (loss, grad norm, every parameter), 4
+         PARTIAL and 4 FINISH launches (MLA's wo, the dense layer's w_out,
+         w_out_shared, the embedding) and 9 one-pass ones (the expert
+         stacks among them);
   V      the dry run (launch/dryrun.py, on meta tensors, nothing run on
          the card; recorded in a process of its own from the end of the
          build on, beside the phases on the card) of the windows of C1,
@@ -207,24 +222,26 @@ Phases:
          flash prefill against dense and decode against a teacher-forced
          dense forward within M_LOGIT_TOL, each control (non-causal;
          pos + 1) at least 4x outside, and the share of routings on
-         which the flash and dense prefills agree;
+         which the flash and dense prefills agree; and M2_model_axis, S's
+         model-axis check on it (27 flash launches);
   O      M2 for olmoe-1b-7b at full width and depth (16 layers, H=K=16 at
          hd 128 with qk_norm, 64 experts top-8; 6,919,624,704 parameters;
          16 launches of the hd-128 kernel a prefill): its controls must land
-         outside the tolerance and 4x past the reading each controls;
+         outside the tolerance and 4x past the reading each controls; and
+         O_model_axis (16 flash launches);
   O2     olmoe-1b-7b cut to layers 0:2 trained as M1 (5 apply launches a
          step, the expert stacks at L = 128; per-leaf against single-pass
          on them);
   Y2     yi-9b cut to layers 0:2 trained as M1 (6 apply launches a step);
-  X1     xlstm-350m cut to layers 0:12 at full width (6 layers each of
-         mLSTM and sLSTM, 285,891,632 parameters, bf16, seed 0, B=8,
+  X1     xlstm-350m cut to layers 0:2 at full width (one mLSTM and one
+         sLSTM layer, 133,720,072 parameters, bf16, seed 0, B=8,
          S=1024; cut in depth to keep the script inside its time limit)
          trained with single-pass RMNP through launch.train.train: 2 timed
          steps with 7 apply launches each, tokens/s, peak memory; a second
          run equal bit for bit; one step
          under torch.profiler (device ops a step, idle share); one sLSTM
-         and one mLSTM layer alone under the profiler, whose device ops 6
-         times over give their share of the step;
+         and one mLSTM layer alone under the profiler, whose device ops
+         give their share of the step;
   X2     serving xlstm-350m at full width (B=8, T=1024, 128 new tokens):
          prefill ms, decode ms a step, tokens/s, peak; 128 decode steps'
          logits against a teacher-forced forward, in bf16 (reported: the
@@ -336,12 +353,12 @@ DS_BUCKETS = [(3, 512, 4096), (128, 1408, 2048), (2, 2048, 64), (3, 2048, 576),
               (3, 2048, 2048), (128, 2048, 2816), (3, 2048, 3072), (2, 2048, 5632),
               (1, 2048, 21888), (1, 2048, 102400), (2, 2816, 2048), (1, 10944, 2048),
               (1, 102400, 2048)]
-# xlstm-350m cut to layers 0:12 (phase X1): 7 buckets, the mLSTM gate
-# matrices 2048x4 (w_igate and w_fgate, L = 12), the sLSTM recurrent r_gates
-# (6, 4, 256, 1024) at L = 24, the untied head and the embedding
-# (285,835,264 matrix elements)
-XLSTM_BUCKETS = [(24, 256, 1024), (18, 1024, 4096), (1, 1024, 50432), (12, 2048, 4),
-                 (12, 2048, 1024), (18, 2048, 2048), (1, 50432, 1024)]
+# xlstm-350m cut to layers 0:2 (phase X1): 7 buckets, the mLSTM gate
+# matrices 2048x4 (w_igate and w_fgate, L = 2), the sLSTM recurrent r_gates
+# (1, 4, 256, 1024) at L = 4, the untied head and the embedding
+# (133,709,824 matrix elements)
+XLSTM_BUCKETS = [(4, 256, 1024), (3, 1024, 4096), (1, 1024, 50432), (2, 2048, 4),
+                 (2, 2048, 1024), (3, 2048, 2048), (1, 50432, 1024)]
 # jamba-v0.1-52b cut to layers 3-4 (phase J2): 10 buckets, the 16-expert
 # stacks with the dense FFN at L = 17, mamba's x_proj 8192x288 (ragged
 # columns), the router 4096x16, the untied head and the embedding
@@ -367,6 +384,11 @@ YI_BUCKETS = [(4, 4096, 512), (4, 4096, 4096), (2, 4096, 22016), (1, 4096, 64000
 # embedding (1,045,692,416 matrix elements)
 O_BUCKETS = [(128, 1024, 2048), (2, 2048, 64), (136, 2048, 2048), (1, 2048, 50432),
              (1, 50432, 2048)]
+# the model axis at M = 16: a rank's routed experts of deepseek-v2-lite-16b
+# whole (26 MoE layers x 4 of 64 experts), its w_in and w_out stacks; whole
+# matrices, so the one-pass kernel (phase A, in the main path's types only)
+DS_EXPERTS_M16 = [(104, 2048, 2816), (104, 1408, 2048)]
+A_MAIN_TYPES_ONLY = ("deepseek-v2-lite-16b-rank-of-16",)
 # Phase A runs a bucket above this many elements in the main path's types
 # only (fp32 momentum, bf16 weights) and without the bit-for-bit checks,
 # which hold several fp32 copies of it: jamba's 17x4096x28672 (2.0 G).
@@ -571,26 +593,28 @@ def phase_rmnp():
     # weights for the update check (the precondition kernel reads no weights)
     combos = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.float32)]
-    rows, bitwise = {name: [] for name in kernels}, []
+    rows, bitwise, row_seconds = {name: [] for name in kernels}, [], {}
     summary = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0,
                       "plain_ms": 0.0, "bound_ms": 0.0,
                       **{other: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                  "max_abs_err": 0.0}
                     for other in ("llama", "deepseek", "xlstm", "jamba", "paligemma",
-                                  "yi", "olmoe")}}
+                                  "yi", "olmoe", "deepseek_experts_m16")}}
                for name in kernels}
     others = {"llama-130m": "llama", "deepseek-v2-lite-16b-3L": "deepseek",
-              "xlstm-350m-12L": "xlstm", "jamba-v0.1-52b-2L": "jamba",
+              "xlstm-350m-2L": "xlstm", "jamba-v0.1-52b-2L": "jamba",
               "paligemma-3b-embedding": "paligemma", "yi-9b-2L": "yi",
-              "olmoe-1b-7b-2L": "olmoe"}
+              "olmoe-1b-7b-2L": "olmoe", A_MAIN_TYPES_ONLY[0]: "deepseek_experts_m16"}
     for model, shape in ([("gpt2-small", b) for b in BUCKETS]
                          + [("llama-130m", b) for b in LLAMA_BUCKETS]
                          + [("deepseek-v2-lite-16b-3L", b) for b in DS_BUCKETS]
-                         + [("xlstm-350m-12L", b) for b in XLSTM_BUCKETS]
+                         + [("xlstm-350m-2L", b) for b in XLSTM_BUCKETS]
                          + [("jamba-v0.1-52b-2L", b) for b in J2_BUCKETS]
                          + [("paligemma-3b-embedding", P_BUCKETS[0])]
                          + [("yi-9b-2L", b) for b in YI_BUCKETS]
-                         + [("olmoe-1b-7b-2L", b) for b in O_BUCKETS]):
+                         + [("olmoe-1b-7b-2L", b) for b in O_BUCKETS]
+                         + [(A_MAIN_TYPES_ONLY[0], b) for b in DS_EXPERTS_M16]):
+        t_row = time.perf_counter()
         layout = rm.split(*shape[1:])
         path = "one-read" if layout.one_read else "two-sweep"
         # every bucket on the one-read path but paligemma's embedding, whose
@@ -598,7 +622,7 @@ def phase_rmnp():
         # at 8 columns (rm.split): it must take the two-sweep path
         check(layout.one_read == (model != "paligemma-3b-embedding"),
               f"rmnp {shape}: split {layout} takes the {path} path")
-        full_checks = math.prod(shape) <= A_FULL_CHECKS_MAX
+        full_checks = math.prod(shape) <= A_FULL_CHECKS_MAX and model not in A_MAIN_TYPES_ONLY
         for vdt, wdt in (combos if full_checks else combos[:1]):
             g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
             v = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(vdt)
@@ -666,6 +690,7 @@ def phase_rmnp():
             torch.cuda.empty_cache()
         if full_checks:
             bitwise.append(dict(rmnp_bitwise(shape, gen, beta, eps), model=model))
+        row_seconds[model] = row_seconds.get(model, 0.0) + time.perf_counter() - t_row
     for name, recs in rows.items():
         emit(f"A_{name}", {"buckets": recs})
     ptxas = kreport.ptxas_lines(build.PTXAS_REPORTS.get("rmnp_update", ""), "rmnp_kernel", "",
@@ -673,7 +698,9 @@ def phase_rmnp():
     check(len(ptxas) == 30, f"rmnp: {len(ptxas)} instantiations in the ptxas report, want 30")
     for key, line in sorted(ptxas.items()):
         print(f"ptxas rmnp_kernel {key}: {line}", flush=True)
-    emit("A_rmnp_bitwise", {"buckets": bitwise, "ptxas": ptxas})
+    # each model's buckets' own seconds (checks and times), the model
+    # axis's expert stacks among them
+    emit("A_rmnp_bitwise", {"buckets": bitwise, "ptxas": ptxas, "seconds_by_model": row_seconds})
     summary.update(rmnp_split_checks(gen, beta, eps, rtol))
     return summary
 
@@ -684,6 +711,10 @@ def phase_rmnp():
 # rows are checked, with the column sums of the whole matrix.
 SPLIT_SHAPES = {"wo": (36, 4096, 2560), "w_out": (36, 9728, 2560)}
 SPLIT_M, SPLIT_RANK = 16, 5
+# MLA's wo at M = 16, checked and timed the same way, each its own row:
+# deepseek-v2-lite-16b's 3-layer cut (M1's; 128 rows a rank) and
+# minicpm3-4b's 62 layers (160 rows a rank)
+MLA_SPLIT_SHAPES = {"deepseek_wo": (3, 2048, 2048), "minicpm3_wo": (62, 2560, 2560)}
 
 
 def rmnp_split_instantiation(mangled):
@@ -716,9 +747,11 @@ def rmnp_split_checks(gen, beta, eps, rtol):
     from repro_torch.launch.roofline import HBM_BW, rmnp_bytes
     t0 = time.perf_counter()
     out = {name: {"max_abs_err": 0.0, "worst_ratio": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                  "bound_ms": 0.0, "shapes": []} for name in ("rmnp_partial", "rmnp_finish")}
+                  "bound_ms": 0.0, "shapes": [], "mla_wo_m16": {}}
+           for name in ("rmnp_partial", "rmnp_finish")}
     rows = []
-    for leaf, shape in SPLIT_SHAPES.items():
+    for leaf, shape in {**SPLIT_SHAPES, **MLA_SPLIT_SHAPES}.items():
+        t_leaf = time.perf_counter()
         L, d_in, d_out = shape
         n = d_in // SPLIT_M
         lo = SPLIT_RANK * n
@@ -761,10 +794,16 @@ def rmnp_split_checks(gen, beta, eps, rtol):
                "plain_ms": time_ms(lambda: rm.rmnp_rownorm_finish_plain(
                    gl, vl, total, wl, sc, beta=beta, eps=eps)),
                "bound_ms": (rmnp_bytes(local, 4, 2, True) + cols) / HBM_BW * 1e3}
-        rec.update(partial=part, finish=fin)
+        rec.update(partial=part, finish=fin, seconds=time.perf_counter() - t_leaf)
         rows.append(rec)
         for name, m in (("rmnp_partial", part), ("rmnp_finish", fin)):
             o = out[name]
+            if leaf in MLA_SPLIT_SHAPES:
+                o["mla_wo_m16"][leaf] = dict(m, shape=list(local))
+                print(f"{name} {leaf} {'x'.join(map(str, local))} (rank {SPLIT_RANK} of "
+                      f"{SPLIT_M}): {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, plain "
+                      f"{m['plain_ms']:.4f} ms, worst ratio {m['worst_ratio']:.3f}", flush=True)
+                continue
             o["max_abs_err"] = max(o["max_abs_err"], m["max_abs_err"])
             o["worst_ratio"] = max(o["worst_ratio"], m["worst_ratio"])
             for k in ("ms", "plain_ms", "bound_ms"):
@@ -858,11 +897,19 @@ def attention_inputs(gen, B, S, H, K, hd, dtype, hdv=None):
 
 
 def local_heads():
+    """(tag, H, K, hd, dtype[, hdv]) of a model rank's heads at M = 16:
+    qwen3-4b's and yi-9b's 2 q on 1 kv at hd 128, phi3-mini's 2 on 2 at hd
+    96, musicgen-large's 2 on 2 at hd 64, fp32 at qwen3's; deepseek-v2-lite's
+    MLA head at (192, 128) (v a strided view) and olmoe-1b-7b's at hd 128,
+    one a rank (minicpm3-4b's 40 heads do not split over 16: every rank runs
+    all of them, the (96, 64) case)."""
     import torch
     return [("local_qwen3_m16", 2, 1, 128, torch.bfloat16),
             ("local_phi3_m16", 2, 2, 96, torch.bfloat16),
             ("local_musicgen_m16", 2, 2, 64, torch.bfloat16),
-            ("local_qwen3_m16_fp32", 2, 1, 128, torch.float32)]
+            ("local_qwen3_m16_fp32", 2, 1, 128, torch.float32),
+            ("local_deepseek_m16", 1, 1, 192, torch.bfloat16, 128),
+            ("local_olmoe_m16", 1, 1, 128, torch.bfloat16)]
 
 
 def phase_attention():
@@ -934,9 +981,9 @@ def phase_attention():
     # shape, qwen3-4b's and yi-9b's 2 q heads on 1 kv head at hd 128 (bf16
     # and fp32), phi3-mini's 2 on 2 at hd 96, musicgen-large's 2 on 2 at hd
     # 64, each causal (timed) and not
-    for tag, H, K, hd, dt in LOCAL_HEADS:
-        cases += [(tag, 8, 1024, H, K, hd, dt, True, True),
-                  (f"{tag}_noncausal", 8, 1024, H, K, hd, dt, False, False)]
+    for tag, H, K, hd, dt, *hdv in LOCAL_HEADS:
+        cases += [(tag, 8, 1024, H, K, hd, dt, True, True, *hdv),
+                  (f"{tag}_noncausal", 8, 1024, H, K, hd, dt, False, False, *hdv)]
     cases += [("main_fp32", 8, 1024, 12, 12, 64, fp32, True, True),
               ("main_fp32_noncausal", 8, 1024, 12, 12, 64, fp32, False, False),
               ("gqa_ragged_fp32_noncausal", 2, 1000, 8, 2, 64, fp32, False, False),
@@ -963,6 +1010,7 @@ def phase_attention():
     rtol = {bf16: 2.0 ** -7, fp32: 1e-5}
     rows, inputs = [], {}
     for name, B, S, H, K, hd, dt, causal, timed, *rest in cases:
+        t_case = time.perf_counter()
         hdv = rest[0] if rest else hd
         q, k, v = attention_inputs(gen, B, S, H, K, hd, dt, hdv)
         inputs[name] = (q, k, v, causal)
@@ -1020,6 +1068,7 @@ def phase_attention():
                   + (f", FFMA bound {ffma:.4f} ms" if ffma is not None else "")
                   + f", SDPA {rec['library_ms']} ms, plain {rec['plain_ms']:.4f} ms",
                   flush=True)
+        rec["seconds"] = time.perf_counter() - t_case
         rows.append(rec)
 
     # two launches on the same input give the same bits (no atomics)
@@ -1149,8 +1198,12 @@ def phase_attention():
           and all(d["spill_stores"] == 0 and d["spill_loads"] == 0 and d["hgmma"] > 0
                   for d in fp32_design.values()),
           f"attention: an fp32 flash build spills or lacks HGMMA {fp32_design}")
+    # the model axis's local-head rows' own seconds, causal and not
+    by_case = {r["case"]: r["seconds"] for r in rows}
+    local_s = {tag: by_case[tag] + by_case[f"{tag}_noncausal"] for tag, *_ in LOCAL_HEADS}
     emit("B_attention", {"cases": rows, "noncausal_seeds": stress, "ptxas": ptxas,
-                         "hgmma": hgmma, "bf16_design": design, "fp32_design": fp32_design})
+                         "hgmma": hgmma, "bf16_design": design, "fp32_design": fp32_design,
+                         "local_heads_seconds": local_s})
     del inputs
     torch.cuda.empty_cache()
     return {r["case"]: r for r in rows}
@@ -1417,7 +1470,8 @@ def phase_train():
           f"hidden state: the non-causal control is only {rel_control} from dense, "
           f"less than 10x the tolerance {C3_HIDDEN_TOL}")
     main_launches["flash_attention_fwd"] = counts["flash_attention_fwd"]
-    main_launches.update(train_model_axis())
+    axis_launches = train_model_axis()
+    main_launches.update({k: axis_launches[k] for k in ("rmnp_partial", "rmnp_finish")})
     return main_launches
 
 
@@ -1435,14 +1489,16 @@ def model_axis_world():
     return MODEL_AXIS["world"]
 
 
-def train_model_axis():
+def train_model_axis(tag="C1", cfg=None, want=None):
     """C1's model-axis check: one gpt2-small mixed-RMNP single-pass step at
     full width (bf16, B=8, S=1024) through the model-axis code on the NCCL
     world of one, against the single-rank step (C1's make_train_step) from
     one init and batch, bit for bit: loss, grad norm and every parameter.
     Its row-split buckets (wo, w_out, the embedding) take the RMNP kernel's
     PARTIAL and FINISH modes, the rest the one-pass apply kernel; the
-    launches are counted over the model-axis step alone."""
+    launches are counted over the model-axis step alone. ``tag``, ``cfg``
+    and ``want`` (the launches per kind) run the same check for another
+    model (M1's deepseek cut: M1_model_axis)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import cosine_with_warmup, make_optimizer
@@ -1456,7 +1512,8 @@ def train_model_axis():
 
     t0 = time.perf_counter()
     world = model_axis_world()
-    cfg = get_config("gpt2-small")
+    cfg = cfg or get_config("gpt2-small")
+    want = want or {"rmnp_partial": 3, "rmnp_finish": 3, "rmnp_apply": 2}
     batch = batch_to_device(make_stream(cfg, 1024, 8, seed=0).sample(0), "cuda")
     out, counts = {}, {}
     for run in ("single", "model_axis"):
@@ -1476,26 +1533,27 @@ def train_model_axis():
         counts[run] = dict(LAUNCHES)
         out[run] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                     {p: t for p, t in tree_paths(params)}, sorted(state.buckets))
-        del state
+        del state, params
+        torch.cuda.empty_cache()
     single, axis = out["single"], out["model_axis"]
     differ = [p for p, t in single[2].items() if not torch.equal(t, axis[2][p])]
     launches = counts["model_axis"]
-    rec = {"loss": axis[0], "grad_norm": axis[1], "params_differing": differ,
+    rec = {"config": cfg.name, "layers": cfg.num_layers, "loss": axis[0],
+           "grad_norm": axis[1], "params_differing": differ,
            "loss_equal": single[0] == axis[0], "grad_norm_equal": single[1] == axis[1],
-           "launches": launches, "launches_single": counts["single"],
+           "launches": launches, "launches_single": counts["single"], "launches_want": want,
            "buckets": axis[3], "seconds": time.perf_counter() - t0}
-    emit("C1_model_axis", rec)
+    emit(f"{tag}_model_axis", rec)
     check(not differ and rec["loss_equal"] and rec["grad_norm_equal"],
-          f"C1 model axis: the world-of-one step differs from the single-rank step: "
+          f"{tag} model axis: the world-of-one step differs from the single-rank step: "
           f"loss {single[0]} vs {axis[0]}, grad norm {single[1]} vs {axis[1]}, "
           f"params {differ[:5]}")
-    check(launches["rmnp_partial"] == 3 and launches["rmnp_finish"] == 3
-          and launches["rmnp_apply"] == 2,
-          f"C1 model axis: launches {launches} (want 3 PARTIAL and 3 FINISH for wo, "
-          f"w_out and the embedding, 2 one-pass for the rest)")
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{tag} model axis: launches {launches}, want {want} (PARTIAL and FINISH for "
+          f"the row-split buckets, one-pass for the rest)")
     del out
     torch.cuda.empty_cache()
-    return {"rmnp_partial": launches["rmnp_partial"], "rmnp_finish": launches["rmnp_finish"]}
+    return {k: launches[k] for k in ("rmnp_partial", "rmnp_finish", "rmnp_apply")}
 
 
 def train_flash_fp32(tag, base, steps, record):
@@ -2392,7 +2450,7 @@ def phase_serve(arch, tag):
     # prompt cache
     _, pc = make_prefill_step(dense_cfg)(params, batch)
     cache = place_cache(init_cache(dense_cfg, S_BATCH, S_PROMPT + S_TOKENS + 1,
-                                   device="cuda"), pc)
+                                   device="cuda"), pc, dense_cfg)
     del pc
     serve_step = make_serve_step(dense_cfg)
     shifted = []
@@ -2445,8 +2503,8 @@ def phase_serve(arch, tag):
     check(s2_control > S_LOGIT_TOL,
           f"{tag}2: decoding at pos + 1 is only {s2_control} from the forced forward, inside "
           f"the tolerance {S_LOGIT_TOL}")
-    if tag == "S":
-        serve_model_axis(base, params, prompts)
+    if tag in ("S", "N"):
+        serve_model_axis(base, params, prompts, tag)
     del params, res, last
     torch.cuda.empty_cache()
     return serve_launches
@@ -2455,12 +2513,16 @@ def phase_serve(arch, tag):
 S_AXIS_TOKENS = 4
 
 
-def serve_model_axis(base, params, prompts):
+def serve_model_axis(base, params, prompts, tag="S"):
     """S's model-axis check: qwen3-4b at full width, the flash prefill and
     three decode steps (launch/serve.generate, S_AXIS_TOKENS tokens) through
     the model-axis code on the NCCL world of one against the single-rank
     code from the same parameters and prompts, bit for bit (every logit and
-    token); the model-axis run's peak memory is phase V's V4 window."""
+    token), one flash launch a layer; the model-axis run's peak memory is
+    phase V's V4 window. N, M2 and O run it on the model they serve
+    (``tag``): minicpm3-4b (MLA, every head on every rank at M = 16),
+    deepseek-v2-lite-16b (MLA at head-aligned columns, MoE over ``expert``)
+    and olmoe-1b-7b (GQA with qk_norm, MoE)."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import generate
@@ -2479,17 +2541,17 @@ def serve_model_axis(base, params, prompts):
     equal = (torch.equal(single["tokens"], axis["tokens"])
              and all(torch.equal(a, b) for a, b in zip(single["logits"], axis["logits"],
                                                       strict=True)))
-    rec = {"tokens": S_AXIS_TOKENS, "bitwise_equal": equal,
+    rec = {"config": base.name, "tokens": S_AXIS_TOKENS, "bitwise_equal": equal,
            "flash_launches": axis["flash_launches"], "prefill_ms": axis["prefill_ms"],
            "decode_ms": axis["decode_ms"], "peak_mem_gb": axis["peak_bytes"] / 2**30,
            "held_at_reset_gb": axis["held_bytes"] / 2**30,
            "single_prefill_ms": single["prefill_ms"], "single_decode_ms": single["decode_ms"],
            "seconds": time.perf_counter() - t0}
-    emit("S_model_axis", rec)
-    check(equal, "S model axis: the world-of-one prefill and decode differ from the "
-                 "single-rank code")
+    emit(f"{tag}_model_axis", rec)
+    check(equal, f"{tag} model axis: the world-of-one prefill and decode differ from the "
+                 f"single-rank code")
     check(axis["flash_launches"] == base.num_layers,
-          f"S model axis: {axis['flash_launches']} flash launches, want {base.num_layers}")
+          f"{tag} model axis: {axis['flash_launches']} flash launches, want {base.num_layers}")
     del res
 
 
@@ -2556,6 +2618,13 @@ M_CONTROL_FACTOR = 4.0
 # serves deepseek (16 layers, H = K = 16 at hd 128 with qk_norm, 64 experts
 # top-8) and O2 trains it cut. Both cuts keep layers CUT_LAYERS.
 Y_ARCH, O_ARCH, CUT_LAYERS = "yi-9b", "olmoe-1b-7b", "0:2"
+
+
+# M1_model_axis: one step of M1's cut through the model-axis code on the
+# world of one; its 13 buckets, 4 of them row-split (MLA's wo, the dense
+# layer's w_out, the shared experts' w_out_shared, the embedding: PARTIAL
+# and FINISH), the other 9 one pass each, the expert stacks among them
+M1_AXIS_LAUNCHES = {"rmnp_partial": 4, "rmnp_finish": 4, "rmnp_apply": 9}
 
 
 def m1_config():
@@ -2695,9 +2764,11 @@ def phase_mla_train():
     launches each, tokens/s and peak memory; a second run from the same seed
     equals the first bit for bit after 2 steps; the per-leaf engine equals
     the single-pass one bit for bit on the expert stacks."""
-    return train_cut("M1", "M1_train_deepseek_3_layers", m1_config(), DS_BUCKETS,
-                     f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE units), "
-                     f"full width")
+    out = train_cut("M1", "M1_train_deepseek_3_layers", m1_config(), DS_BUCKETS,
+                    f"{M_ARCH} cut to {M1_LAYERS} layers (dense prefix + 2 MoE units), "
+                    f"full width")
+    out["model_axis"] = train_model_axis("M1", m1_config(), M1_AXIS_LAUNCHES)
+    return out
 
 
 # Phase V: a predicted peak within this share of the measured one
@@ -3051,7 +3122,7 @@ def serve_moe(arch, tag, record_name, n_params_want, control_factor=M_CONTROL_FA
         with routing(moe, replay=iter(prompt_ids)):
             _, pc = make_prefill_step(dense_cfg)(params, batch)
         cache = place_cache(init_cache(dense_cfg, M_BATCH, M_PROMPT + M_FORCED + 2,
-                                       device="cuda"), pc)
+                                       device="cuda"), pc, dense_cfg)
         del pc
         out = []
         for i in range(M_FORCED):
@@ -3117,7 +3188,9 @@ def serve_moe(arch, tag, record_name, n_params_want, control_factor=M_CONTROL_FA
             check(c >= reading_factor * reading,
                   f"{tag}: the control ({name}) is only {c} away, less than "
                   f"{reading_factor}x the reading it controls ({reading})")
-    del params, res, cseqs
+    del res, cseqs
+    serve_model_axis(base, params, prompts, tag)
+    del params
     torch.cuda.empty_cache()
     return serve_launches
 
@@ -3151,10 +3224,10 @@ def phase_olmoe_serve():
 # mamba layer with the MoE FFN, then the GQA layer with its dense FFN).
 X_ARCH = "xlstm-350m"
 X_BATCH, X_SEQ, X1_STEPS = 8, 1024, 2
-# X1 trains xlstm-350m cut in depth: each step of its 24 layers takes ~22 s
-# of host-bound sLSTM loop on an H100, 230 s of the script's time limit for
-# the whole phase (PERF.md); X2 serves it whole
-X1_LAYERS = "0:12"
+# X1 trains xlstm-350m cut in depth: each step takes ~2.2 s a layer of
+# host-bound sLSTM loop on an H100 (13.2 s at 12 layers, 145.5 s of the
+# script for the phase on a slow host, PERF.md); X2 serves it whole
+X1_LAYERS = "0:2"
 # X2 decodes F tokens against a forced forward over T + F = 1152, a multiple
 # of the mLSTM chunk (128), so the forward runs the prefill's chunked scan
 X_PROMPT, X_TOKENS, X_FORCED = 1024, 128, 128
@@ -3295,40 +3368,54 @@ def ssm_train(arch, layers, steps, batch, seq, n_buckets, tag):
     return rec, launches, params, cfg
 
 
+def first_mixer(cfg, params, kind):
+    """The mixer parameters of the first layer of ``kind`` in ``cfg``'s
+    pattern: a prefix layer's, or slice 0 of its place in the stacked unit
+    (``models/model.plan_stack``: xlstm's layers 0:2 are an mLSTM prefix
+    and one sLSTM unit; 0:12, 6 units of both)."""
+    from repro_torch.models.model import plan_stack
+    q, p, _ = plan_stack(cfg.pattern)
+    i = next(i for i, (mixer, _) in enumerate(cfg.pattern) if mixer == kind)
+    if i < q:
+        return params[f"prefix_{i}"]["mixer"]
+    return {k: t[0] for k, t in params["stack"][f"layer_{(i - q) % p}"]["mixer"].items()}
+
+
 def phase_xlstm_train():
-    """X1: xlstm-350m cut to layers 0:12 at full width (6 layers each of
-    alternating mLSTM and sLSTM, d = 1024, 4 heads, untied, bf16,
-    285,891,632 parameters) trained with single-pass RMNP through
+    """X1: xlstm-350m cut to layers 0:2 at full width (one mLSTM and one
+    sLSTM layer, d = 1024, 4 heads, untied, bf16,
+    133,720,072 parameters) trained with single-pass RMNP through
     launch.train.train (B=8, S=1024, seed 0): 2 timed steps with 7 apply
     launches each, tokens/s and peak
     memory; a second run equals the first bit for bit after its 2 steps;
     one more step under the profiler (device ops a step, idle share); and
     one sLSTM and one mLSTM layer alone at the step's shapes, forward,
     recompute and backward as the unit's checkpoint runs them: their device
-    ops, 6 times over, against the step's give the share of the
-    (host-bound) step that the sLSTM layers' loop over time takes."""
+    ops, times the layers of each kind, against the step's give the share
+    of the (host-bound) step that the sLSTM layers' loop over time takes."""
     import torch
     from torch.utils.checkpoint import checkpoint
     from repro_torch.models import ssm
 
     rec, launches, params, cfg = ssm_train(X_ARCH, X1_LAYERS, X1_STEPS, X_BATCH, X_SEQ,
                                            len(XLSTM_BUCKETS), "X1")
-    check(rec["params"] == 285_891_632, f"X1: {rec['params']} parameters")
+    check(rec["params"] == 133_720_072, f"X1: {rec['params']} parameters")
     check(sorted(rec["buckets"]) == sorted(f"{a}x{b}" for _, a, b in XLSTM_BUCKETS),
           f"X1 buckets {rec['buckets']}")
     # one layer of each kind alone at the step's shapes, as the unit's
     # checkpoint runs it (forward, recompute, backward): its device ops under
     # the profiler and its time on the host clock (2 runs, after the
     # profiled one). The step is host-bound, so the layers' share of its
-    # device ops is their share of its time; 6 layers of each kind.
+    # device ops is their share of its time (cfg.num_layers // 2 layers of
+    # each kind).
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((X_BATCH, X_SEQ, cfg.d_model), generator=gen, device="cuda").to(
         torch.bfloat16)
     ct = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
     alone = {}
-    for name, j, apply in (("slstm", 1, ssm.slstm_apply), ("mlstm", 0, ssm.mlstm_apply)):
-        p = {k: t[0].detach().clone().requires_grad_(True)
-             for k, t in params["stack"][f"layer_{j}"]["mixer"].items()}
+    for name, apply in (("slstm", ssm.slstm_apply), ("mlstm", ssm.mlstm_apply)):
+        p = {k: t.detach().clone().requires_grad_(True)
+             for k, t in first_mixer(cfg, params, name).items()}
         xin = x.clone().requires_grad_(True)
 
         def layer(p=p, xin=xin, apply=apply):
@@ -3498,7 +3585,7 @@ def phase_xlstm_serve():
 
     prof_prefill = device_profile(run_prefill)
     cache = place_cache(init_cache(base, X_BATCH, X_PROMPT + 16, device="cuda"),
-                        state.pop("pc"))
+                        state.pop("pc"), base)
     tok = torch.argmax(state.pop("last")[:, :base.vocab], -1).to(torch.int32)[:, None]
 
     def run_decode():
@@ -3669,7 +3756,7 @@ def phase_jamba_serve():
             prompt_ids = [r[:, :J_PROMPT].reshape(1, J_BATCH * J_PROMPT, -1) for r in by_pos]
             with routing(moe, replay=iter(prompt_ids)):
                 _, pc = make_prefill_step(dense_cfg)(params, batch)
-            cache = place_cache(cache, pc)
+            cache = place_cache(cache, pc, dense_cfg)
             del pc
         out = []
         for i in range(J_FORCED):
@@ -3694,7 +3781,7 @@ def phase_jamba_serve():
 
     prof_prefill = device_profile(run_prefill)
     cache = place_cache(init_cache(flash, J_BATCH, J_PROMPT + 16, device="cuda"),
-                        state.pop("pc"))
+                        state.pop("pc"), flash)
     tok = torch.argmax(state.pop("last")[:, :base.vocab], -1).to(torch.int32)[:, None]
 
     def run_decode():
@@ -3881,7 +3968,7 @@ def frontend_serve(arch, tag):
     p2 = rel(got, want)
     _, pc = make_prefill_step(dense_cfg)(params, prompt)
     cache = place_cache(init_cache(dense_cfg, F_BATCH, F_PROMPT + F_TOKENS + 1,
-                                   device="cuda"), pc)
+                                   device="cuda"), pc, dense_cfg)
     del pc
     serve_step = make_serve_step(dense_cfg)
     shifted = []
@@ -4163,6 +4250,41 @@ def step_seconds(hist):
 
 def phase_resilience():
     """R: checkpointing and the guard on llama-130m at full width."""
+    import shutil
+    import torch
+
+    work = ROOT / "build" / "phase_r"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kw = dict(reduced=False, optimizer="rmnp", fused=True, fused_apply=True, use_kernel=True,
+              batch=R_BATCH, seq=R_SEQ, steps=R_STEPS, log_every=1, seed=0)
+    n_buckets = len(LLAMA_BUCKETS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # R2's crash run, SIGKILL with an async save in flight, in a process of
+    # its own: it shares nothing with R1 and R2's stop and resume, and runs
+    # beside them
+    kill_dir = work / "kill"
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.train import train; "
+            f"train({R_ARCH!r}, reduced=False, optimizer='rmnp', fused=True, fused_apply=True, "
+            f"batch={R_BATCH}, seq={R_SEQ}, steps={R_STEPS}, log_every=1, seed=0, "
+            "ckpt_every=2, kill_at=4, ckpt_dir=sys.argv[1])")
+    t0 = time.time()
+    with open(work / "kill_stdout.txt", "w") as out, open(work / "kill_stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(kill_dir)], cwd=ROOT,
+                                stdout=out, stderr=err)
+    try:
+        return resilience_checks(work, kw, n_buckets, kill_dir, proc, t0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def resilience_checks(work, kw, n_buckets, kill_dir, proc, t0):
+    """R1-R5 (phase_resilience), with R2's crash run ``proc``, started at
+    ``t0``, under way."""
     import os
     import shutil
     import warnings
@@ -4176,15 +4298,6 @@ def phase_resilience():
     from repro_torch.launch.train import batch_to_device, train
     from repro_torch.models import init_params
     from repro_torch.train.step import make_train_step
-
-    work = ROOT / "build" / "phase_r"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    kw = dict(reduced=False, optimizer="rmnp", fused=True, fused_apply=True, use_kernel=True,
-              batch=R_BATCH, seq=R_SEQ, steps=R_STEPS, log_every=1, seed=0)
-    n_buckets = len(LLAMA_BUCKETS)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
 
     # R1: two uninterrupted runs from one init (the seed, on the card)
     reset_launches()
@@ -4222,16 +4335,9 @@ def phase_resilience():
     p, s, hr = train(R_ARCH, ckpt_dir=str(stop_dir), ckpt_every=3, **kw)
     diff_stop = differing(ref, host_copy((p, s)))
     del p, s
-    kill_dir = work / "kill"
-    code = ("import sys; sys.path.insert(0, 'src'); "
-            "from repro_torch.launch.train import train; "
-            f"train({R_ARCH!r}, reduced=False, optimizer='rmnp', fused=True, fused_apply=True, "
-            f"batch={R_BATCH}, seq={R_SEQ}, steps={R_STEPS}, log_every=1, seed=0, "
-            "ckpt_every=2, kill_at=4, ckpt_dir=sys.argv[1])")
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-c", code, str(kill_dir)], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    kill_s = time.time() - t0
+    proc.wait(timeout=600)
+    kill_s = time.time() - t0   # until its end is read
+    stdout, stderr = ((work / f"kill_{n}.txt").read_text() for n in ("stdout", "stderr"))
     committed = sorted(int(d.name.split("_")[1]) for d in kill_dir.glob("step_*")
                        if (d / "COMMITTED").exists())
     torn = sorted(d.name for d in kill_dir.glob(".tmp_step_*"))
@@ -4250,8 +4356,8 @@ def phase_resilience():
         "restart_warnings": [str(w.message)[:200] for w in caught]})
     check(not diff_stop, f"stop/resume differs from the uninterrupted run in {diff_stop[:5]}")
     check(proc.returncode == -9, f"kill_at: return code {proc.returncode}, "
-                                 f"stderr {proc.stderr[-2000:]}")
-    check("SIGKILL at step 4" in proc.stdout, "kill_at: the process did not reach step 4")
+                                 f"stderr {stderr[-2000:]}")
+    check("SIGKILL at step 4" in stdout, "kill_at: the process did not reach step 4")
     check(4 not in committed and committed and committed[-1] == 2,
           f"kill_at: committed steps {committed}; the step-4 save should be in flight")
     check(hk and hk[0]["step"] == committed[-1], f"kill restart resumed at {hk[:1]}")
@@ -4457,7 +4563,7 @@ def main():
          "deepseek_3_layers": rmnp["rmnp_apply"]["deepseek"],
          "launches_M1": m1["rmnp_apply"],
          "M1_optimizer_share": rmnp["rmnp_apply"]["deepseek"]["ms"] / 1e3 / m1["step_s"],
-         # xlstm-350m cut to 12 layers (7 buckets) and jamba cut to layers
+         # xlstm-350m cut to 2 layers (7 buckets) and jamba cut to layers
          # 3-4 (10 buckets): phase A's sums and the apply launches of X1's
          # and J2's first runs
          "xlstm_350m": rmnp["rmnp_apply"]["xlstm"], "launches_X1": x1["rmnp_apply"],
@@ -4474,17 +4580,25 @@ def main():
          "yi_9b_2_layers": rmnp["rmnp_apply"]["yi"], "launches_Y2": y2["rmnp_apply"],
          "Y2_optimizer_share": rmnp["rmnp_apply"]["yi"]["ms"] / 1e3 / y2["step_s"],
          "olmoe_2_layers": rmnp["rmnp_apply"]["olmoe"], "launches_O2": o2["rmnp_apply"],
-         "O2_optimizer_share": rmnp["rmnp_apply"]["olmoe"]["ms"] / 1e3 / o2["step_s"]},
+         "O2_optimizer_share": rmnp["rmnp_apply"]["olmoe"]["ms"] / 1e3 / o2["step_s"],
+         # the model axis at M = 16: a rank's deepseek expert stacks (26 MoE
+         # layers x 4 experts, w_in and w_out; phase A) and the one-pass
+         # launches of M1's model-axis step
+         "deepseek_experts_m16": rmnp["rmnp_apply"]["deepseek_experts_m16"],
+         "launches_M1_model_axis": m1["model_axis"]["rmnp_apply"]},
         {"name": "rmnp_precondition", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/rmnp_update.py:63",
          "launches": launches["rmnp_precondition"], **rmnp["rmnp_precondition"],
          "bound_by": "bytes", "library_ms": None},
         # the model axis's column split of the same pass (rows of d_in over
         # the model group): PARTIAL and FINISH, launches on C1's model-axis
-        # step, times at qwen3-4b's wo and w_out shards at M = 16 (phase A)
+        # step (and M1's), times at qwen3-4b's wo and w_out shards at M = 16
+        # and, apart (mla_wo_m16), at deepseek's and minicpm3-4b's MLA wo
+        # (phase A)
         *({"name": name, "route": "cuda", "source": src,
            "replaces": "src/repro/kernels/rmnp_update.py:129",
-           "launches": launches[name], **rmnp[name], "bound_by": "bytes", "library_ms": None}
+           "launches": launches[name], **rmnp[name], "bound_by": "bytes", "library_ms": None,
+           "launches_M1_model_axis": m1["model_axis"][name]}
           for name in ("rmnp_partial", "rmnp_finish")),
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
@@ -4542,6 +4656,9 @@ def main():
             for key, case, pair in (("hd96", "phi3_hd96", "96_96"),
                                     ("hd96_hdv64", "minicpm3_mla", "96_64"))},
          "launches_H": h_launches, "launches_N": n_launches,
+         # the model-axis checks' served prefills on the world of one
+         "launches_model_axis": {tag: RESULTS[f"{tag}_model_axis"]["flash_launches"]
+                                 for tag in ("S", "N", "M2", "O")},
          # every bf16 build's registers, spill bytes and setmaxnreg/HGMMA
          # instructions (phase B: no spill, USETMAXREG beside HGMMA)
          "bf16_builds": RESULTS["B_attention"]["bf16_design"],
@@ -4550,9 +4667,10 @@ def main():
          "launches_J1": j1_launches,
          # the model axis at M = 16: a rank's heads at the full models'
          # prefill shape (qwen3-4b's and yi-9b's 2 on 1 at hd 128, phi3-mini's
-         # 2 on 2 at hd 96, musicgen-large's 2 on 2 at hd 64; fp32 at qwen3's)
+         # 2 on 2 at hd 96, musicgen-large's 2 on 2 at hd 64; fp32 at qwen3's;
+         # deepseek's one MLA head at (192, 128), olmoe's one at hd 128)
          "local_heads_m16": {tag: {k: attn_cases[tag][k] for k in (
-             "H", "K", "hd", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "H", "K", "hd", "hdv", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err", "worst_ratio")} for tag, *_ in local_heads()},
          # the fp32 kernel (csrc/flash_attention_fwd_tf32.cu): launches on
          # C3f, and per timed shape its time, plain and SDPA times and its

@@ -56,7 +56,7 @@ def main(argv=None):
     logits, pc = prefill(params, {"tokens": prompts})
 
     # place the prompt cache into a full-length decode cache
-    cache = place_cache(init_cache(cfg, B, S_max, device=device), pc)
+    cache = place_cache(init_cache(cfg, B, S_max, device=device), pc, cfg)
     del pc
     tok = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
 

@@ -147,7 +147,8 @@ def shard_leaf(x: torch.Tensor, names: Sequence[LogicalAxis], world, rank: int,
                fused_halves: bool = False) -> torch.Tensor:
     """Model rank ``rank``'s shard of the whole tensor ``x`` (a copy; ``x``
     itself where the rules split nothing).
-    ``fused_halves`` marks the dense FFN's fused ``[gate; up]`` columns:
+    ``fused_halves`` marks a fused ``[gate; up]`` pair of columns (the
+    dense FFN's ``w_in``, the shared experts' ``w_in_shared``):
     rank r holds ``[gate_r; up_r]``, the r-th span of each half, where a
     plain cut would give rank 0 only gate columns."""
     dim = model_dim(tuple(x.shape), names, world)

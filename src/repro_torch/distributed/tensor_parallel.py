@@ -38,10 +38,11 @@ vocabulary: the local max and its max all-reduce, the sum of exponentials
 and its all-reduce, the gold logit from the rank that holds it. Every sum
 over ranks is in rank order (``distributed/comm.py``).
 
-The model axis covers GQA attention and the dense FFN (``heads``, ``mlp``,
-``vocab``, ``kv_seq``). A config with another mixer or FFN, a batch-1 cache
-(``long_seq``), or an optimizer other than RMNP and AdamW raises
-``NotImplementedError`` at a model group above one (ROADMAP.md, item 14).
+The model axis covers GQA and MLA attention, the dense FFN and the MoE FFN
+(``heads``, ``mlp``, ``vocab``, ``kv_seq``, ``expert``). A config with an
+SSM mixer (``d_inner``), a batch-1 cache (``long_seq``), or an optimizer
+other than RMNP and AdamW raises ``NotImplementedError`` at a model group
+above one (ROADMAP.md, item 14).
 The optimizer reads the axis of the step as the layers do
 (:func:`optimizer_axis`).
 """
@@ -57,7 +58,10 @@ from repro_torch.distributed import sharding
 
 ITEM = "ROADMAP.md, Queue 1, item 14 (logical-axis sharding over a model axis)"
 # the logical names the port shards over model
-SLICE_NAMES = ("heads", "mlp", "vocab", "kv_seq")
+SLICE_NAMES = ("heads", "mlp", "vocab", "kv_seq", "expert")
+# the mixers and FFNs whose parameters the port computes on over a model group
+MIXERS = ("gqa", "mla")
+FFNS = ("dense", "moe", "none")
 
 _STACK: List[Optional["ModelAxis"]] = []
 
@@ -78,8 +82,8 @@ def current() -> Optional["ModelAxis"]:
 
 class LeafShard(NamedTuple):
     """One parameter on the model axis: its whole and local shapes, the
-    dimension split over the group (None: replicated), and whether it is
-    the dense FFN's fused ``[gate; up]`` projection."""
+    dimension split over the group (None: replicated), and whether its
+    split columns are a fused ``[gate; up]`` pair (:func:`is_fused_pair`)."""
     whole: Tuple[int, ...]
     local: Tuple[int, ...]
     dim: Optional[int]
@@ -107,9 +111,12 @@ def check_rules(overrides: Optional[Mapping[str, Any]]) -> None:
             f"'model' or to nothing; the rest keep their default ({ITEM})")
 
 
-def is_fused_ffn(path: str) -> bool:
-    parts = path.split("/")
-    return parts[-1] == "w_in" and len(parts) >= 2 and parts[-2] == "ffn"
+def is_fused_pair(names: Sequence, dim: Optional[int]) -> bool:
+    """Whether a leaf named ``names`` and split along ``dim`` holds a fused
+    ``[gate; up]`` pair there: its columns (the last dim) are the split dim
+    and are named ``mlp`` (the dense FFN's ``w_in``, the shared experts'
+    ``w_in_shared``). An expert stack is split along ``expert``, never so."""
+    return dim is not None and dim == len(names) - 1 and names[dim] == "mlp"
 
 
 def leaf_table(cfg, world) -> Dict[str, LeafShard]:
@@ -121,10 +128,10 @@ def leaf_table(cfg, world) -> Dict[str, LeafShard]:
     out: Dict[str, LeafShard] = {}
 
     def visit(path, spec):
+        dim = sharding.model_dim(spec.shape, spec.axes, world, True)
         out[path] = LeafShard(
             tuple(spec.shape), sharding.local_shape(spec.shape, spec.axes, world, True),
-            sharding.model_dim(spec.shape, spec.axes, world, True), tuple(spec.axes),
-            is_fused_ffn(path))
+            dim, tuple(spec.axes), is_fused_pair(spec.axes, dim))
         return spec
 
     specs = build_param_specs(cfg)
@@ -140,13 +147,13 @@ def check_supported(cfg, size: int) -> None:
     its shape is cut: ``distributed/sharding.model_dim``.)"""
     if size <= 1:
         return
-    mixers = {m for m, _ in cfg.pattern}
-    ffns = {f for _, f in cfg.pattern}
+    mixers = {m for m, _ in cfg.pattern} - set(MIXERS)
+    ffns = {f for _, f in cfg.pattern} - set(FFNS)
     why = []
-    if mixers - {"gqa"}:
-        why.append(f"mixers {sorted(mixers - {'gqa'})}")
-    if ffns - {"dense", "none"}:
-        why.append(f"FFNs {sorted(ffns - {'dense', 'none'})}")
+    if mixers:
+        why.append(f"mixers {sorted(mixers)}")
+    if ffns:
+        why.append(f"FFNs {sorted(ffns)}")
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(why)} are not sharded over a model group yet "

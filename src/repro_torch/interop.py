@@ -64,11 +64,18 @@ def shard_params(tree, cfg, world, rank: int, device="cpu"):
     ``launch/mesh.World``): each leaf cut along the dimension the rules map
     to ``model`` (``distributed/sharding.shard_leaf``), the rest copied.
 
-    The dense FFN's fused ``w_in`` (``(d, 2 f)``, JAX's layout ``[gate;
-    up]``, f = d_ff) is permuted: where the group of M divides f, rank r
-    holds columns ``[r f / M, (r + 1) f / M)`` and ``[f + r f / M, f + (r +
-    1) f / M)`` of JAX's layout, ``[gate_r; up_r]``, where a plain cut would
-    give it ``[2 r f / M, 2 (r + 1) f / M)`` (rank 0 only gate columns)."""
+    A fused ``[gate; up]`` pair split over ``mlp`` (the dense FFN's
+    ``w_in``, ``(d, 2 f)`` with f = d_ff, and the shared experts'
+    ``w_in_shared``, f = their width; ``tensor_parallel.is_fused_pair``) is
+    permuted: where the group of M divides f, rank r holds columns ``[r f /
+    M, (r + 1) f / M)`` and ``[f + r f / M, f + (r + 1) f / M)`` of JAX's
+    layout, ``[gate_r; up_r]``, where a plain cut would give it ``[2 r f /
+    M, 2 (r + 1) f / M)`` (rank 0 only gate columns). The routed experts'
+    stacks ``w_in`` and ``w_out`` are cut along ``expert``: rank r holds
+    experts ``[r E / M, (r + 1) E / M)`` of both. MLA's per-head columns
+    (``wq`` or ``wq_b``, ``wkv_b``) and ``wo``'s rows are cut over
+    ``heads``; ``wq_a``, ``q_a_norm``, ``wkv_a``, ``kv_a_norm`` and the
+    router stay whole."""
     from repro_torch.distributed import sharding
     from repro_torch.distributed.tensor_parallel import leaf_table
     table = leaf_table(cfg, world)

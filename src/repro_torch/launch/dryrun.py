@@ -11,15 +11,17 @@ caching allocator would hold it. No kernel is built, no process group is
 made, and nothing touches a device; the card is never asked for, so nothing
 can fall back to the CPU in its place.
 
-**Worlds.** An architecture the model axis covers (GQA attention and dense
-FFNs: ``tensor_parallel.check_supported``) is recorded on the production
-world itself, ``16 x 16`` (data x model, 256 ranks) or ``2 x 16 x 16``:
+**Worlds.** An architecture the model axis covers (GQA and MLA attention,
+dense and MoE FFNs: ``tensor_parallel.check_supported``) is recorded on
+the production world itself, ``16 x 16`` (data x model, 256 ranks) or ``2 x 16 x 16``:
 the rank holds its shards of the parameters, state and cache by the
 logical-axis rules, computes its part of the step with the model group's
 collectives, and runs ZeRO-2 over its data group; the record's
 ``collectives_by_group`` keeps the two groups apart. Any other architecture
-keeps the data axes alone (16 or 32 ranks of whole parameters), its record
-``"model_parallel": 1`` with a ``reason`` that names ROADMAP item 14.
+(the SSM archs, jamba and xlstm, whose ``d_inner`` the model axis does not
+split yet) keeps the data axes alone (16 or 32 ranks of whole parameters),
+its record ``"model_parallel": 1`` with a ``reason`` that names ROADMAP
+item 14.
 
 Per cell:
 

@@ -54,23 +54,32 @@ def place(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
-def place_cache(full, prompt_cache, world=None, prompt_len: Optional[int] = None,
+def place_cache(full, prompt_cache, cfg, world=None, prompt_len: Optional[int] = None,
                 cache_len: Optional[int] = None):
     """The prompt's cache in positions ``[0, T)`` of ``full``. On a
     ``world`` (a ``distributed.comm.WorldComm``) with a model group above
     one, each rank holds its span of both where the rules split ``kv_seq``:
     the prompt cache's spans (of ``prompt_len`` positions) are gathered
     over the group and each rank writes the prompt positions that fall in
-    its span of ``full`` (of ``cache_len``)."""
+    its span of ``full`` (of ``cache_len``). The positions' dimension of
+    each leaf is the one its spec names ``kv_seq`` (``cfg``'s
+    ``build_cache_specs``): GQA's k and v hold it third from last, MLA's
+    latent ``ckv`` and ``k_rope`` second from last."""
     if world is None or world.model.world == 1:
         return map_with_path(lambda _path, dst, src: place(dst, src), full, prompt_cache)
     from repro_torch.distributed.tensor_parallel import ModelAxis
+    from repro_torch.models.model import build_cache_specs
     axis = ModelAxis(world.model, world.mesh)
     M, r = axis.size, axis.rank
     first = r * (cache_len // M) if axis.splits("kv_seq", cache_len) else 0
+    # the leaves' names, the same at every batch above one (a stacked leaf
+    # leads with its units, so the batch is not dim 0 of every leaf; a
+    # batch of one names its positions long_seq, which a model group does
+    # not split yet: init_cache raises for it)
+    specs = build_cache_specs(cfg, 2, cache_len)
 
-    def place_span(_path, dst, src):
-        seq = dst.ndim - 3   # GQA k/v: (B, S, K, hd), (n_units, B, S, K, hd) in a stack
+    def place_span(_path, spec, dst, src):
+        seq = list(spec.axes).index("kv_seq")
         if axis.splits("kv_seq", prompt_len):
             src = world.model.all_gather_dim(src, seq)
         n = max(0, min(prompt_len - first, dst.shape[seq]))
@@ -78,7 +87,7 @@ def place_cache(full, prompt_cache, world=None, prompt_len: Optional[int] = None
             dst.narrow(seq, 0, n).copy_(src.narrow(seq, first, n).to(dst.dtype))
         return dst
 
-    return map_with_path(place_span, full, prompt_cache)
+    return map_with_path(place_span, specs, full, prompt_cache)
 
 
 class _Clock:
@@ -155,7 +164,7 @@ def generate(cfg, params, prompts, tokens: int, *,
     clock.mark()
     cache = place_cache(init_cache(cfg, B, T + tokens, device=device,
                                    world=None if world is None else world.mesh),
-                        prompt_cache, world, T, T + tokens)
+                        prompt_cache, cfg, world, T, T + tokens)
     del prompt_cache
     clock.mark()
     out, logits = [tok], [last] if keep_logits else None

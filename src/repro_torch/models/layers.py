@@ -6,12 +6,13 @@ Shape conventions: activations (B, S, D); per-head tensors (B, S, H, hd); all
 matmul weights stored ``(..., d_in, d_out)`` and applied as ``x @ W``.
 
 The JAX package's ``logical(...)`` sharding annotations become the model
-axis here (``distributed/tensor_parallel.py``): under an axis, GQA
-attention computes its rank's q heads (or, where the group does not divide
+axis here (``distributed/tensor_parallel.py``): under an axis, GQA and MLA
+attention compute their rank's q heads (or, where the group does not divide
 the heads, all of them, as JAX replicates them), the dense FFN its rank's
 ``[gate_r; up_r]`` columns, the row-split ``wo`` and ``w_out`` products are
 summed over the group, and decode attends over the rank's span of a
-``kv_seq``-split cache and merges the spans by log-sum-exp in rank order.
+``kv_seq``-split cache (MLA: of its latent) and merges the spans by
+log-sum-exp in rank order.
 Without one, every layer is the single-rank code.
 """
 from __future__ import annotations
@@ -342,12 +343,46 @@ def _columns(h, h_mp, w, split: bool, part: bool, axis, full: bool):
     """``h @ w`` over a projection whose columns the rules may split: the
     rank's columns (``full=False``, split only) or all of them, gathered
     where split. ``part`` says each rank's gradient of the result is a part
-    of the whole (the computation downstream is split over the group)."""
+    of the whole (the computation downstream is split over the group): the
+    gather's backward then sums the group's gradients, else it takes the
+    rank's span of its whole one. ``h_mp`` is ``h`` through
+    ``copy_to_model`` wherever a split projection's gradient reaches it."""
     if split:
         y = h_mp @ w
-        return tp.gather_from_model(y, axis, -1, "sum") if full else y
+        return tp.gather_from_model(y, axis, -1, "sum" if part else "slice") if full else y
     y = h @ w
     return tp.copy_to_model(y, axis) if part else y
+
+
+def _rows_out(out, wo, split: bool, axis):
+    """``out @ wo`` where the rules may split ``wo``'s rows over the group:
+    each rank multiplies its rows by its span of ``out`` (all of ``out``
+    where ``out`` holds the rank's own heads only) and the group sums."""
+    if not split:
+        return out @ wo
+    c = wo.shape[0]
+    if out.shape[-1] != c:   # every head on every rank: the rank's span
+        out = out[..., axis.rank * c:(axis.rank + 1) * c]
+    return tp.reduce_from_model(out @ wo, axis)
+
+
+def _splits(axis, name: str, dim: int) -> bool:
+    """Whether ``axis`` (None: no model axis) splits a dimension of ``dim``
+    named ``name``."""
+    return axis is not None and axis.splits(name, dim)
+
+
+def _decode_span(axis, cache, S: int, pos: int):
+    """(the rank's first position, split) of a decode step over ``cache``,
+    a leaf of the rank's decode cache whose dim 1 holds its positions (a
+    span of them where the rules split ``kv_seq``; all of them with no
+    ``axis``)."""
+    span = cache.shape[1]
+    total = span if axis is None else axis.cache_len(span)
+    if not 0 <= pos <= total - S:
+        raise ValueError(f"decode position {pos} outside the cache's {total} positions")
+    split = span != total
+    return axis.rank * span if split else 0, split
 
 
 def _kv_index(h0: int, h1: int, G: int):
@@ -421,11 +456,7 @@ def _gqa_apply_axis(cfg, p, x, positions, mode, cache, pos, axis):
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
         span = kc.shape[1]
-        total = axis.cache_len(span)
-        seq_split = span != total
-        if not 0 <= pos <= total - S:
-            raise ValueError(f"decode position {pos} outside the cache's {total} positions")
-        first = r * span if seq_split else 0
+        first, seq_split = _decode_span(axis, kc, S, pos)
         if first <= pos < first + span:
             kc[:, pos - first:pos - first + S] = k.to(kc.dtype)
             vc[:, pos - first:pos - first + S] = v.to(vc.dtype)
@@ -451,14 +482,8 @@ def _gqa_apply_axis(cfg, p, x, positions, mode, cache, pos, axis):
                 n = S // M
                 k_all, v_all = k_all[:, r * n:(r + 1) * n], v_all[:, r * n:(r + 1) * n]
             new_cache = {"k": k_all.to(x.dtype).contiguous(), "v": v_all.to(x.dtype).contiguous()}
-    Hc = out.shape[2]
-    out = out.reshape(B, S, Hc * hd)
-    if not q_split:
-        return out @ p["wo"], new_cache
-    if Hc == H:   # every head on every rank: this rank's rows of wo read its span
-        c = H * hd // M
-        out = out[..., r * c:(r + 1) * c]
-    return tp.reduce_from_model(out @ p["wo"], axis), new_cache
+    out = out.reshape(B, S, out.shape[2] * hd)
+    return _rows_out(out, p["wo"], q_split, axis), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -493,35 +518,42 @@ def mla_cache_specs(cfg: ModelConfig, batch: int, seq: int):
     }
 
 
-def _mla_qkv(cfg, p, h, positions):
-    """(q_nope, q_rope, ckv, k_rope): the per-head query split at the RoPE
-    part, and the normalised latent with its one shared RoPE key."""
-    B, S, _ = h.shape
+def _mla_q_in(cfg, p, h):
+    """What the per-head query projection reads: the normalised low-rank
+    query where the config has one (``q_lora_rank``), else ``h``; and that
+    projection's weight."""
+    if cfg.mla.q_lora_rank:
+        return rms_norm(h @ p["wq_a"], p["q_a_norm"], cfg.rms_eps), p["wq_b"]
+    return h, p["wq"]
+
+
+def _mla_rope_q(cfg, q, positions):
+    """Per-head queries (B, S, Hc, nope + rope) with RoPE on their rope part."""
     m = cfg.mla
-    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
-    if m.q_lora_rank:
-        q = rms_norm(h @ p["wq_a"], p["q_a_norm"], cfg.rms_eps) @ p["wq_b"]
-    else:
-        q = h @ p["wq"]
-    q = q.reshape(B, S, cfg.n_heads, qk_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_latent(cfg, p, h, positions):
+    """(ckv, k_rope): the normalised latent (B, S, r) and its one shared
+    RoPE key (B, S, rope)."""
+    m = cfg.mla
     ckv, k_rope = torch.split(h @ p["wkv_a"], [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     ckv = rms_norm(ckv, p["kv_a_norm"], cfg.rms_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
-    return q_nope, q_rope, ckv, k_rope
+    return ckv, k_rope
 
 
-def _mla_expand_kv(cfg, p, ckv, k_rope):
-    """The latent (B, S, r) and RoPE key (B, S, rope) -> per-head k (B, S, H,
-    nope + rope), contiguous, and v (B, S, H, v_head_dim), a strided view
-    into the up-projection's output (the flash kernel reads it in place)."""
-    B, S, _ = ckv.shape
-    H = cfg.n_heads
+def _mla_kv(cfg, kv, k_rope):
+    """The latent's up-projection ``kv`` (B, S, Hc (nope + v)) and the RoPE
+    key (B, S, rope) -> per-head k (B, S, Hc, nope + rope), contiguous, and
+    v (B, S, Hc, v_head_dim), a strided view into ``kv`` (the flash kernel
+    reads it in place)."""
+    B, S, _ = kv.shape
     m = cfg.mla
-    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    kv = kv.reshape(B, S, -1, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
-    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, kv.shape[2], m.qk_rope_head_dim)
     return torch.cat([k_nope, k_rope_b], dim=-1), v
 
 
@@ -532,31 +564,73 @@ def mla_apply(cfg: ModelConfig, p, x, positions, mode: str, cache=None, pos=None
     rope, v head dim ``v_head_dim``); new_cache holds the latent ``ckv``
     and ``k_rope`` in ``x.dtype``. decode: x is one token; ``ckv`` and
     ``k_rope`` are written into ``cache`` at ``pos`` in place and the whole
-    cache is expanded to per-head k and v, as in the JAX package."""
+    cache is expanded to per-head k and v, as in the JAX package.
+
+    On the model axis (``tp.current()``; None splits nothing) storage
+    follows the rules: the per-head projections' columns (``wq`` or
+    ``wq_b``, ``wkv_b``) and ``wo``'s rows over ``heads`` where the group
+    divides them; ``wq_a``, ``wkv_a``, their norms and the latent are
+    replicated. Where the group divides H a rank's columns are exactly its
+    heads: it expands the whole latent for them, attends over them and the
+    group sums ``wo``'s row-split products. Otherwise each rank computes its
+    columns, they are gathered, every head runs on every rank (as JAX
+    replicates them) and the rank's rows of ``wo`` read its span of the
+    output. Each replicated tensor that feeds split work (``h``, the
+    normalised low-rank query, the latent, the RoPE key) enters through
+    ``copy_to_model``, so its gradient is summed over the group and the
+    replicated weights get whole ones. Decode computes every head on every
+    rank over the rank's span of a ``kv_seq``-split latent cache: it
+    expands only that span, with ``wkv_b``'s columns gathered whole, and
+    the spans merge by log-sum-exp in rank order."""
+    axis = tp.current()
     B, S, _ = x.shape
-    m = cfg.mla
+    H, m = cfg.n_heads, cfg.mla
+    train = mode != "decode"
+    q_split = _splits(axis, "heads", H * (m.qk_nope_head_dim + m.qk_rope_head_dim))
+    kv_split = _splits(axis, "heads", H * (m.qk_nope_head_dim + m.v_head_dim))
+    o_split = _splits(axis, "heads", H * m.v_head_dim)
+    heads_split = train and _splits(axis, "heads", H)
+    part = train and (heads_split or o_split)   # the computation downstream is split
+
+    def mp(t, split):   # a replicated tensor entering split work
+        return tp.copy_to_model(t, axis) if train and split else t
+
     h = rms_norm(x, p["norm"], cfg.rms_eps)
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, h, positions)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    q_in, wq = _mla_q_in(cfg, p, h)
+    q = _columns(q_in, mp(q_in, q_split), wq, q_split, part, axis, not heads_split)
+    q = _mla_rope_q(cfg, q.reshape(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                    positions)
+    ckv, k_rope = _mla_latent(cfg, p, h, positions)
 
     new_cache = None
     if mode == "decode":
         ckv_c, kr_c = cache["ckv"], cache["k_rope"]
-        if not 0 <= pos <= ckv_c.shape[1] - S:
-            raise ValueError(f"decode position {pos} outside the cache's "
-                             f"{ckv_c.shape[1]} positions")
-        ckv_c[:, pos:pos + S] = ckv.to(ckv_c.dtype)
-        kr_c[:, pos:pos + S] = k_rope.to(kr_c.dtype)
-        k, v = _mla_expand_kv(cfg, p, ckv_c, kr_c)
-        out = decode_attention(q, k, v, pos)
+        span = ckv_c.shape[1]
+        first, seq_split = _decode_span(axis, ckv_c, S, pos)
+        if first <= pos < first + span:
+            ckv_c[:, pos - first:pos - first + S] = ckv.to(ckv_c.dtype)
+            kr_c[:, pos - first:pos - first + S] = k_rope.to(kr_c.dtype)
+        wkv_b = tp.gather_from_model(p["wkv_b"], axis, -1) if kv_split else p["wkv_b"]
+        k, v = _mla_kv(cfg, ckv_c @ wkv_b, kr_c)
+        if seq_split and axis.size > 1:
+            out = decode_attention_span(q, k, v, pos, first, axis)
+        else:
+            out = decode_attention(q, k, v, pos)
         new_cache = {"ckv": ckv_c, "k_rope": kr_c}
     else:
-        k, v = _mla_expand_kv(cfg, p, ckv, k_rope)
+        kv = _columns(ckv, mp(ckv, kv_split), p["wkv_b"], kv_split, part, axis,
+                      not heads_split)
+        k, v = _mla_kv(cfg, kv, mp(k_rope, part))
         out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
                         chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
         if mode == "prefill":
-            new_cache = {"ckv": ckv.to(x.dtype), "k_rope": k_rope.to(x.dtype)}
-    return out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"], new_cache
+            if _splits(axis, "kv_seq", S):
+                n = S // axis.size
+                ckv, k_rope = (t[:, axis.rank * n:(axis.rank + 1) * n] for t in (ckv, k_rope))
+            new_cache = {"ckv": ckv.to(x.dtype).contiguous(),
+                         "k_rope": k_rope.to(x.dtype).contiguous()}
+    out = out.reshape(B, S, out.shape[2] * m.v_head_dim)
+    return _rows_out(out, p["wo"], o_split, axis), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -574,35 +648,34 @@ def ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSp
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
-    axis = tp.current()
-    if axis is not None:
-        return _ffn_apply_axis(cfg, p, x, axis)
     h = rms_norm(x, p["norm"], cfg.rms_eps)
-    gate, up = torch.chunk(h @ p["w_in"], 2, dim=-1)
+    return swiglu(h, p["w_in"], p["w_out"], cfg.d_ff, _silu_mul, tp.current())
+
+
+def _silu_mul(gate, up):
     # silu as x * sigmoid(x) in the activation dtype, as jax.nn.silu
-    y = gate * torch.sigmoid(gate) * up
-    return y @ p["w_out"]
+    return gate * torch.sigmoid(gate) * up
 
 
-def _ffn_apply_axis(cfg: ModelConfig, p, x, axis):
-    """:func:`ffn_apply` on the model axis: ``w_in`` split over ``mlp``
-    holds ``[gate_r; up_r]`` (``distributed/sharding.shard_leaf``), so each
-    rank forms its span of the hidden units and the row-split ``w_out``
-    products are summed over the group. Where the group divides ``2 d_ff``
-    but not ``d_ff``, the stored columns are a plain cut: they are gathered
-    and the FFN runs whole on every rank beside a replicated ``w_out``."""
-    ff = cfg.d_ff
-    in_split = axis.splits("mlp", 2 * ff)
+def swiglu(h, w_in, w_out, ff: int, act, axis=None):
+    """``act(gate, up) @ w_out`` with ``[gate; up] = h @ w_in``, for a fused
+    ``w_in`` of ``2 ff`` columns and a ``w_out`` of ``ff`` rows named
+    ``mlp`` (the dense FFN, the shared experts). On the model ``axis``,
+    ``w_in`` split over ``mlp`` holds ``[gate_r; up_r]``
+    (``distributed/sharding.shard_leaf``), so each rank forms its span of
+    the hidden units and the row-split ``w_out`` products are summed over
+    the group. Where the group divides ``2 ff`` but not ``ff``, the stored
+    columns are a plain cut: they are gathered and the FFN runs whole on
+    every rank beside a replicated ``w_out``."""
+    if not _splits(axis, "mlp", 2 * ff):
+        gate, up = torch.chunk(h @ w_in, 2, dim=-1)
+        return act(gate, up) @ w_out
     out_split = axis.splits("mlp", ff)
-    h = rms_norm(x, p["norm"], cfg.rms_eps)
-    if not in_split:
-        gate, up = torch.chunk(h @ p["w_in"], 2, dim=-1)
-        return (gate * torch.sigmoid(gate) * up) @ p["w_out"]
-    y = tp.copy_to_model(h, axis) @ p["w_in"]
+    y = tp.copy_to_model(h, axis) @ w_in
     if not out_split:
         y = tp.gather_from_model(y, axis, -1, "slice")
     gate, up = torch.chunk(y, 2, dim=-1)
-    y = gate * torch.sigmoid(gate) * up
+    y = act(gate, up)
     if not out_split:
-        return y @ p["w_out"]
-    return tp.reduce_from_model(y @ p["w_out"], axis)
+        return y @ w_out
+    return tp.reduce_from_model(y @ w_out, axis)

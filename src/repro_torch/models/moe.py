@@ -13,6 +13,20 @@ the card give the same bits. The JAX package scatter-adds instead; for
 K = 2 the two orders give equal sums, and for larger K they differ by the
 rounding of the order (ROADMAP Queue 3). The expert products are
 ``torch.bmm`` / ``torch.einsum``, as the JAX package leaves them to XLA.
+
+On the model axis (``distributed/tensor_parallel.py``) the routed experts
+are split over ``expert`` where the group divides E. Every model rank holds
+the same tokens, so no all-to-all is needed: each rank routes every token
+and computes the same slots, dispatches only into the ``E / M * C`` slots
+of its own experts (a pair of another rank's expert reads the zero row),
+runs its experts, combines its own pairs in k order, and one all-reduce of
+the ``(B S, d)`` output sums the ranks in rank order (the one ``(B, S, d)``
+reduction JAX's expert-side combine leaves to GSPMD). The combine weights
+and the dispatched tokens enter through ``copy_to_model``, so the router
+and ``h`` get whole gradients; the router's own input does not. Where the
+group does not divide E the stacks are replicated and every rank runs every
+expert, with no sum. The shared experts split over ``mlp`` as the dense
+FFN does (``layers.swiglu``).
 """
 from __future__ import annotations
 
@@ -21,7 +35,8 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -156,9 +171,23 @@ def _combine(out_flat, dest, pair_buf, weights, K: int):
     return _sum_k(gathered * weights[..., None].to(gathered.dtype), K)
 
 
-def _dispatch(cfg, p, h, x_dtype, per_row: bool):
+def _local_slots(dest, tok_buf, pair_buf, E: int, C: int, axis):
+    """The slot maps of model rank ``axis.rank``'s experts ``[r E / M, (r +
+    1) E / M)``: its ``E / M * C`` slots of ``tok_buf`` and ``pair_buf``,
+    and ``dest`` in them, a pair of another rank's expert (or a dropped one)
+    at ``E / M * C``, the zero row."""
+    n = E // axis.size * C
+    lo = axis.rank * n
+    mine = (dest >= lo) & (dest < lo + n)
+    dest = torch.where(mine, dest - lo, torch.full_like(dest, n))
+    return dest, tok_buf[:, lo:lo + n], pair_buf[:, lo:lo + n]
+
+
+def _dispatch(cfg, p, h, x_dtype, per_row: bool, axis=None):
     """h: (B, S, d). One capacity buffer over all B*S tokens (``global``),
-    or one per batch row (``per_row``). Returns ((B*S, d), aux)."""
+    or one per batch row (``per_row``). Returns ((B*S, d), aux). With
+    ``axis`` (the model axis, where it splits the experts) the rank runs
+    its experts only and the group sums (module docstring)."""
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     B, S, d = h.shape
@@ -168,8 +197,12 @@ def _dispatch(cfg, p, h, x_dtype, per_row: bool):
     gate_vals, expert_ids, aux = _route(cfg, p, rows)          # (R, N, K)
     dest, keep, tok_buf, pair_buf = _slots(expert_ids, E, C)
     weights = gate_vals.reshape(R, N * K) * keep
+    if axis is not None:
+        dest, tok_buf, pair_buf = _local_slots(dest, tok_buf, pair_buf, E, C, axis)
+        rows, weights = tp.copy_to_model(rows, axis), tp.copy_to_model(weights, axis)
+    El = tok_buf.shape[1] // C
 
-    buf = _ScatterFromTokens.apply(rows, dest, tok_buf, K).reshape(R, E, C, d)
+    buf = _ScatterFromTokens.apply(rows, dest, tok_buf, K).reshape(R, El, C, d)
     if per_row:
         gu = torch.einsum("becd,edf->becf", buf, p["w_in"])
         gate_h, up = torch.chunk(gu, 2, dim=-1)
@@ -180,8 +213,9 @@ def _dispatch(cfg, p, h, x_dtype, per_row: bool):
         gate_h, up = torch.chunk(gu, 2, dim=-1)
         act = (_silu(gate_h.float()) * up.float()).to(x_dtype)
         out = torch.bmm(act, p["w_out"])[None]
-    y = _combine(out.reshape(R, E * C, d), dest, pair_buf, weights, K).to(x_dtype)
-    return y.reshape(B * S, d), aux
+    y = _combine(out.reshape(R, El * C, d), dest, pair_buf, weights, K).to(x_dtype)
+    y = y.reshape(B * S, d)
+    return (y if axis is None else tp.reduce_from_model(y, axis)), aux
 
 
 def moe_apply(cfg: ModelConfig, p, x):
@@ -191,9 +225,11 @@ def moe_apply(cfg: ModelConfig, p, x):
     h = rms_norm(x, p["norm"], cfg.rms_eps)
     if m.dispatch not in ("global", "per_row"):
         raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
-    y, aux = _dispatch(cfg, p, h, x.dtype, m.dispatch == "per_row")
+    axis = tp.current()
+    experts = axis if axis is not None and axis.splits("expert", m.num_experts) else None
+    y, aux = _dispatch(cfg, p, h, x.dtype, m.dispatch == "per_row", experts)
     if m.num_shared:
-        xf = h.reshape(B * S, d)
-        g_s, u_s = torch.chunk(xf @ p["w_in_shared"], 2, dim=-1)
-        y = y + (_silu(g_s.float()) * u_s.float()).to(x.dtype) @ p["w_out_shared"]
+        y = y + swiglu(h.reshape(B * S, d), p["w_in_shared"], p["w_out_shared"],
+                       m.d_ff_expert * m.num_shared,
+                       lambda g_s, u_s: (_silu(g_s.float()) * u_s.float()).to(x.dtype), axis)
     return y.reshape(B, S, d), aux

@@ -78,9 +78,22 @@ def _flat(prefix, tree):
     return {f"{prefix}:{p}": _np(t) for p, t in tree_paths(tree)}
 
 
+def reduced(get_config, arch, overrides):
+    """``get_config(arch).reduced(**overrides)`` (either package's
+    ``get_config``), an override ``moe`` a dict of fields replaced on the
+    reduced config's ``MoEConfig``."""
+    import dataclasses
+    overrides = dict(overrides)
+    moe = overrides.pop("moe", None)
+    cfg = get_config(arch).reduced(**overrides)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
 def _config(arch, overrides):
     from repro_torch.configs import get_config
-    return get_config(arch).reduced(**overrides)
+    return reduced(get_config, arch, overrides)
 
 
 def _whole_params(path):
@@ -132,7 +145,7 @@ def parity(world, out, arch, overrides, params_path, tokens_path, prompt_len):
     res["prefill_logits"] = _np(last)
     res.update(_flat("prefill_cache", cache))
     full = init_cache(cfg, toks.shape[0], S, device="cpu", world=world.mesh)
-    cache = place_cache(full, cache, world, T, S)
+    cache = place_cache(full, cache, cfg, world, T, S)
     decode = make_serve_step(cfg, world, cache_len=S)
     for i, pos in enumerate(range(T, S)):
         _, logits, cache = decode(params, cache, toks[:, pos:pos + 1], pos)
@@ -140,12 +153,12 @@ def parity(world, out, arch, overrides, params_path, tokens_path, prompt_len):
     np.savez(out / f"parity_{world.rank}.npz", **res)
 
 
-def parity_cases(world, out, cases):
-    """:func:`parity` for each ``(directory, arch, overrides, params_path,
-    tokens_path, prompt_len)`` of ``cases`` in turn, on one world."""
+def in_turn(world, out, jobs):
+    """Each ``(scenario, directory, *args)`` of ``jobs`` in turn on one
+    world, writing into its own directory."""
     del out
-    for directory, *args in cases:
-        parity(world, Path(directory), *args)
+    for name, directory, *args in jobs:
+        globals()[name](world, Path(directory), *args)
 
 
 def steps(world, out, arch, overrides, params_path, tokens_path, n_steps, tag):

@@ -23,6 +23,7 @@ from repro_torch.analysis.overlap import collective_overlap_report
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import introspect
 from repro_torch.kernels import rmnp_update as rm
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 class TestFindings:

@@ -53,6 +53,7 @@ from repro_torch.data.pipeline import make_stream
 from repro_torch.distributed import elastic
 from repro_torch.interop import to_numpy, tree_from_numpy
 from repro_torch.train.step import make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS, BATCH, SEQ = 4, 2, 16
 

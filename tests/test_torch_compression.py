@@ -23,6 +23,7 @@ import torch
 import _torch_zero_worker as W
 from repro.distributed import compression as jax_compression
 from repro_torch.distributed import compression
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 4

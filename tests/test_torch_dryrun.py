@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import cost, dryrun, mesh, perf, roofline
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 32  # reduced gpt2-small's serving cells; training takes 8 x 32
@@ -414,6 +415,33 @@ def test_long_500k_on_full_attention_is_skipped_with_the_jax_reason(tmp_path):
     assert rec["status"] == "skipped" and "does not split over 16 ranks" in rec["reason"]
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b"])
+def test_mla_and_moe_archs_record_on_a_model_group(arch):
+    """Reduced MLA and MoE archs record train, prefill and decode as rank
+    (0, 0) of a ``2 x 2`` world: the model group's collectives counted apart
+    from the data group's, the rank's parameters its shards."""
+    cfg = get_config(arch).reduced()
+    w = mesh.make_local_world(2, 2)
+    whole = dryrun.record(cfg, ShapeConfig("tiny_decode", 32, 8, "decode"), 2)
+    for kind in ("train", "prefill", "decode"):
+        rec = dryrun.record(cfg, ShapeConfig(f"tiny_{kind}", 32, 8, kind), 2, jax_world=w)
+        assert rec["status"] == "ok" and rec["model_parallel"] == 2, kind
+        assert rec["collective_wire_bytes_by_group"]["model"] > 0, kind
+        assert rec["cost"]["unclassified_ops"] == {}, kind
+        if kind == "decode":
+            assert rec["memory"]["params_bytes"] < whole["memory"]["params_bytes"]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_ssm_archs_keep_the_data_axes_with_the_reason(arch):
+    world, why = dryrun.production_world(get_config(arch), False)
+    assert (world.size, world.model_parallel) == (16, 1) and "item 14" in why
+    assert "d_inner" in why or "mixers" in why
+    with pytest.raises(NotImplementedError, match="item 14"):
+        dryrun.record(get_config(arch).reduced(), ShapeConfig("tiny_decode", 32, 4, "decode"),
+                      2, jax_world=mesh.make_local_world(2, 2))
+
+
 def test_the_worlds():
     """The production world is the JAX mesh with its model axis (256 or 512
     ranks, 16 a model group); its data axes alone are 16 or 32 ranks; a
@@ -458,7 +486,7 @@ def test_parse_overrides_equals_jax():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         perf.run("gpt2-small", "decode_32k", "t", rules={"embed": "model"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        perf.run("olmoe-1b-7b", "decode_32k", "t", rules={"kv_seq": "model"})
+        perf.run("xlstm-350m", "decode_32k", "t", rules={"kv_seq": "model"})
 
 
 def test_the_clis(tmp_path):

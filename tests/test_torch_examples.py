@@ -41,21 +41,11 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import init_params as jax_init_params
 from repro_torch.interop import tree_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 STEP_LINE = re.compile(r"step\s+(\d+)\s+loss ([\d.]+)\s+grad-norm ([\d.]+)")
 DOM_LINE = re.compile(r"r_avg=([\d.]+) r_min=([\d.]+) r_max=([\d.]+)")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's side runs on one intra-op thread: the reduced models' small
-    ops gain nothing from more, and beside other pytest-xdist workers more
-    threads than cores slowed quickstart from 5 s to 165 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_example(name):

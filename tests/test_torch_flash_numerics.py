@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.ref import chunked_attention_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOG2E = 1.4426950408889634
 NEG = -1e30

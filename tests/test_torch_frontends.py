@@ -53,6 +53,7 @@ from repro_torch.launch.serve import generate, place_cache, prompt_batch
 from repro_torch.models.model import (build_param_specs, forward, init_cache, loss_fn,
                                       plan_stack)
 from repro_torch.train.step import make_prefill_step, make_serve_step, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL_FRAC = 1e-5, 2e-6
 B, S, T, DECODE_STEPS = 2, 32, 16, 4
@@ -207,7 +208,7 @@ def test_prefill_and_decode_match_jax(model):
     assert sorted(got_pc) == sorted(p for p, _ in tree_paths(want_pc))
     for path, w in tree_paths(want_pc):
         _close(got_pc[path], w, f"prompt cache {path}")
-    cache = place_cache(init_cache(cfg, B, T + DECODE_STEPS, device="cpu"), pc)
+    cache = place_cache(init_cache(cfg, B, T + DECODE_STEPS, device="cpu"), pc, cfg)
     serve_step = make_serve_step(cfg)
     for i, (tok_in, want_tok, want_logits) in enumerate(steps):
         tok, logits, cache = serve_step(params, cache, torch.from_numpy(np.array(tok_in)),

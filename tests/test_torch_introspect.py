@@ -55,6 +55,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import rmnp_update as rm
 from repro_torch.launch import roofline, specs
 from repro_torch.train.step import optimizer_fp32_buffers, optimizer_launches
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # tests/test_fused_engine.py's tree: 5 matrix leaves in 3 shape buckets
 RAGGED_SHAPES = {

@@ -10,6 +10,7 @@ import pytest
 
 from _torch_emulation import (
     BF16_FLASH_CASES, _f32, _flash_bf16, _flash_bf16_inputs, flash_bf16, flash_bf16_lib)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES,

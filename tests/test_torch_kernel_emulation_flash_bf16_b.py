@@ -11,6 +11,7 @@ import pytest
 
 from _torch_emulation import (
     _f32, _flash_bf16, _flash_bf16_inputs, flash_bf16, flash_bf16_lib)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_emulated_flash_bf16_two_launches_and_a_contiguous_v_give_identical_bits(flash_bf16):

@@ -10,6 +10,7 @@ import pytest
 from _torch_emulation import (
     _flash, _flash_inputs, _flash_limit, _flash_plain, flash_cases, flash_tf32,
     flash_tf32_lib)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", flash_cases("b"), ids=lambda c: "B{}_S{}_H{}_K{}_hd{}_{}{}".format(

@@ -10,6 +10,7 @@ from repro_torch.kernels.matmul import K_CHUNK
 
 from _torch_emulation import (
     COEFFS, E_ERR_FACTOR, GEMMS, _chain, _gemm, _model_sum, _operands, gemm_f32)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", GEMMS, ids=lambda c: "x".join(map(str, c[:4]))

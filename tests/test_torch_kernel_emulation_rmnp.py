@@ -9,6 +9,7 @@ import pytest
 from _torch_emulation import (  # noqa: F401 — rmnp_lib: the fixtures' dependency
     BETA, EPS, GPT2_SMALL_BUCKETS, RMNP_CASES, _as_f32, _bf16, _case_id, _layout, _rmnp,
     _rmnp_model, _rmnp_operands, _rmnp_split, rmnp_f32, rmnp_lib, rmnp_split_f32)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", RMNP_CASES, ids=_case_id)

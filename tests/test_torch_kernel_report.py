@@ -3,6 +3,7 @@ listings; phase B of ``chip_smoke.py`` gates the bf16 flash builds on what it
 reads (no spill, USETMAXREG beside HGMMA, no serialised wgmma) and the fp32
 ones (no spill, HGMMA). Here it reads text shaped as the tools print it."""
 from repro_torch.kernels import report
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FA128 = "_ZN12_GLOBAL__N_19fa_fwd_tcILi128ELi128EEEvNS_4ArgsE"
 FA192 = "_ZN12_GLOBAL__N_19fa_fwd_tcILi192ELi128EEEvNS_4ArgsE"

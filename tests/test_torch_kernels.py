@@ -28,6 +28,7 @@ from repro_torch.kernels import LAUNCHES, ops, reset_launches
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmnp_update as rm
 from repro_torch.kernels.ref import chunked_attention_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FP32 = dict(rtol=1e-6, atol=1e-7)
 BF16 = dict(rtol=2.0 ** -7, atol=1e-7)

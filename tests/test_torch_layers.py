@@ -24,6 +24,7 @@ from repro_torch.core.types import tree_paths
 from repro_torch.interop import to_numpy, to_tensor
 from repro_torch.models import layers
 from repro_torch.models.model import build_param_specs, init_cache, init_params
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _close_to_max(got, want, frac, what):

@@ -33,6 +33,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.serve import place_cache
 from repro_torch.models import layers
 from repro_torch.models.model import forward, init_cache
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL_FRAC = 1e-5, 2e-6
 B, T = 2, 12
@@ -137,7 +138,7 @@ def test_mla_model_prefill_then_decode_matches_jax_forward(arch):
     want = np.asarray(jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)}, "train")[0])
     params = tree_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
     _, pc, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks[:, :T])}, "prefill")
-    cache = place_cache(init_cache(cfg, B, T + 2, device="cpu"), pc)
+    cache = place_cache(init_cache(cfg, B, T + 2, device="cpu"), pc, cfg)
     mixers = {path.split("/")[-1] for path in _paths(cache)}
     assert mixers == {"ckv", "k_rope"}
     logits, _, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks[:, T:])}, "decode",

@@ -37,6 +37,7 @@ from repro_torch.core.types import map_with_path, tree_paths
 from repro_torch.data.pipeline import make_stream
 from repro_torch.interop import to_numpy, tree_from_numpy
 from repro_torch.models.model import forward, init_params, loss_fn
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEQ, BATCH = 32, 2
 MODELS = [("gpt2-small", {}), ("llama-60m", {}), ("llama-60m", {"n_kv_heads": 2})]

@@ -36,7 +36,9 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.comm import WorldComm
 from repro_torch.interop import gather_params, shard_params
 from repro_torch.launch import dryrun, mesh
-from repro_torch.models.model import build_cache_specs, build_param_specs, init_params
+from repro_torch.models.model import (build_cache_specs, build_param_specs, init_cache,
+                                      init_params)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
@@ -127,7 +129,8 @@ def test_shard_and_gather_leaves_round_trip():
 
 
 @pytest.mark.parametrize("dims", [(1, 2), (2, 4), (1, 3)])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "paligemma-3b", "llama-130m", "gpt2-small"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "paligemma-3b", "llama-130m", "gpt2-small",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b"])
 def test_shard_params_and_gather_params_are_inverses(arch, dims):
     cfg = get_config(arch).reduced()
     w = mesh.make_local_world(*dims)
@@ -146,6 +149,99 @@ def test_shard_params_and_gather_params_are_inverses(arch, dims):
         assert torch.equal(one[path], t), path
 
 
+def test_expert_stacks_and_shared_halves_shard_by_rank():
+    """Reduced deepseek-v2-lite (E = 4, one shared expert of 64) on a model
+    group of 2: rank r holds experts ``[r E / M, (r + 1) E / M)`` of both
+    routed stacks, and ``[gate_r; up_r]`` of the shared experts' fused
+    ``w_in_shared``; gathering the shards gives the whole tree back."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    w = mesh.make_local_world(1, 2)
+    whole = init_params(cfg, 0, "cpu")
+    shards = [shard_params(whole, cfg, w, r) for r in range(2)]
+    table = tp.leaf_table(cfg, w)
+    ffn = whole["stack"]["layer_1"]["ffn"]
+    E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+    assert not table["stack/layer_1/ffn/w_in"].fused_halves
+    assert table["stack/layer_1/ffn/w_in_shared"].fused_halves
+    assert table["stack/layer_0/ffn/w_in"].fused_halves    # the dense FFN's
+    for r, shard in enumerate(shards):
+        mine = shard["stack"]["layer_1"]["ffn"]
+        experts = slice(r * E // 2, (r + 1) * E // 2)
+        assert torch.equal(mine["w_in"], ffn["w_in"][:, experts]), r
+        assert torch.equal(mine["w_out"], ffn["w_out"][:, experts]), r
+        gate, up = torch.chunk(ffn["w_in_shared"], 2, dim=-1)
+        half = f // 2
+        assert torch.equal(mine["w_in_shared"], torch.cat(
+            [gate[..., r * half:(r + 1) * half], up[..., r * half:(r + 1) * half]], -1)), r
+        assert torch.equal(mine["w_out_shared"],
+                           ffn["w_out_shared"][:, r * half:(r + 1) * half]), r
+        for name in ("router", "norm"):
+            assert torch.equal(mine[name], ffn[name]), (r, name)
+        mla = shard["stack"]["layer_1"]["mixer"]
+        for name in ("wkv_a", "kv_a_norm"):
+            assert torch.equal(mla[name], whole["stack"]["layer_1"]["mixer"][name]), name
+    back = dict(tree_paths(gather_params(shards, cfg, w)))
+    for path, t in tree_paths(whole):
+        assert torch.equal(back[path], t), path
+
+
+class _GatherOf:
+    """Model rank ``rank`` of a group whose every rank's prompt cache
+    (``per_rank``, its leaves in tree order) is known: ``all_gather_dim``
+    concatenates that leaf of every rank in rank order."""
+
+    def __init__(self, rank, world, per_rank):
+        self.rank, self.world, self.per_rank = rank, world, per_rank
+
+    def all_gather_dim(self, x, dim):
+        i = next(i for i, t in enumerate(self.per_rank[self.rank]) if t is x)
+        return torch.cat([leaves[i] for leaves in self.per_rank], dim=dim)
+
+
+DS3 = dict(num_layers=3, pattern=(("mla", "dense"),) + (("mla", "moe"),) * 2)
+
+
+@pytest.mark.parametrize("arch,overrides", [("deepseek-v2-lite-16b", DS3), ("qwen3-4b", {})],
+                         ids=["mla_latent", "gqa"])
+def test_place_cache_puts_each_ranks_span_of_a_split_cache(arch, overrides):
+    """A prompt cache of T = 8 positions split over ``kv_seq`` at M = 2 goes
+    into each rank's span of a decode cache of 12: rank 0 positions 0-5,
+    rank 1 positions 6-7 of the prompt and zeros after. MLA's latent ``ckv``
+    and ``k_rope`` hold positions in their second-to-last dim, GQA's k and v
+    in their third-to-last; a prefix layer's leaves have no unit axis."""
+    from repro_torch.launch.serve import place_cache
+    from repro_torch.models.model import init_cache
+    cfg = get_config(arch).reduced(**overrides)
+    B, T, S = 2, 8, 12
+    w = mesh.make_local_world(1, 2)
+    gen = torch.Generator().manual_seed(3)
+    whole = map_with_path(lambda _p, t: torch.randn(t.shape, generator=gen),
+                          init_cache(cfg, B, T, device="cpu"))
+    specs = build_cache_specs(cfg, B, T)
+    seq = {p: list(sp.axes).index("kv_seq") for p, sp in _spec_leaves_with_axes(specs)}
+    spans = [map_with_path(lambda p, t, r=r: t.narrow(seq[p], r * T // 2, T // 2).clone(), whole)
+             for r in range(2)]
+    flat = [[t for _, t in tree_paths(sp)] for sp in spans]
+    for r in range(2):
+        comm = WorldComm(w, r, types.SimpleNamespace(rank=0, world=1),
+                         _GatherOf(r, 2, flat))
+        full = init_cache(cfg, B, S, device="cpu", world=w)
+        got = dict(tree_paths(place_cache(full, spans[r], cfg, comm, T, S)))
+        for path, t in tree_paths(whole):
+            d = seq[path]
+            assert got[path].shape[d] == S // 2, path
+            want = torch.zeros_like(got[path])
+            n = max(0, min(T - r * S // 2, S // 2))
+            want.narrow(d, 0, n).copy_(t.narrow(d, r * S // 2, n))
+            assert torch.equal(got[path], want), (path, r)
+
+
+def _spec_leaves_with_axes(specs):
+    out = []
+    map_with_path(lambda path, sp: out.append((path, sp)) or sp, specs)
+    return out
+
+
 def _world_comm(dims):
     w = mesh.make_local_world(*dims)
     data = types.SimpleNamespace(rank=0, world=dims[0])
@@ -156,9 +252,17 @@ def _world_comm(dims):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b", "olmoe-1b-7b",
                                   "jamba-v0.1-52b", "xlstm-350m"])
 def test_configs_outside_the_slice_raise_naming_item_14(arch):
+    """The SSM archs (``d_inner``) raise at a model group above one; the MLA
+    and MoE archs run there, and a batch-1 cache of theirs (``long_seq``
+    over data and model) raises."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=ITEM):
-        tp.axis_for(cfg, _world_comm((1, 2)))
+    if arch in ("jamba-v0.1-52b", "xlstm-350m"):
+        with pytest.raises(NotImplementedError, match=ITEM):
+            tp.axis_for(cfg, _world_comm((1, 2)))
+    else:
+        assert tp.axis_for(cfg, _world_comm((1, 2))).size == 2
+        with pytest.raises(NotImplementedError, match=ITEM):
+            init_cache(cfg, 1, 8, device="cpu", world=mesh.make_local_world(2, 2))
     assert tp.axis_for(cfg, _world_comm((1, 1))) is not None  # nothing split at one
 
 
@@ -207,11 +311,13 @@ def test_decode_on_a_group_needs_the_cache_length():
 
 def test_the_production_worlds_of_the_dry_run():
     for arch in ("qwen3-4b", "yi-9b", "phi3-mini-3.8b", "paligemma-3b", "musicgen-large",
-                 "gpt2-small", "llama-130m"):
+                 "gpt2-small", "llama-130m", "minicpm3-4b", "olmoe-1b-7b",
+                 "deepseek-v2-lite-16b"):
         w, why = dryrun.production_world(get_config(arch), False)
         assert (w.size, w.model_parallel, why) == (256, 16, None), arch
-    for arch in ("minicpm3-4b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
-                 "xlstm-350m"):
+        w, why = dryrun.production_world(get_config(arch), True)
+        assert (w.size, w.model_parallel, why) == (512, 16, None), arch
+    for arch in ("jamba-v0.1-52b", "xlstm-350m"):
         w, why = dryrun.production_world(get_config(arch), True)
         assert (w.size, w.model_parallel) == (32, 1) and ITEM in why, arch
 

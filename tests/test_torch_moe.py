@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.interop import to_numpy
 from repro_torch.models import moe
 from repro_torch.models.layers import rms_norm
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, S = 2, 16
 ARCHS = ["olmoe-1b-7b", "deepseek-v2-lite-16b"]

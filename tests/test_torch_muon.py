@@ -66,6 +66,7 @@ from repro_torch.kernels.ref import dominance_ref
 from repro_torch.launch import train as train_mod
 from test_torch_optim import (ENGINES, STEPS, _assert_trees_close, _grads, _jax_params,
                               _np_tree, _run_torch)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 COEFFS = (3.4445, -4.7750, 2.0315)
 PEAK_LR = 2e-2

@@ -44,6 +44,7 @@ from repro_torch.core.engine import matrix_optimizer
 from repro_torch.core.rules import RmnpRule, make_rule, per_leaf_reference
 from repro_torch.core.types import tree_paths
 from repro_torch.interop import mixed_state_from_numpy, to_numpy, tree_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 3
 PEAK_LR = 2e-2

@@ -53,6 +53,7 @@ from repro_torch.launch.train import train
 from repro_torch.models import init_params
 from repro_torch.train import faults, pipeline
 from repro_torch.train.step import make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -59,6 +59,7 @@ from repro_torch.models.model import (
     init_params,
 )
 from repro_torch.train.step import eval_step, make_prefill_step, make_serve_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL_FRAC = 1e-5, 2e-6
 BF16_FRAC = 2.0 ** -6
@@ -248,7 +249,7 @@ def test_decode_matches_dense_forward(arch):
     toks = torch.from_numpy(_prompts(cfg, 2, 9, seed=7))
     dense_logits = forward(cfg, params, {"tokens": toks}, "train")[0]
     _, pc, _ = forward(cfg, params, {"tokens": toks[:, :8]}, "prefill")
-    cache = place_cache(init_cache(cfg, 2, 16, device="cpu"), pc)
+    cache = place_cache(init_cache(cfg, 2, 16, device="cpu"), pc, cfg)
     dec_logits, _, _ = forward(cfg, params, {"tokens": toks[:, 8:9]}, "decode",
                                cache=cache, pos=8)
     np.testing.assert_allclose(to_numpy(dec_logits[:, 0]), to_numpy(dense_logits[:, 8]),
@@ -275,7 +276,7 @@ def test_bf16_reduced_qwen3_matches_jax():
 
     close(last, jlast, "prefill logits")
     jcache = _jax_place(jax_init_cache(jcfg, B, S_MAX), jpc)
-    cache = place_cache(init_cache(cfg, B, S_MAX, device="cpu"), pc)
+    cache = place_cache(init_cache(cfg, B, S_MAX, device="cpu"), pc, cfg)
     assert all(t.dtype == torch.bfloat16 for _, t in tree_paths(cache))
     jserve, tserve = jax.jit(jax_make_serve_step(jcfg)), make_serve_step(cfg)
     tok = jnp.argmax(jlast[:, :jcfg.vocab], -1).astype(jnp.int32)[:, None]

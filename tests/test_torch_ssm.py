@@ -60,6 +60,7 @@ from repro_torch.models import ssm
 from repro_torch.models.model import (MIXERS, build_param_specs, forward, init_cache, loss_fn,
                                       plan_stack)
 from repro_torch.train.step import make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL_FRAC = 1e-5, 2e-6
 GRAD_FRAC = 1e-5   # whole-model gradients, as tests/test_torch_model.py
@@ -321,7 +322,7 @@ def test_decode_from_a_prefill_cache_matches_the_forward(model):
     assert sorted(p for p, _ in tree_paths(pc)) == sorted(jflat)
     for path, t in tree_paths(pc):
         _close(t, jflat[path], f"prefill cache {path}")
-    cache = place_cache(init_cache(cfg, B, T + 2, device="cpu"), pc)
+    cache = place_cache(init_cache(cfg, B, T + 2, device="cpu"), pc, cfg)
     states = {path.split("/")[-1] for path, _ in tree_paths(cache)}
     assert states >= ({"C", "n", "h", "c"} if arch == "xlstm-350m" else {"h", "conv", "k"})
     logits, out, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks[:, T:])},

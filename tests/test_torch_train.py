@@ -33,6 +33,7 @@ from repro_torch.interop import to_numpy, tree_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.launch import train as train_mod
 from repro_torch.train.step import make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS, BATCH, SEQ = 3, 2, 16
 

@@ -35,6 +35,7 @@ from repro.core import bucketing as jax_bucketing
 from repro_torch.core import bucketing, make_optimizer
 from repro_torch.configs import get_config
 from repro_torch.train.dp_step import make_dp_train_step
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RULES = W.RULES

@@ -91,7 +91,7 @@ def main():
         state["last"], state["pc"] = prefill(params, {"tokens": prompts})
 
     out["prefill"] = window(run_prefill)
-    cache = place_cache(init_cache(cfg, B, T + N, device="cuda"), state.pop("pc"))
+    cache = place_cache(init_cache(cfg, B, T + N, device="cuda"), state.pop("pc"), cfg)
     tok = torch.argmax(state["last"][:, :cfg.vocab], -1).to(torch.int32)[:, None]
     state.update(cache=cache, tok=tok)
 
